@@ -5,21 +5,41 @@
 Phases (any failure exits nonzero; nothing falls back to the CPU):
 
 1. the card: its name and power limit, as ``nvidia-smi`` reports them;
-2. build: every kernel the serving path emits (the attention kernel of
-   each prompt bucket and of the ragged decode step, and the SwiGLU group
-   and down-projection kernels of each), generated by
-   ``repro_torch.core.codegen_cuda`` and compiled by nvcc for sm_90a;
-3. each kernel against its plain PyTorch version on the card, on inputs
-   of the shapes the serving path gives it (``rtol = atol = 2e-4``), timed
-   with CUDA events beside the plain version and, where one PyTorch call
-   computes the same function, that call (``scaled_dot_product_attention``
-   for attention, ``matmul`` for the down projection);
+2. build, one nvcc per source, all started together: every kernel the
+   serving path emits (the attention kernel of each prompt bucket and of
+   the ragged decode step, and the SwiGLU group and down-projection
+   kernels of each), generated by ``repro_torch.core.codegen_cuda``, and
+   the three hand-written kernels of ``repro_torch/csrc/`` (flash
+   attention, RMSNorm+SwiGLU, LayerNorm+matmul), all for sm_90a;
+3. each emitted kernel against its plain PyTorch version on the card, on
+   inputs of the shapes the serving path gives it (``rtol = atol =
+   2e-4``), timed with CUDA events beside the plain version and, where one
+   PyTorch call computes the same function, that call
+   (``scaled_dot_product_attention`` for attention, ``matmul`` for the
+   down projection);
 4. ``repro_torch.launch.serve.run`` at the full width and depth of
    smollm-135m (seeded random weights) through the CUDA kernels, with
    every launch counter set to 0 just before and read just after; its
    greedy tokens are held against the same engine on the plain ``torch``
    backend;
-5. a ``kernels`` JSON line, the card line, and the result line.
+5. each hand-written kernel against its plain version at every shape of
+   paths A and B below, plus one bfloat16 case each (float32: ``2e-4`` for
+   attention, ``2e-4 * sqrt(K)`` absolute for LayerNorm+matmul, ``4e-4``
+   for SwiGLU; bfloat16: ``5e-2``), timed beside its plain version (and
+   ``scaled_dot_product_attention`` for attention), with its bound;
+6. a plumbing check of each kernel's ``autograd.Function``: its forward
+   launches the kernel once, and its backward (autograd of the plain
+   oracle, by design) returns finite gradients of the inputs' shapes for
+   every input that needs one;
+7. path A: ``LM.forward`` and ``LM.prefill`` of full-width smollm-135m
+   (30 layers, batch 4 x 512 tokens) on ``attn_impl = mlp_impl = "cuda"``,
+   and path B: ``EncDec.prefill`` of full-width whisper-tiny (4 + 4
+   layers, 1500 frames, batch 2 x 64 tokens); each call once with the
+   launch counters set to 0 just before and read just after (exact
+   counts), its logits finite and within 1e-3 of the same call on the
+   plain impls, then timed over ``PATH_REPEATS`` calls (median and
+   spread);
+8. a ``kernels`` JSON line, the card line, and the result line.
 """
 
 from __future__ import annotations
@@ -27,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -35,8 +56,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TOL = 2e-4          # kernel vs plain version, float32 (summation order)
 SERVE_TOL = 1e-3    # logits of the CUDA engine vs the torch engine
+PATH_TOL = 1e-3     # logits of a hand-kernel path vs its plain impls
+BF16_TOL = 5e-2     # hand kernel vs plain version, bfloat16
+PATH_REPEATS = 10   # timed calls of each hand-kernel path
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # H100 SXM data sheet, float32 outside tensor cores
+BF16_FLOPS = 989e12         # H100 SXM data sheet, dense bfloat16
 
 
 def fail(msg: str) -> None:
@@ -135,6 +160,299 @@ def library_call(name, kin, inputs, kern):
     return None
 
 
+# -- the hand-written kernels (phases 5-7) ----------------------------------
+
+HAND = {  # module of repro_torch.kernels: the TPU kernel it replaces
+    "flash_attention": "src/repro/kernels/flash_attention.py:70",
+    "rmsnorm_swiglu": "src/repro/kernels/rmsnorm_swiglu.py:58",
+    "layernorm_matmul": "src/repro/kernels/layernorm_matmul.py:65",
+}
+
+
+def hand_modules():
+    import importlib
+    return {name: importlib.import_module(f"repro_torch.kernels.{name}")
+            for name in HAND}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(in_out_bytes: int, flops: float, dtype):
+    """(least time in ms, what bounds it) on the H100 data sheet."""
+    import torch
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes = in_out_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def hand_cases(gen):
+    """Every hand-kernel case: the shapes paths A and B give each kernel
+    (the first of each kernel is its main shape), plus one bfloat16 case
+    per kernel.  Inputs scaled as in tests/test_kernels.py."""
+    import torch
+    import torch.nn.functional as F
+    mods = hand_modules()
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, scale=1.0, dtype=f32):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    cases = []
+
+    def attention(label, b, h, sq, skv, dh, causal, hkv=None, dtype=f32):
+        hkv = hkv or h
+        q = randn(b, h, sq, dh, dtype=dtype)
+        k = randn(b, hkv, skv, dh, dtype=dtype)
+        v = randn(b, hkv, skv, dh, dtype=dtype)
+        mod = mods["flash_attention"]
+        kept = sum(min(skv, r + 1) for r in range(sq)) if causal \
+            else sq * skv
+        cases.append(dict(
+            kernel="flash_attention", label=label, dtype=dtype,
+            tol=(TOL, TOL) if dtype == f32 else (BF16_TOL, BF16_TOL),
+            run=lambda: mod.flash_attention_cuda(q, k, v, causal=causal),
+            plain=lambda: mod.plain(q, k, v, causal=causal),
+            library=lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=hkv != h),
+            bytes=nbytes(q, k, v, q), flops=4.0 * dh * kept * b * h))
+
+    def swiglu(label, m, d, kdim, n, dtype=f32):
+        x = randn(m, d, dtype=dtype)
+        w = randn(d, kdim, scale=d ** -0.5, dtype=dtype)
+        v = randn(d, kdim, scale=d ** -0.5, dtype=dtype)
+        u = randn(kdim, n, scale=kdim ** -0.5, dtype=dtype)
+        g = randn(d, scale=0.1) + 1.0
+        mod = mods["rmsnorm_swiglu"]
+        out = torch.empty(m, n, dtype=dtype, device="cuda")
+        cases.append(dict(
+            kernel="rmsnorm_swiglu", label=label, dtype=dtype,
+            tol=(2 * TOL, 2 * TOL) if dtype == f32 else (BF16_TOL, BF16_TOL),
+            run=lambda: mod.rmsnorm_swiglu_cuda(x, w, v, u, g),
+            plain=lambda: mod.plain(x, w, v, u, g), library=None,
+            bytes=nbytes(x, w, v, u, g, out),
+            flops=4.0 * m * d * kdim + 2.0 * m * kdim * n))
+
+    def lnmm(label, m, kdim, n, dtype=f32):
+        x = randn(m, kdim, dtype=dtype)
+        y = randn(kdim, n, dtype=dtype)
+        g = randn(kdim, scale=0.1) + 1.0
+        bt = randn(kdim, scale=0.1)
+        mod = mods["layernorm_matmul"]
+        out = torch.empty(m, n, dtype=dtype, device="cuda")
+        cases.append(dict(
+            kernel="layernorm_matmul", label=label, dtype=dtype,
+            tol=((TOL * kdim ** 0.5, TOL) if dtype == f32
+                 else (BF16_TOL, BF16_TOL)),
+            run=lambda: mod.layernorm_matmul_cuda(x, y, g, bt),
+            plain=lambda: mod.plain(x, y, g, bt), library=None,
+            bytes=nbytes(x, y, g, bt, out), flops=2.0 * m * kdim * n))
+
+    attention("smollm prefill q (4,9,512,64) kv (4,3,512,64) causal",
+              4, 9, 512, 512, 64, True, hkv=3)
+    attention("whisper encoder (2,6,1500,64)", 2, 6, 1500, 1500, 64, False)
+    attention("whisper decoder self (2,6,64,64) causal", 2, 6, 64, 64, 64,
+              True)
+    attention("whisper cross q (2,6,64,64) kv (2,6,1500,64)", 2, 6, 64,
+              1500, 64, False)
+    attention("smollm prefill bf16", 4, 9, 512, 512, 64, True, hkv=3,
+              dtype=bf16)
+    swiglu("smollm x (2048,576) W/V (576,1536) U (1536,576)", 2048, 576,
+           1536, 576)
+    swiglu("smollm M=2048 bf16", 2048, 576, 1536, 576, dtype=bf16)
+    lnmm("whisper encoder x (3000,384) Y (384,1536)", 3000, 384, 1536)
+    lnmm("whisper decoder x (128,384) Y (384,1536)", 128, 384, 1536)
+    lnmm("whisper encoder M=3000 bf16", 3000, 384, 1536, dtype=bf16)
+    return cases
+
+
+def check_hand_kernels(cases):
+    """Phase 5: every case against its plain version, then timed."""
+    import torch
+    rows = {}
+    for c in cases:
+        name, label = c["kernel"], c["label"]
+        got, want = c["run"](), c["plain"]()
+        torch.cuda.synchronize()
+        if got.dtype != c["dtype"] or not torch.isfinite(got).all():
+            fail(f"{name} [{label}]: {got.dtype} output, or not finite")
+        err = (got.float() - want.float()).abs().max().item()
+        atol, rtol = c["tol"]
+        if not torch.allclose(got.float(), want.float(), atol=atol,
+                              rtol=rtol):
+            fail(f"{name} [{label}]: kernel disagrees with its plain "
+                 f"version (max abs err {err:.3e}, atol {atol:.2e})")
+        ms, plain_ms = time_ms(c["run"]), time_ms(c["plain"])
+        lib_ms = time_ms(c["library"]) if c["library"] else None
+        bound_ms, bound_by = bound(c["bytes"], c["flops"], c["dtype"])
+        case = {"shape": label, "max_abs_err": err, "atol": atol,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "flops": c["flops"], "bytes": c["bytes"]}
+        print(f"{name} [{label}]: max_abs_err={err:.3e} (atol {atol:.2e}) "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms} "
+              f"bound_ms={bound_ms:.6f} ({bound_by})", flush=True)
+        if name not in rows:        # the first case is the main shape
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": HAND[name], "launches": 0,
+                **{k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+                "cases": []}
+        rows[name]["cases"].append(case)
+    return rows
+
+
+def check_backward(gen):
+    """Phase 6, a plumbing check of each kernel's autograd.Function (not
+    a test of the kernel: the backward is autograd of the plain oracle by
+    design).  The forward must launch the kernel once; the backward must
+    give finite gradients of the inputs' shapes, equal to autograd of the
+    oracle alone (``impl="ref"``), for a call where only some inputs need
+    one (``needs_input_grad``)."""
+    import torch
+    from repro_torch.kernels import ops as K
+    mods = hand_modules()
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale \
+            + shift
+
+    calls = {
+        "flash_attention": (
+            lambda impl, q, k, v: K.flash_attention(q, k, v, causal=True,
+                                                    impl=impl),
+            [randn(2, 9, 128, 64), randn(2, 3, 128, 64),
+             randn(2, 3, 128, 64)]),
+        "rmsnorm_swiglu": (
+            lambda impl, *a: K.rmsnorm_swiglu(*a, impl=impl),
+            [randn(256, 576), randn(576, 1536, scale=576 ** -0.5),
+             randn(576, 1536, scale=576 ** -0.5),
+             randn(1536, 576, scale=1536 ** -0.5),
+             randn(576, scale=0.1, shift=1.0)]),
+        "layernorm_matmul": (
+            lambda impl, *a: K.layernorm_matmul(*a, impl=impl),
+            [randn(256, 384), randn(384, 1536),
+             randn(384, scale=0.1, shift=1.0), randn(384, scale=0.1)]),
+    }
+    for name, (fn, args) in calls.items():
+        for a in args[:-1]:           # the last input needs no gradient
+            a.requires_grad_(True)
+        wanted = args[:-1]
+        kernel = mods[name].KERNEL
+        before = kernel.launches
+        out = fn("cuda", *args)
+        if kernel.launches != before + 1:
+            fail(f"{name}: the autograd.Function's forward launched the "
+                 f"kernel {kernel.launches - before} times, not once")
+        ct = torch.randn(out.shape, generator=gen, device="cuda")
+        got = torch.autograd.grad(out, wanted, ct)
+        want = torch.autograd.grad(fn("ref", *args), wanted, ct)
+        torch.cuda.synchronize()
+        for a, g, w in zip(wanted, got, want):
+            if g.shape != a.shape or not torch.isfinite(g).all():
+                fail(f"{name}: gradient of shape {tuple(g.shape)} for an "
+                     f"input of {tuple(a.shape)}, or not finite")
+            if not torch.allclose(g, w, atol=1e-4, rtol=1e-4):
+                fail(f"{name}: the backward is not autograd of the oracle")
+        print(f"{name}: autograd.Function plumbing ok (forward launched "
+              f"the kernel; {len(wanted)} of {len(args)} gradients, shaped "
+              "as their inputs)", flush=True)
+
+
+def run_path(label, call, plain_call, expect, kernels):
+    """Phase 7: one warm call; one call with every launch counter set to 0
+    just before and read just after, whose logits are held against the
+    same call on the plain impls; then ``PATH_REPEATS`` calls, each timed
+    on the host clock between two synchronizations."""
+    import torch
+    call()
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    logits = call()
+    torch.cuda.synchronize()
+    counts = {name: k.launches for name, k in kernels.items()}
+    if counts != expect:
+        fail(f"{label}: launches {counts}, expected {expect}")
+    if not torch.isfinite(logits).all():
+        fail(f"{label}: non-finite logits")
+    want = plain_call()
+    torch.cuda.synchronize()
+    diff = (logits - want).abs().max().item()
+    if diff > PATH_TOL:
+        fail(f"{label}: logits differ from the plain impls by {diff:.3e}")
+    del logits, want
+    times = []
+    for _ in range(PATH_REPEATS):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    timing = {"median_ms": statistics.median(times), "min_ms": min(times),
+              "max_ms": max(times), "calls": len(times)}
+    print(f"{label}: median {timing['median_ms']} ms per call over "
+          f"{len(times)} calls (min {timing['min_ms']}, max "
+          f"{timing['max_ms']}), launches {counts}, logits within "
+          f"{diff:.3e} of the plain impls", flush=True)
+    return counts, timing, diff
+
+
+def run_paths(kernels):
+    """Path A (smollm-135m forward and prefill) and path B (whisper-tiny
+    prefill) on the hand kernels, full width, seeded random weights."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.models.lm import build_model
+
+    def models(arch, **overrides):
+        cfg = dataclasses.replace(C.get_config(arch), dtype=torch.float32,
+                                  attn_impl="cuda", mlp_impl="cuda",
+                                  **overrides)
+        plain = dataclasses.replace(cfg, attn_impl="ref",
+                                    mlp_impl="fused_ref")
+        return cfg, build_model(cfg), build_model(plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    cfg, hand, plain = models("smollm-135m")
+    params = hand.init_params(seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (4, 512), generator=gen,
+                         device="cuda")
+    a = {"flash_attention": 30, "rmsnorm_swiglu": 30, "layernorm_matmul": 0}
+    with torch.no_grad():
+        out["A forward"] = run_path(
+            "path A: smollm-135m LM.forward (4 x 512)",
+            lambda: hand.forward(params, toks),
+            lambda: plain.forward(params, toks), a, kernels)
+        out["A prefill"] = run_path(
+            "path A: smollm-135m LM.prefill (4 x 512, max_len 512)",
+            lambda: hand.prefill(params, toks, max_len=512)[0],
+            lambda: plain.prefill(params, toks, max_len=512)[0], a, kernels)
+    del params
+    cfg, hand, plain = models("whisper-tiny")
+    params = hand.init_params(seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                         device="cuda")
+    frames = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=gen,
+                         device="cuda")
+    b = {"flash_attention": 12, "rmsnorm_swiglu": 0, "layernorm_matmul": 8}
+    with torch.no_grad():
+        out["B prefill"] = run_path(
+            "path B: whisper-tiny EncDec.prefill (2 x 1500 frames, 64 "
+            "tokens, max_len 128)",
+            lambda: hand.prefill(params, toks, frames, max_len=128)[0],
+            lambda: plain.prefill(params, toks, frames, max_len=128)[0], b,
+            kernels)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -142,6 +460,7 @@ def main() -> int:
              "the card only")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import codegen_cuda as CC
+    from repro_torch.core import cuda_build as CB
     from repro_torch.launch import serve as S
     from repro_torch.models import layers as L
 
@@ -162,9 +481,17 @@ def main() -> int:
         print(f"{prog}: {ck.lowering_report.summary()}", flush=True)
         for k in ck.kernels:
             kernels[f"{prog}/{k.gid}"] = (prog, ck, k)
-    build_s = CC.build([k for _, _, k in kernels.values()])
-    print(f"built {len(kernels)} kernels with nvcc (sm_90a) in "
-          f"{build_s:.2f} s", flush=True)
+    hand = {name: mod.KERNEL for name, mod in hand_modules().items()}
+    t0 = time.perf_counter()
+    CB.build_many(list({k.key: k.source for _, _, k in kernels.values()}
+                       .items()) + [(k.key, k.source) for k in hand.values()])
+    CC.build([k for _, _, k in kernels.values()])
+    for k in hand.values():
+        k.build()
+    build_s = time.perf_counter() - t0
+    print(f"built {len(kernels)} emitted and {len(hand)} hand-written "
+          f"kernels ({', '.join(hand)}) with nvcc (sm_90a), one process "
+          f"each, in {build_s:.2f} s", flush=True)
 
     # -- 3. each kernel against its plain version --------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -269,9 +596,21 @@ def main() -> int:
     print(f"greedy tokens equal to the torch backend for {same}/"
           f"{len(report.tokens)} requests", flush=True)
 
+    # -- 5-7. the hand-written kernels and their paths ---------------------
+    hand_rows = check_hand_kernels(hand_cases(gen))
+    check_backward(gen)
+    paths = run_paths(hand)
+
     for name, row in rows.items():
         row["launches"] = launches[name]
-    print(json.dumps({"kernels": list(rows.values())}))
+    for name, row in hand_rows.items():
+        row["launches_by_path"] = {p: c[name] for p, (c, _, _) in
+                                   paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+    print("paths: " + json.dumps({p: {**timing, "max_abs_diff_vs_plain": d}
+                                  for p, (_, timing, d) in paths.items()}))
+    print(json.dumps({"kernels": list(rows.values())
+                      + list(hand_rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,16 @@
 """Architecture registry of the torch port (the port of ``repro.configs``
-for the architectures this slice serves)."""
+for the architectures ported so far)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import smollm_135m
+from repro_torch.configs import smollm_135m, whisper_tiny
 from repro_torch.models.common import ModelConfig, reduced_config
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [smollm_135m.CONFIG]}
+ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in [smollm_135m.CONFIG, whisper_tiny.CONFIG]}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -63,6 +63,7 @@ from repro_torch.core import codegen_torch as CT
 from repro_torch.core import cuda_build as CB
 from repro_torch.core import ops as O
 from repro_torch.core import regions as R
+from repro_torch.core.runtime import current_stream, placement
 from repro_torch.core.blocks import merged_shape
 from repro_torch.core.graph import (FuncNode, Graph, InputNode, MapNode,
                                     OutputNode, Ref, ReduceNode, VType)
@@ -727,34 +728,39 @@ class CudaKernel:
         self.smem_bytes = smem_bytes
         self.blocks = blocks
         self.flops = flops    # float operations per instance
-        self.key = CB.source_key(source)
-        self.launches = 0
-        self._fn = None
+        self.launcher = CB.Launcher(source, "launch",
+                                    what=f"kernel {gid} ({label})")
 
     def __repr__(self):
         return (f"<CudaKernel {self.gid} {self.label} blocks={self.blocks} "
                 f"smem={self.smem_bytes}>")
 
     @property
+    def key(self) -> str:
+        return self.launcher.key
+
+    @property
+    def launches(self) -> int:
+        return self.launcher.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.launcher.launches = n
+
+    @property
     def built(self) -> bool:
         return CB.library_path(self.key).exists()
 
     def build(self) -> None:
-        if self._fn is None:
-            CB.build_many([(self.key, self.source)])
-            self._fn = CB.load(self.key, "launch")
+        self.launcher.build()
 
     def plain(self, *merged, instances: int = 0):
         """The plain PyTorch version of this kernel."""
         return self.runner(*merged, instances=instances)
 
     def __call__(self, *merged, instances: int = 0):
-        kinds = {a.device.type for a in merged}
-        if kinds == {"cpu"}:
+        if placement(self.gid, *merged) == "cpu":
             return self.plain(*merged, instances=instances)
-        if kinds != {"cuda"}:
-            raise ValueError(f"{self.gid}: inputs on {sorted(kinds)}; the "
-                             "CUDA kernel takes CUDA tensors only")
         return self.launch(*merged, instances=instances)
 
     def launch(self, *merged, instances: int = 0):
@@ -787,25 +793,20 @@ class CudaKernel:
                   for k in range(instances)]
             strides += st + [0] * (MAX_INSTANCE_AXES - instances)
         ext = list(inst) + [1] * (MAX_INSTANCE_AXES - instances)
-        self.build()
         tensors = list(merged) + outs
         ptrs = (ctypes.c_void_p * len(tensors))(
             *[t.data_ptr() for t in tensors])
         arr = (ctypes.c_longlong * len(strides))(*strides)
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = self._fn(ptrs, arr, ext[0], ext[1], stream)
-        if rc != 0:
-            raise RuntimeError(f"launch of kernel {self.gid} ({self.label}) "
-                               f"failed with cudaError {rc}")
-        self.launches += 1
+            self.launcher.launch(ptrs, arr, ext[0], ext[1],
+                                 current_stream(dev))
         return tuple(outs)
 
 
 def build(kernels: Sequence[CudaKernel]) -> float:
     """Build and load every given kernel that is not loaded yet: one nvcc
     per source, all started together.  Returns the seconds it took."""
-    todo = [k for k in kernels if k._fn is None]
+    todo = [k for k in kernels if not k.launcher.loaded]
     t0 = time.perf_counter()
     CB.build_many(list({k.key: k.source for k in todo}.items()))
     for k in todo:

@@ -1,13 +1,13 @@
-"""Build and load the CUDA kernels that ``core/codegen_cuda.py`` emits.
+"""Build and load the CUDA kernels: those that ``core/codegen_cuda.py``
+emits, and the hand-written ones under ``csrc/`` (:func:`csrc_launcher`).
 
-Each kernel is one generated ``.cu`` file with a plain C entry point,
-compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library and
-loaded with ``ctypes`` — no PyTorch headers, so one build takes seconds.
-Libraries go to ``build/repro_torch/`` under the checkout (or
-``$REPRO_TORCH_BUILD_DIR``), named by a hash of the source, the tile
-header and the flags, so an unchanged kernel is built once and a changed
-one can never load a stale library.  :func:`build_many` runs one ``nvcc``
-per source, all at once.
+Each kernel is one ``.cu`` file with a plain C entry point, compiled by
+``nvcc`` for Hopper (``sm_90a``) into a shared library and loaded with
+``ctypes`` — no PyTorch headers, so one build takes seconds.  Libraries go
+to ``build/repro_torch/`` under the checkout (or ``$REPRO_TORCH_BUILD_DIR``),
+named by a hash of the source, the headers and the flags, so an unchanged
+kernel is built once and a changed one can never load a stale library.
+:func:`build_many` runs one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -102,13 +102,53 @@ def build_many(sources: Sequence[Tuple[str, str]]) -> List[Path]:
     return [library_path(key) for key, _ in sources]
 
 
-def load(key: str, symbol: str):
-    """The kernel's C launcher ``int symbol(void** ptrs, const long long*
-    strides, int inst0, int inst1, void* stream)`` from its library."""
-    lib = ctypes.CDLL(str(library_path(key)))
-    fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn.keepalive = lib
-    return fn
+#: ``argtypes`` of the emitted kernels' launcher ``int symbol(void** ptrs,
+#: const long long* strides, int inst0, int inst1, void* stream)``
+EMITTED_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_void_p)
+
+
+class Launcher:
+    """The C launcher ``symbol`` of the library built from ``source``: it
+    returns a ``cudaError_t`` code as an int.  Built and loaded on first
+    use; each accepted launch adds one to ``launches``."""
+
+    def __init__(self, source: str, symbol: str,
+                 argtypes: Sequence = EMITTED_ARGTYPES,
+                 what: Optional[str] = None):
+        self.source, self.symbol = source, symbol
+        self.argtypes = tuple(argtypes)
+        self.what = what or symbol
+        self.key = source_key(source)
+        self.launches = 0
+        self._fn = None
+
+    @property
+    def loaded(self) -> bool:
+        return self._fn is not None
+
+    def build(self) -> None:
+        if self._fn is None:
+            build_many([(self.key, self.source)])
+            lib = ctypes.CDLL(str(library_path(self.key)))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = list(self.argtypes)
+            fn.restype = ctypes.c_int
+            fn.keepalive = lib
+            self._fn = fn
+
+    def launch(self, *args) -> None:
+        """Call the launcher (the caller passes the stream among ``args``)
+        and raise if the launch was refused."""
+        self.build()
+        rc = self._fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"launch of {self.what} failed with "
+                               f"cudaError {rc}")
+        self.launches += 1
+
+
+def csrc_launcher(file: str, symbol: str, argtypes: Sequence) -> Launcher:
+    """The launcher of the hand-written kernel ``csrc/<file>``."""
+    return Launcher((CSRC / file).read_text(), symbol, argtypes,
+                    what=f"{symbol} ({file})")

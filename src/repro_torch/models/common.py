@@ -22,7 +22,7 @@ import torch
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"       # dense only in this slice of the port
+    family: str = "dense"       # dense | encdec (the families ported)
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -34,10 +34,13 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    # --- enc-dec (whisper) ---
+    n_enc_layers: int = 0
+    enc_seq: int = 1500
     # --- runtime ---
     dtype: Any = torch.bfloat16
-    attn_impl: str = "ref"       # ref | pipeline
-    mlp_impl: str = "unfused"    # unfused | pipeline
+    attn_impl: str = "ref"       # ref | chunked | cuda | pipeline
+    mlp_impl: str = "unfused"    # unfused | fused_ref | cuda | pipeline
     pipeline_backend: str = "torch"  # py | torch | cuda (the pipeline impls)
 
 
@@ -54,6 +57,8 @@ def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
         d_ff=256,
         vocab=512,
         max_seq=256,
+        n_enc_layers=min(cfg.n_enc_layers, 2),
+        enc_seq=64 if cfg.n_enc_layers else 0,
         dtype=torch.float32,
     )
     small.update(overrides)
@@ -65,6 +70,15 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
     xf = x.float()
     irms = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
     return (xf * irms * gamma.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(x.dtype)
 
 
 def rope_frequencies(d_head: int, theta: float,
@@ -107,21 +121,28 @@ class ParamBuilder:
     def ones(self, shape: Tuple[int, ...]) -> torch.Tensor:
         return self._t(np.ones(shape, np.float32))
 
+    def zeros(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        return self._t(np.zeros(shape, np.float32))
+
+
+def init_attention(pb: ParamBuilder, cfg: ModelConfig):
+    """The q/k/v/o projections."""
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    return {"wq": pb.dense((d, h * dh)), "wk": pb.dense((d, hkv * dh)),
+            "wv": pb.dense((d, hkv * dh)), "wo": pb.dense((h * dh, d))}
+
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     """Random dense-LM weights from a seeded numpy generator, with the
     reference's shapes and scales, in the layout ``models/lm.py``
     describes."""
     pb = ParamBuilder(np.random.default_rng(seed), cfg.dtype, device)
-    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    d = cfg.d_model
     params = {"embed": pb.dense((cfg.vocab, d), scale=0.02), "layers": []}
     for _ in range(cfg.n_layers):
         params["layers"].append({
             "ln1": pb.ones((d,)),
-            "mixer": {"wq": pb.dense((d, h * dh)),
-                      "wk": pb.dense((d, hkv * dh)),
-                      "wv": pb.dense((d, hkv * dh)),
-                      "wo": pb.dense((h * dh, d))},
+            "mixer": init_attention(pb, cfg),
             "ln2": pb.ones((d,)),
             "mlp": {"w_gate": pb.dense((d, cfg.d_ff)),
                     "w_up": pb.dense((d, cfg.d_ff)),

@@ -1,14 +1,20 @@
 """Attention and RMSNorm+SwiGLU layers of the torch port: the port of the
 dense-model part of ``repro.models.layers``.
 
-``cfg.attn_impl`` / ``cfg.mlp_impl`` pick the implementation: ``"ref"``
-and ``"unfused"`` are plain PyTorch; ``"pipeline"`` compiles the paper's
-block program through ``repro_torch.pipeline`` and runs the resulting
-kernel (``cfg.pipeline_backend`` ``"cuda"`` on the card, ``"torch"`` for
-the plain lowering).  Both pipeline paths cast their operands to float32,
-as the reference does (layers.py:127-129, 158-161).  The projections,
-``wo`` and the head stay ``torch.matmul``: none of them is inside a
-Pallas kernel in the reference either.
+``cfg.attn_impl`` / ``cfg.mlp_impl`` pick the implementation:
+
+* ``"pipeline"`` compiles the paper's block program through
+  ``repro_torch.pipeline`` and runs the resulting kernel
+  (``cfg.pipeline_backend`` ``"cuda"`` on the card, ``"torch"`` for the
+  plain lowering).  Both pipeline paths cast their operands to float32, as
+  the reference does (layers.py:127-129, 158-161).
+* ``"cuda"`` runs the paper's hand-written kernels through
+  ``kernels.ops`` (the reference's ``"pallas"``); ``"chunked"`` (attention)
+  and ``"fused_ref"`` (MLP) run their plain versions there, ``"ref"`` the
+  plain attention oracle, ``"unfused"`` the MLP op by op.
+
+The projections, ``wo`` and the head stay ``torch.matmul``: none of them
+is inside a Pallas kernel in the reference either.
 """
 
 from __future__ import annotations
@@ -18,9 +24,8 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import ops as K
 from repro_torch.models.common import ModelConfig, apply_rope, rms_norm
-
-NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -137,45 +142,21 @@ def _swiglu_pipeline(x2, wg, wu, wd, gamma, cfg: ModelConfig
 # GQA attention
 # ---------------------------------------------------------------------------
 
-def attention_ref(q, k, v, *, scale: float, causal: bool = False,
-                  q_offset=0) -> torch.Tensor:
-    """Plain multi-head attention with GQA (the reference's
-    ``kernels/ref.attention_ref``): f32 softmax with max subtraction; a
-    ``(b,)`` ``q_offset`` gives each sequence its own causal frontier."""
-    b, hq, sq, dh = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    group = hq // hkv
-    qf = q.float().reshape(b, hkv, group, sq, dh)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
-    if causal:
-        off = torch.as_tensor(q_offset, device=q.device)
-        if off.dim() == 1:
-            off = off[:, None, None, None, None]
-        rows = off + torch.arange(sq, device=q.device)[:, None]
-        cols = torch.arange(skv, device=q.device)[None, :]
-        s = torch.where(rows >= cols, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return o.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
-
-
 def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset=0):
-    scale = 1.0 / cfg.d_head ** 0.5
     if cfg.attn_impl == "pipeline":
-        return _attention_pipeline(q, k, v, scale, cfg, causal=causal,
-                                   q_offset=q_offset)
-    if cfg.attn_impl != "ref":
-        raise ValueError(f"attn_impl {cfg.attn_impl!r} is not ported")
-    return attention_ref(q, k, v, scale=scale, causal=causal,
-                         q_offset=q_offset)
+        return _attention_pipeline(q, k, v, 1.0 / cfg.d_head ** 0.5, cfg,
+                                   causal=causal, q_offset=q_offset)
+    return K.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                             impl=cfg.attn_impl)
 
 
 def qkv(p, x, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ p["wq"]).reshape(b, s, h, dh).transpose(1, 2)
-    k = (x @ p["wk"]).reshape(b, s, hkv, dh).transpose(1, 2)
-    v = (x @ p["wv"]).reshape(b, s, hkv, dh).transpose(1, 2)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q = q.reshape(b, s, h, dh).transpose(1, 2)
+    k = k.reshape(b, s, hkv, dh).transpose(1, 2)
+    v = v.reshape(b, s, hkv, dh).transpose(1, 2)
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -205,7 +186,19 @@ def attention_decode(p, x, cache, pos, cfg: ModelConfig):
 
     ``pos`` is a scalar (every sequence at the same position) or a
     ``(b,)`` integer vector (ragged continuous-batching step).  Unlike
-    the reference, the cache is updated in place (it is returned too)."""
+    the reference, the cache is updated in place (it is returned too).
+
+    ``attn_impl="cuda"`` raises: the hand-written flash kernel takes its
+    causal offset as a static int, as the reference's does
+    (kernels/flash_attention.py:44-48), and the reference cannot decode on
+    it either."""
+    if cfg.attn_impl == "cuda":
+        raise NotImplementedError(
+            "attn_impl='cuda' has no decode step: the flash kernel bakes the "
+            "causal q_offset in as a static int, as the reference's "
+            "flash_attention_pallas does, which fails on a traced decode "
+            "position there; decode with attn_impl 'chunked', 'ref' or "
+            "'pipeline'")
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
     ragged = pos.dim() == 1
@@ -230,6 +223,11 @@ def attention_decode(p, x, cache, pos, cfg: ModelConfig):
 # RMSNorm + FFN-SwiGLU
 # ---------------------------------------------------------------------------
 
+#: ``cfg.mlp_impl`` values that run a fused kernel API of ``kernels.ops``,
+#: with the ``impl`` each passes (the reference's layers.py:441-446)
+FUSED_MLP_IMPLS = {"fused_ref": "ref", "cuda": "cuda"}
+
+
 def rmsnorm_swiglu_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
     """O = (swish(RMS_g(x) @ Wg) * (RMS_g(x) @ Wu)) @ Wd."""
     b, s, d = x.shape
@@ -241,6 +239,10 @@ def rmsnorm_swiglu_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
         xn = rms_norm(x2, gamma, cfg.norm_eps)
         gate = xn @ p["w_gate"]
         out = (gate * torch.sigmoid(gate) * (xn @ p["w_up"])) @ p["w_down"]
+    elif cfg.mlp_impl in FUSED_MLP_IMPLS:
+        out = K.rmsnorm_swiglu(x2, p["w_gate"], p["w_up"], p["w_down"],
+                               gamma, eps=cfg.norm_eps,
+                               impl=FUSED_MLP_IMPLS[cfg.mlp_impl])
     else:
         raise ValueError(f"mlp_impl {cfg.mlp_impl!r} is not ported")
     return out.reshape(b, s, d)

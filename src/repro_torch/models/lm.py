@@ -8,6 +8,11 @@ with ``ln1``, ``mixer`` (``wq``/``wk``/``wv``/``wo``), ``ln2`` and ``mlp``
 leading axis and scans them; the port loops over the list.  The KV cache
 is ``{"k", "v"}`` of shape (n_layers, batch, kv heads, max_len, d_head),
 updated in place by :meth:`LM.decode_step`.
+
+With ``attn_impl="cuda"`` and ``mlp_impl="cuda"`` the forward pass and
+prefill run the paper's hand-written kernels (``kernels/ops.py``), as the
+reference's ``"pallas"`` impls do (lm.py:286-294); decode on that
+attention raises (``layers.attention_decode``).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.common import ModelConfig, init_params, rms_norm
 
 
@@ -48,8 +54,7 @@ class LM:
         def layer(i):
             return {
                 "ln1": t(stack["ln1"][i]),
-                "mixer": {k: t(stack["mixer"][k][i])
-                          for k in ("wq", "wk", "wv", "wo")},
+                "mixer": {k: t(a[i]) for k, a in stack["mixer"].items()},
                 "ln2": t(stack["ln2"][i]),
                 "mlp": {k: t(stack["mlp"][k][i])
                         for k in ("w_gate", "w_up", "w_down")},
@@ -129,5 +134,8 @@ class LM:
         return self._logits(params, x), caches
 
 
-def build_model(cfg: ModelConfig) -> LM:
+def build_model(cfg: ModelConfig):
+    """The model of ``cfg.family``: :class:`LM` or ``encdec.EncDec``."""
+    if cfg.family == "encdec":
+        return EncDec(cfg)
     return LM(cfg)

@@ -55,3 +55,15 @@ def test_importing_every_module_leaves_jax_out():
                          text=True, timeout=300, cwd=ROOT / "tests")
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_boundary_covers_the_hand_kernel_path():
+    """The module list is discovered, so it takes in the hand-written
+    kernels' API and the encoder-decoder."""
+    mods = _modules()
+    for m in ("repro_torch.kernels.ops", "repro_torch.kernels.ref",
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.rmsnorm_swiglu",
+              "repro_torch.kernels.layernorm_matmul",
+              "repro_torch.models.encdec", "repro_torch.configs.whisper_tiny"):
+        assert m in mods, m

@@ -4,10 +4,14 @@ Reduced smollm-135m (2 layers): ``LM.from_jax_params`` of the reference's
 ``LM.init_params``; forward logits, prefill, and decode at every position
 (scalar and ragged ``(B,)`` positions) with the port on its ``pipeline``
 path (``torch`` and ``cuda`` backends; the latter runs each kernel's plain
-version on CPU tensors) and the reference on ``pipeline``/``jax``.
-Logits agree within ``atol = rtol = 1e-4`` (float32) and greedy tokens
-are equal.
+version on CPU tensors) and the reference on ``pipeline``/``jax``; and
+forward and prefill on the hand-written-kernel impls (``cuda``/``cuda``,
+plain versions on CPU tensors) against the reference on
+``interpret``/``interpret``.  Logits agree within ``atol = rtol = 1e-4``
+(float32) and greedy tokens are equal.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -168,3 +172,57 @@ def test_attention_pipeline_matches_ref_at_huge_logits():
                                           cfg)
         torch.testing.assert_close(step[:, 0], prefill[:, pos], rtol=2e-3,
                                    atol=2e-3)
+
+
+@pytest.fixture(scope="module")
+def ref_hand(ref_model):
+    """The reference on its hand-written kernels, in interpret mode."""
+    jm, jp = ref_model
+    return JLM(dataclasses.replace(jm.cfg, attn_impl="interpret",
+                                   mlp_impl="interpret")), jp
+
+
+def _port_impls(ref_params, **impls):
+    cfg = dataclasses.replace(
+        TC.get_reduced_config("smollm-135m", n_layers=N_LAYERS), **impls)
+    model = TLM(cfg)
+    return model, model.from_jax_params(jax.tree.map(np.asarray, ref_params),
+                                        device="cpu")
+
+
+def test_hand_kernel_forward_matches_reference(ref_hand):
+    jm, jp = ref_hand
+    tm, tp = _port_impls(jp, attn_impl="cuda", mlp_impl="cuda")
+    toks = _tokens((2, 24), jm.cfg.vocab, seed=6)
+    want = np.asarray(jm.forward(jp, jnp.asarray(toks, jnp.int32)))
+    got = tm.forward(tp, torch.from_numpy(toks)).numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_hand_kernel_prefill_matches_reference(ref_hand):
+    jm, jp = ref_hand
+    tm, tp = _port_impls(jp, attn_impl="cuda", mlp_impl="cuda")
+    toks = _tokens((2, 20), jm.cfg.vocab, seed=7)
+    jl, jc = jm.prefill(jp, jnp.asarray(toks, jnp.int32), max_len=32)
+    tl, tc = tm.prefill(tp, torch.from_numpy(toks), max_len=32)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+    for n in ("k", "v"):
+        np.testing.assert_allclose(tc[n].numpy(),
+                                   np.asarray(jc["stage0"]["sub0"][n]),
+                                   rtol=TOL, atol=TOL)
+    with pytest.raises(NotImplementedError, match="static int"):
+        tm.decode_step(tp, tc, torch.from_numpy(toks[:, :1]), 20)
+
+
+def test_chunked_impls_match_reference(ref_model):
+    """The plain impls beside the hand path: ``chunked``/``fused_ref``
+    against the reference's ``xla``/``fused_ref``."""
+    jm, jp = ref_model
+    jm = JLM(dataclasses.replace(jm.cfg, attn_impl="xla",
+                                 mlp_impl="fused_ref"))
+    tm, tp = _port_impls(jp, attn_impl="chunked", mlp_impl="fused_ref")
+    toks = _tokens((2, 10), jm.cfg.vocab, seed=9)
+    want = np.asarray(jm.forward(jp, jnp.asarray(toks, jnp.int32)))
+    got = tm.forward(tp, torch.from_numpy(toks)).numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
