@@ -13,15 +13,20 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    attention, RMSNorm+SwiGLU, LayerNorm+matmul), all for sm_90a;
 3. each emitted kernel against its plain PyTorch version on the card, on
    inputs of the shapes the serving path gives it (``rtol = atol =
-   2e-4``), timed with CUDA events beside the plain version and, where one
-   PyTorch call computes the same function, that call
+   2e-4``), timed with CUDA events (back to back, so a short kernel is
+   timed at the host's enqueue rate) beside the plain version and, where
+   one PyTorch call computes the same function, that call
    (``scaled_dot_product_attention`` for attention, ``matmul`` for the
-   down projection);
+   down projection), and its device time per launch from
+   ``torch.profiler``; its row names its launch plan (lifted dims,
+   cluster size, blocks);
 4. ``repro_torch.launch.serve.run`` at the full width and depth of
    smollm-135m (seeded random weights) through the CUDA kernels, with
    every launch counter set to 0 just before and read just after; its
    greedy tokens are held against the same engine on the plain ``torch``
-   backend;
+   backend; then ``launch.profile_decode`` breaks 3 decode steps of a
+   fresh engine down by kernel (g0, g1, attention, torch ops, the device's
+   busy share, the step's host time);
 5. each hand-written kernel against its plain version at every shape of
    paths A and B below, plus one bfloat16 case each (float32: ``2e-4`` for
    attention, ``2e-4 * sqrt(K)`` absolute for LayerNorm+matmul, ``4e-4``
@@ -45,6 +50,7 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -90,6 +96,42 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_name(event_name: str) -> str:
+    """A kernel's name as the profiler shows it, without its arguments
+    (``void emit_group_g0_22_23(KArgs)`` -> ``emit_group_g0_22_23``)."""
+    head = event_name.split("(")[0].split()
+    return head[-1] if head else event_name
+
+
+def device_ms(calls, iters: int = 20):
+    """Device time per launch of each ``(kernel name, fn)`` in ``calls``
+    (the names differ), from one ``torch.profiler`` session in which each
+    fn is launched ``iters`` times after a warm call: the mean over the
+    launches the profiler recorded (it may miss one at the session's
+    edge)."""
+    import torch
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    for _, fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        for _, fn in calls:
+            for _ in range(iters):
+                fn()
+        torch.cuda.synchronize()
+    total = {name: [0.0, 0] for name, _ in calls}
+    for ev in prof.events():
+        name = kernel_name(ev.name)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                name in total:
+            total[name][0] += ev.time_range.end - ev.time_range.start
+            total[name][1] += 1
+    for name, (_, n) in total.items():
+        if n < iters // 2:
+            fail(f"{name}: the profiler recorded {n} of {iters} launches")
+    return [total[name][0] / total[name][1] / 1e3 for name, _ in calls]
 
 
 def program_inputs(name, kern, cfg, max_batch, max_len, gen):
@@ -461,6 +503,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import codegen_cuda as CC
     from repro_torch.core import cuda_build as CB
+    from repro_torch.launch import profile_decode as PD
     from repro_torch.launch import serve as S
     from repro_torch.models import layers as L
 
@@ -495,7 +538,7 @@ def main() -> int:
 
     # -- 3. each kernel against its plain version --------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {}
+    rows, calls = {}, []
     for prog, ck in programs.items():
         inputs, inst = program_inputs(prog, ck, mc, cfg.max_batch,
                                       cfg.max_len, gen)
@@ -516,7 +559,8 @@ def main() -> int:
                     fail(f"{name}: kernel disagrees with its plain version "
                          f"(max abs err {(g_ - w_).abs().max().item():.3e})")
                 err = max(err, (g_ - w_).abs().max().item())
-            ms = time_ms(lambda: kern.launch(*kin, instances=inst))
+            launch = functools.partial(kern.launch, *kin, instances=inst)
+            ms = time_ms(launch)
             plain_ms = time_ms(lambda: kern.plain(*kin, instances=inst))
             lib = library_call(prog, kin, inputs, kern)
             lib_ms = time_ms(lib) if lib is not None else None
@@ -533,6 +577,7 @@ def main() -> int:
                 flops = flops * kept / total
             t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
             t_ops = flops / FP32_FLOPS * 1e3
+            plan = kern.plan
             rows[name] = {
                 "name": name, "route": "cuda",
                 "source": "src/repro_torch/core/codegen_cuda.py",
@@ -542,15 +587,28 @@ def main() -> int:
                 "launches": 0, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": lib_ms, "blocks": kern.blocks * n_inst,
+                "library_ms": lib_ms, "device_ms": None,
+                "launch_dims": list(plan.launch_dims),
+                "lifted": list(plan.lifted), "cluster_dim": plan.cluster_dim,
+                "cluster_size": plan.cluster_size,
+                "blocks": kern.blocks * n_inst,
                 "smem_bytes": kern.smem_bytes}
             print(f"{name}: max_abs_err={err:.3e} ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
                   f"bound_ms={rows[name]['bound_ms']:.6f} "
-                  f"({rows[name]['bound_by']}) blocks={rows[name]['blocks']}",
+                  f"({rows[name]['bound_by']}) launch grid "
+                  f"{list(plan.launch_dims)} cluster={plan.cluster_size} "
+                  f"blocks={rows[name]['blocks']} smem={kern.smem_bytes}",
                   flush=True)
+            calls.append((name, kern.kname, launch))
             for ref, o in zip(kr.out_refs, got):
                 env[ref] = o
+    dev = device_ms([(kn, fn) for _, kn, fn in calls])
+    for (name, _, _), d_ms in zip(calls, dev):
+        rows[name]["device_ms"] = d_ms
+        print(f"{name}: device_ms={d_ms:.4f} per launch (torch.profiler) "
+              f"against ms={rows[name]['ms']:.4f} (CUDA events, back to "
+              "back)", flush=True)
 
     # -- 4. the serving path ------------------------------------------------
     for _, _, k in kernels.values():
@@ -595,6 +653,30 @@ def main() -> int:
                  "torch backend")
     print(f"greedy tokens equal to the torch backend for {same}/"
           f"{len(report.tokens)} requests", flush=True)
+
+    # -- the decode step, by kernel -----------------------------------------
+    engine = S.build_engine(cfg)
+    engine.warmup()
+    prof = PD.profile_decode(engine, steps=3)
+    del engine
+    names = {"g0": programs["swiglu_decode"].kernels[0].kname,
+             "g1": programs["swiglu_decode"].kernels[1].kname,
+             "attention": programs["attention_decode"].kernels[0].kname}
+    by = {}
+    for n, ms_ in prof["device_ms_per_step_by_kernel"].items():
+        by[kernel_name(n)] = by.get(kernel_name(n), 0.0) + ms_
+    step = {part: by.get(kn, 0.0) for part, kn in names.items()}
+    missing = [part for part, ms_ in step.items() if ms_ <= 0]
+    if missing:
+        fail(f"the decode profile saw no device time of {missing}")
+    step["torch_ops"] = sum(v for n, v in by.items()
+                            if n not in names.values())
+    step.update(device_busy_share=prof["device_busy_share"],
+                host_step_ms=prof["host_step_ms"],
+                step_bound_ms=prof["step_bound_ms"],
+                n_layers=prof["n_layers"], batch=prof["batch"])
+    print("decode step (ms per step, torch.profiler over 3 steps): "
+          + json.dumps(step), flush=True)
 
     # -- 5-7. the hand-written kernels and their paths ---------------------
     hand_rows = check_hand_kernels(hand_cases(gen))

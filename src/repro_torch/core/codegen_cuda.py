@@ -11,13 +11,37 @@ which replaces the ``pallas_call`` at codegen_pallas.py:712), and each
 one-region group one kernel (:func:`emit_region`, which replaces the one at
 codegen_pallas.py:616).
 
-What a kernel does.  One thread block runs per cell of the group's
-parallel grid, times up to two leading *instance* axes, which stand in for
-the ``jax.vmap`` the model layers wrap around a compiled kernel: every
-input and output has a stride per instance axis, and a stride of 0 means
-"shared".  Inside the block the region graph is walked in order:
+How a kernel lies on the card (:class:`LaunchPlan`, fixed at emit time).
+The reference's grid is the group's shrunk parallel spine, which ran as a
+sequential loop on the TPU; at the serving shapes it is one cell.  Two
+steps spread a kernel over the H100's 132 SMs without changing the region
+or group plan:
 
-* a map over a grid dim is the block's own coordinate;
+* *grid lifting*: a dim that a member has in its spine but the group's
+  grid dropped goes back on the launch grid, unless a member reduces over
+  it, loops over it inside the block, or consumes a list over it that
+  another member produced (:func:`lift_refusals`).  A member that does not
+  touch a lifted dim is recomputed in every block, and only the blocks at
+  index 0 of that dim write its outputs;
+* *cluster split*: the block body's last reduction, when it is an ADD or
+  MAX reduce or a serial map of such accumulators followed only by a
+  column-wise epilogue, is split over a thread-block cluster of
+  ``cluster_size`` ranks along ``blockIdx.x`` (the divisor of its trip
+  count that brings the blocks closest to the SMs, at most 16).  Each rank
+  reduces its share of the trips into its own shared memory; after
+  ``cluster.sync()`` each rank adds one column window of all ranks'
+  partials through distributed shared memory, in rank order, and runs the
+  epilogue on that window.  Coupled carries (``+@k``, online softmax) are
+  never split.
+
+What a kernel does.  Each block runs one launch cell (times the cluster
+ranks), times up to two leading *instance* axes on ``blockIdx.y/z``, which
+stand in for the ``jax.vmap`` the model layers wrap around a compiled
+kernel: every input and output has a stride per instance axis, and a
+stride of 0 means "shared".  Inside the block the region graphs are
+walked in order:
+
+* a map over a launch dim is the block's own coordinate;
 * every other map is an in-kernel loop that computes its operands'
   offsets into the merged arrays (list outputs are written per step,
   straight to their destination);
@@ -27,19 +51,23 @@ input and output has a stride per instance axis, and a stride of 0 means
   accumulator is written, and ``+@k`` is
   ``acc * exp(z_old - z_new) + step * exp(m - z_new)``;
 * functional operators call the tile templates of ``csrc/tiles.cuh``
-  (elementwise expressions are translated to C with ``ast``); their
-  results live in shared memory, and values that cross regions inside a
-  group stay there;
-* kernel inputs are never copied whole on chip: every operator reads its
-  tiles straight from device memory, tile by tile.
+  (elementwise expressions, row-wise scales, shifts, outer products and
+  causal masks are translated to C with ``ast``); their results live in
+  shared memory, and values that cross regions inside a group stay there;
+* a tile product whose operands are contiguous along the contraction axis
+  (the strides are literals here) is ``tiles::dot_k``: operands in device
+  memory are staged by 16-byte ``cp.async`` copies, double-buffered, and
+  multiplied from shared memory (warp shuffles at R <= 8 rows, register
+  micro-tiles above); any other product reads its operands in place
+  (``tiles::dot``).
 
-What bounds it.  These are the simple first kernels: threads stride over
-the elements of each tile, and every operator ends with
-``__syncthreads()``.  The work they do is matrix products at one block
-per grid cell, so at decode sizes they are bound by the bytes of the
-weights they read, and at the full smollm-135m widths the SwiGLU groups
-run on 1 and 6 blocks of the card's 132 SMs: the grid, not the memory,
-limits them (``PERF.md``).
+What bounds it.  The kernels are float32 CUDA-core FMA (TF32 tensor cores
+would break the 2e-4 tolerance).  At decode sizes the SwiGLU kernels are
+bound by the bytes of the weights they read, which stream through 72
+blocks each in coalesced 16-byte copies at the serving shapes; at prefill
+by the float32 FMA rate of the blocks' micro-tiles; launches under ~0.1 ms
+by the host's enqueue path (:meth:`CudaKernel.launch` validates a
+signature once and then only builds the pointer array).
 
 On a CUDA tensor a kernel launches or raises; it takes its plain version
 (``codegen_torch.region_runner``/``group_runner``) only for tensors on
@@ -50,6 +78,7 @@ from __future__ import annotations
 
 import ast
 import ctypes
+import hashlib
 import math
 import re
 import time
@@ -63,7 +92,8 @@ from repro_torch.core import codegen_torch as CT
 from repro_torch.core import cuda_build as CB
 from repro_torch.core import ops as O
 from repro_torch.core import regions as R
-from repro_torch.core.runtime import current_stream, placement
+from repro_torch.core.runtime import (current_device, current_stream,
+                                      placement)
 from repro_torch.core.blocks import merged_shape
 from repro_torch.core.graph import (FuncNode, Graph, InputNode, MapNode,
                                     OutputNode, Ref, ReduceNode, VType)
@@ -73,7 +103,11 @@ from repro_torch.pipeline import packing as P
 THREADS = 256
 SMEM_LIMIT = 232448   # bytes of shared memory one H100 block may opt into
 MAX_INSTANCE_AXES = 2
-
+SMS = 132             # streaming multiprocessors of an H100 SXM
+MAX_CLUSTER = 16      # blocks per cluster with the non-portable opt-in
+PORTABLE_CLUSTER = 8  # blocks per cluster without it
+CHUNK_BYTES = 32768   # one staged chunk of a dot_k's b operand, at most
+STAGE_LIMIT = 98304   # a dot_k's staging, at most; past it tiles::dot
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +180,7 @@ class _View:
     lists: Tuple[Tuple[str, int], ...]
     shape: Tuple[int, ...]
     strides: Tuple[int, ...]
+    align: int = 0   # every offset the view takes is a multiple (0: only 0)
 
     def index(self, dim: str, idx: str) -> "_View":
         if not self.lists or self.lists[0][0] != dim:
@@ -153,7 +188,13 @@ class _View:
                               f"{[d for d, _ in self.lists]}")
         stride = self.lists[0][1]
         off = self.off if stride == 0 else f"{self.off} + {idx} * {stride}"
-        return replace(self, off=off, lists=self.lists[1:])
+        return replace(self, off=off, lists=self.lists[1:],
+                       align=math.gcd(self.align, stride))
+
+    @property
+    def device(self) -> bool:
+        """The value lies in device memory (a kernel input or output)."""
+        return self.ptr != "smem"
 
     @property
     def addr(self) -> str:
@@ -167,6 +208,21 @@ class _View:
         if len(self.shape) == 1:
             return 1, self.shape[0], 0, self.strides[0]
         return 1, 1, 0, 0
+
+
+def _as2d(shape: Sequence[int]) -> Tuple[int, int]:
+    """(rows, cols) of an item as the tile templates see it."""
+    if len(shape) == 2:
+        return int(shape[0]), int(shape[1])
+    return (1, int(shape[0])) if len(shape) == 1 else (1, 1)
+
+
+def _kpad(k: int) -> int:
+    """The row stride at which ``tiles::dot_k`` stages a k-long operand:
+    k plus 4 or 8 floats, so rows stay 16-byte aligned and the stride's
+    quarter is odd (float4 reads of 8 neighbouring rows hit 8 distinct
+    bank groups)."""
+    return k + 4 if (k // 4) % 2 == 0 else k + 8
 
 
 def _row_major(shape: Sequence[int]) -> Tuple[int, ...]:
@@ -304,6 +360,238 @@ def _op_shape(op: O.Op, shapes: Sequence[Tuple[int, ...]]):
     raise RegionError(f"operator {op!r} has no CUDA tile template")
 
 
+def _shapes(g: Graph, in_shapes: Sequence[Tuple[int, ...]]
+            ) -> Dict[Ref, Tuple[int, ...]]:
+    """Item shape of every value of ``g`` (one level)."""
+    sh: Dict[Ref, Tuple[int, ...]] = {
+        (iid, 0): tuple(s) for iid, s in zip(g.input_ids, in_shapes)}
+    for nid in g.topo():
+        node = g.nodes[nid]
+        if isinstance(node, (InputNode, OutputNode)):
+            continue
+        ins = [sh[(e.src, e.sp)] for e in g.in_edges(nid)]
+        if isinstance(node, FuncNode):
+            sh[(nid, 0)] = _op_shape(node.op, ins)
+        elif isinstance(node, ReduceNode):
+            sh[(nid, 0)] = ins[0]
+        elif isinstance(node, MapNode):
+            inner = _shapes(node.inner, ins)
+            for p, oid in enumerate(node.inner.output_ids):
+                e = node.inner.in_edge(oid, 0)
+                sh[(nid, p)] = inner[(e.src, e.sp)]
+        else:
+            raise RegionError(f"{node.label()} has no CUDA lowering")
+    return sh
+
+
+# ---------------------------------------------------------------------------
+# The launch plan: how a kernel lies on the card
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one emitted kernel lies on the card.
+
+    ``grid`` is the group's grid (the reference's, from
+    ``regions.group_plan``) and ``lifted`` the dims put back on the launch
+    grid beside it, so the kernel has ``cells`` launch cells over
+    ``launch_dims``.  Each cell runs as one thread-block cluster of
+    ``cluster_size`` blocks along ``blockIdx.x``, whose ranks split the
+    trips of the reduction over ``cluster_dim``; ``split`` locates that
+    node: the member's index and the node ids from the member's graph down
+    through its grid maps.  ``blocks`` counts one instance."""
+
+    grid: Tuple[str, ...]
+    lifted: Tuple[str, ...] = ()
+    cells: int = 1
+    cluster_dim: Optional[str] = None
+    cluster_size: int = 1
+    split: Optional[Tuple[int, Tuple[int, ...]]] = None
+
+    @property
+    def launch_dims(self) -> Tuple[str, ...]:
+        return self.grid + self.lifted
+
+    @property
+    def blocks(self) -> int:
+        return self.cells * self.cluster_size
+
+
+def _dim_uses(g: Graph, d: str, spine: Sequence[str],
+              depth: Optional[int] = 0) -> List[str]:
+    """Every use ``g`` makes of ``d`` other than a spine map over it;
+    ``depth`` counts the spine maps around ``g`` (None: below a map off
+    the spine)."""
+    uses = []
+    types = g.infer_types()
+    for nid in g.topo():
+        node = g.nodes[nid]
+        if isinstance(node, ReduceNode):
+            e = g.in_edge(nid, 0)
+            if types[(e.src, e.sp)].dims[:1] == (d,):
+                uses.append("reduces over")
+        elif isinstance(node, MapNode):
+            on_spine = (depth is not None and not node.serial
+                        and depth < len(spine) and node.dim == spine[depth])
+            if node.dim == d and node.serial:
+                uses.append("loops serially over")
+            elif node.dim == d and not on_spine:
+                uses.append("loops inside the block over")
+            uses += _dim_uses(node.inner, d, spine,
+                              depth + 1 if on_spine else None)
+    return uses
+
+
+def lift_refusals(members: Sequence[RegionSpec], d: str,
+                  types: Dict[Ref, VType]) -> List[str]:
+    """Why ``d`` may not go on the launch grid of the kernel that runs
+    ``members`` in sequence; empty when it may.
+
+    Lifting gives each block one coordinate of ``d``.  That is wrong for a
+    member that reduces over ``d`` (a reduce, or a serial map), that loops
+    over it inside the block (a map over it off the member's spine), or
+    that consumes a list over it another member produced (the producer's
+    block holds only its own cell of that list)."""
+    reasons, produced = [], {}
+    for i, spec in enumerate(members):
+        for r in spec.in_refs:
+            if r in produced and d in types[r].dims:
+                reasons.append(f"member {i} consumes the list over {d} "
+                               f"that member {produced[r]} produced")
+        reasons += [f"member {i} {use} {d}"
+                    for use in _dim_uses(spec.graph, d, spec.grid_dims)]
+        produced.update((r, i) for r in spec.out_refs)
+    return reasons
+
+
+def cluster_size(trips: int, cells: int) -> int:
+    """The divisor of ``trips``, at most ``MAX_CLUSTER``, that brings
+    ``cells`` x it blocks closest to the ``SMS``; the smaller on a tie."""
+    best = 1
+    for cs in range(2, min(trips, MAX_CLUSTER) + 1):
+        if trips % cs == 0 and abs(cells * cs - SMS) < abs(cells * best
+                                                             - SMS):
+            best = cs
+    return best
+
+
+#: tile operators that act on each column of a tile on its own
+_COLUMN_OPS = (O.Elementwise, O.RowScale, O.RowShift, O.Outer, O.CausalMask)
+
+
+def _split_candidate(spec: RegionSpec, launch_dims: Sequence[str],
+                     in_shapes: Sequence[Tuple[int, ...]]):
+    """``(path, dim)`` of the reduction of ``spec`` (the kernel's
+    last member) that a cluster may split, or None.
+
+    It is the block body's last accumulating node, at its top level (inside
+    maps over launch dims only): a reduce with ADD or MAX, or a serial map
+    whose ports are all ADD or MAX accumulators (no list ports, no coupled
+    ``+@k`` carries), with items of one (rows, cols) shape and no list
+    axes.  Everything after it is column-wise tile operators of that shape
+    (``_COLUMN_OPS``), and the outputs of the graphs around it come from it
+    or from them, so each rank can finish one column window."""
+    seq = []   # the body in emission order: (level graph, nid, shapes)
+
+    def walk(g, shapes_in, path):
+        shapes = _shapes(g, shapes_in)
+        for nid in g.topo():
+            node = g.nodes[nid]
+            if isinstance(node, (InputNode, OutputNode)):
+                continue
+            if (isinstance(node, MapNode) and not node.serial
+                    and node.dim in launch_dims):
+                seq.append((g, nid, path, None))      # a grid map opens
+                walk(node.inner, [shapes[(e.src, e.sp)]
+                                  for e in g.in_edges(nid)], path + (nid,))
+            else:
+                seq.append((g, nid, path, shapes))
+
+    walk(spec.graph, in_shapes, ())
+    accs = [i for i, (g, nid, _, sh) in enumerate(seq)
+            if sh is not None and not isinstance(g.nodes[nid], FuncNode)]
+    if not accs:
+        return None
+    g, nid, path, shapes = seq[accs[-1]]
+    node, types = g.nodes[nid], g.infer_types()
+    if isinstance(node, ReduceNode):
+        e = g.in_edge(nid, 0)
+        tags, d = [node.op], types[(e.src, e.sp)].dims[0]
+    elif isinstance(node, MapNode):
+        tags, d = node.reduced, node.dim
+    else:
+        return None
+    ports = range(len(tags))
+    if (any(t not in (O.REDUCE_ADD, O.REDUCE_MAX) for t in tags)
+            or any(types[(nid, p)].dims for p in ports)
+            or len({_as2d(shapes[(nid, p)]) for p in ports}) != 1
+            or d in launch_dims):
+        return None
+    tile = _as2d(shapes[(nid, 0)])
+    epilogue = {id(g): {nid}}     # per level graph: the split and after
+    for g2, nid2, _, sh2 in seq[accs[-1] + 1:]:
+        if (sh2 is None or not isinstance(g2.nodes[nid2].op, _COLUMN_OPS)
+                or _as2d(sh2[(nid2, 0)]) != tile):
+            return None
+        epilogue.setdefault(id(g2), set()).add(nid2)
+    level = spec.graph
+    for step in path + (None,):
+        ok = epilogue.get(id(level), set()) | {step}
+        if any(level.in_edge(o, 0).src not in ok for o in level.output_ids):
+            return None
+        if step is not None:
+            level = level.nodes[step].inner
+    return path + (nid,), d
+
+
+def launch_plan(members: Sequence[RegionSpec], grid: Sequence[str],
+                types: Dict[Ref, VType], in_refs: Sequence[Ref],
+                in_item_shapes: Sequence[Tuple[int, ...]],
+                dims: Dict[str, int]) -> LaunchPlan:
+    """The launch plan of the kernel that runs ``members`` (in sequence)
+    over the group grid ``grid``: every dim :func:`lift_refusals` allows
+    is lifted, and the last member's reduction is split over a cluster
+    when :func:`_split_candidate` finds one and :func:`cluster_size` gives
+    it more than one rank."""
+    grid = tuple(grid)
+    lifted: List[str] = []
+    for spec in members:
+        for d in spec.grid_dims:
+            if (d not in grid and d not in lifted
+                    and not lift_refusals(members, d, types)):
+                lifted.append(d)
+    launch = grid + tuple(lifted)
+    cells = int(np.prod([dims[d] for d in launch]))
+    shapes = dict(zip(in_refs, in_item_shapes))
+    for spec in members[:-1]:
+        sh = _shapes(spec.graph, [shapes[r] for r in spec.in_refs])
+        for oid, r in zip(spec.graph.output_ids, spec.out_refs):
+            e = spec.graph.in_edge(oid, 0)
+            shapes[r] = sh[(e.src, e.sp)]
+    last = members[-1]
+    cand = _split_candidate(last, launch,
+                            [shapes[r] for r in last.in_refs])
+    plan = LaunchPlan(grid, tuple(lifted), cells)
+    if cand is not None:
+        path, d = cand
+        cs = cluster_size(dims[d], cells)
+        if cs > 1:
+            plan = replace(plan, cluster_dim=d, cluster_size=cs,
+                           split=(len(members) - 1, path))
+    return plan
+
+
+def _split_node(members: Sequence[RegionSpec], plan: LaunchPlan):
+    """The node ``plan.split`` locates, or None."""
+    if plan.split is None:
+        return None
+    mi, path = plan.split
+    g = members[mi].graph
+    for nid in path[:-1]:
+        g = g.nodes[nid].inner
+    return g.nodes[path[-1]]
+
+
 # ---------------------------------------------------------------------------
 # The emitter
 # ---------------------------------------------------------------------------
@@ -314,12 +602,27 @@ def _cname(dim: str) -> str:
 
 class _Emitter:
     """Walks region graphs and writes the body of one ``__global__``
-    kernel.  Shared memory is a bump allocator that releases a loop
-    body's buffers when the body ends."""
+    kernel over the launch dims ``grid``.  Shared memory is a bump
+    allocator that releases a loop body's buffers when the body ends.
 
-    def __init__(self, dims: Dict[str, int], grid: Sequence[str]):
+    Device-memory writes carry ``guards``, the conditions under which this
+    block writes: ``g_d == 0`` for each lifted dim the current member does
+    not touch, and ``rank == 0`` before the cluster's split.  A guarded
+    block computes such values in shared memory and copies them out under
+    the guard, so that it never reads back memory it did not write.  After
+    the split, ``window`` holds the (rows, cols) tile whose column window
+    ``[wc0, wc1)`` this rank finishes."""
+
+    def __init__(self, dims: Dict[str, int], grid: Sequence[str],
+                 split_node=None, cluster: int = 1):
         self.dims = dims
         self.grid = tuple(grid)
+        self.split_node = split_node
+        self.cluster = cluster
+        self.member_guards: Tuple[str, ...] = ()
+        self.rank_guard = split_node is not None
+        self.window: Optional[Tuple[int, int]] = None
+        self.aligned_inputs: set = set()   # inputs staged by cp.async
         self.lines: List[str] = []
         self.depth = 1
         self.smem = 0
@@ -344,6 +647,27 @@ class _Emitter:
             self._types[id(g)] = g.infer_types()
         return self._types[id(g)]
 
+    @property
+    def guards(self) -> Tuple[str, ...]:
+        return self.member_guards + (("rank == 0",) if self.rank_guard
+                                     else ())
+
+    def store(self, out: _View, line: str) -> None:
+        """Emit ``line``, which writes ``out``, under the write guards
+        when ``out`` is in device memory (the guards are block-uniform, so
+        the templates' barriers stay uniform too)."""
+        if out.device and self.guards:
+            line = f"if ({' && '.join(self.guards)}) {line}"
+        self.emit(line)
+
+    def dest(self, v: Optional[_View]) -> Optional[_View]:
+        """``v`` if the walk may compute straight into it: not a
+        device-memory destination while this block's writes are
+        guarded."""
+        if v is not None and v.device and self.guards:
+            return None
+        return v
+
     def alloc(self, list_dims: Sequence[str], shape: Sequence[int]
               ) -> _View:
         """A shared-memory value: list axes outermost (grid dims take no
@@ -360,17 +684,24 @@ class _Emitter:
         self.smem += n
         self.peak = max(self.peak, self.smem)
         return _View("smem", str(off), tuple(reversed(lists)),
-                     tuple(shape), _row_major(shape))
+                     tuple(shape), _row_major(shape), align=off)
 
-    def loop(self, dim: str) -> str:
-        """Open a loop over an off-grid dim (or bind the block's own
-        coordinate of a grid dim); returns the index expression."""
+    def loop(self, dim: str, split: bool = False) -> str:
+        """Open a loop over an off-grid dim (only this rank's share of it
+        when ``split``), or bind the block's own coordinate of a grid dim;
+        returns the index expression."""
         if dim in self.grid:
             return f"g_{_cname(dim)}"
         i = self.fresh("i")
-        self.emit(f"for (int {i} = 0; {i} < {self.dims[dim]}; ++{i}) {{")
+        n = self.dims[dim]
+        if split:
+            n //= self.cluster
+            self.emit(f"for (int {i} = rank * {n}; {i} < (rank + 1) * {n}; "
+                      f"++{i}) {{")
+        else:
+            self.emit(f"for (int {i} = 0; {i} < {n}; ++{i}) {{")
         self.depth += 1
-        self._trips.append(self._trips[-1] * self.dims[dim])
+        self._trips.append(self._trips[-1] * n)
         return i
 
     def close(self, dim: str) -> None:
@@ -382,17 +713,48 @@ class _Emitter:
     def count_flops(self, n: int) -> None:
         self.flops += n * self._trips[-1]
 
+    def combine(self, accs: Sequence[_View], maxes: Sequence[bool]) -> None:
+        """The cluster's exchange after the split reduction: every rank's
+        partial accumulators are complete (``cluster_sync``), this rank
+        combines its column window of all of them in rank order, and no
+        rank leaves before all have read (``cluster_sync``).  The rest of
+        the body runs on the window."""
+        rows, cols = _as2d(accs[0].shape)
+        cs = self.cluster
+        self.emit("tiles::cluster_sync();")
+        self.emit(f"const int wc0 = rank * {cols} / {cs}, "
+                  f"wc1 = (rank + 1) * {cols} / {cs};")
+        for acc, is_max in zip(accs, maxes):
+            _, _, rs, ccs = acc.as2d()
+            self.count_flops(rows * cols * (cs - 1) // cs)
+            self.emit(f"tiles::cluster_combine<{rows}, {cols}, {cs}, "
+                      f"{'true' if is_max else 'false'}>({acc.addr}, {rs}, "
+                      f"{ccs}, wc0, wc1);")
+        self.emit("tiles::cluster_sync();")
+        self.window = (rows, cols)
+        self.rank_guard = False
+
     # -- item-level code ----------------------------------------------------
     def ew(self, out: _View, args: Sequence[Tuple[str, int, int]],
            expr: str) -> None:
-        """out[r, c] = expr over x_i = args_i[r * rs + c * cs]."""
+        """out[r, c] = expr over x_i = args_i[r * rs + c * cs] (on the
+        column window only, after a cluster split)."""
         rows, cols, ors, ocs = out.as2d()
+        win = ""
+        n = rows * cols
+        if self.window is not None:
+            if (rows, cols) != self.window:
+                raise RegionError(f"a ({rows}, {cols}) tile after the "
+                                  f"split of a {self.window} reduction")
+            win = ", wc0, wc1"
+            n //= self.cluster
         if args:
-            self.count_flops(rows * cols)
+            self.count_flops(n)
         loads = " ".join(f"const float x{i} = {a}[r * {rs} + c * {cs}];"
                          for i, (a, rs, cs) in enumerate(args))
-        self.emit(f"tiles::ew<{rows}, {cols}>({out.addr}, {ors}, {ocs}, "
-                  f"[&](int r, int c) {{ {loads} return {expr}; }});")
+        self.store(out, f"tiles::ew<{rows}, {cols}>({out.addr}, {ors}, "
+                   f"{ocs}, [&](int r, int c) {{ {loads} return {expr}; }}"
+                   f"{win});")
 
     def over_items(self, views: Sequence[_View], fn) -> None:
         """Apply ``fn(items)`` to every item of equally-listed values."""
@@ -416,75 +778,77 @@ class _Emitter:
 
     def func(self, op: O.Op, ins: Sequence[_View], out: _View) -> None:
         rows, cols, ors, ocs = out.as2d()
-        o = f"{out.addr}, {ors}, {ocs}"
         if isinstance(op, O.Elementwise):
             self.ew(out, [_bcast2d(v, rows, cols) for v in ins],
                     expr_to_c(op))
-            return
-        self.count_flops(rows * cols)
-        if isinstance(op, O.Dot):
-            a, b = ins
-            _, k, ars, acs = a.as2d()
-            _, _, brs, bcs = b.as2d()
-            self.count_flops(rows * cols * (2 * k - 1))
-            self.emit(f"tiles::dot<{rows}, {cols}, {k}>({o}, {a.addr}, "
-                      f"{ars}, {acs}, {b.addr}, {brs}, {bcs});")
         elif isinstance(op, O.Outer):
             a, b = ins
-            self.emit(f"tiles::outer<{rows}, {cols}>({o}, {a.addr}, "
-                      f"{a.strides[0]}, {b.addr}, {b.strides[0]});")
+            self.ew(out, [(a.addr, a.strides[0], 0), (b.addr, 0,
+                                                      b.strides[0])],
+                    "(x0 * x1)")
         elif isinstance(op, (O.RowScale, O.RowShift)):
             a, c = ins
             _, _, ars, acs = a.as2d()
             cs = c.strides[0] if c.shape else 0
-            name = "row_scale" if isinstance(op, O.RowScale) else "row_shift"
-            self.emit(f"tiles::{name}<{rows}, {cols}>({o}, {a.addr}, {ars}, "
-                      f"{acs}, {c.addr}, {cs});")
-        elif isinstance(op, (O.RowSum, O.RowMax)):
-            a = ins[0]
-            ar, ac, ars, acs = a.as2d()
-            name = "row_sum" if isinstance(op, O.RowSum) else "row_max"
-            self.emit(f"tiles::{name}<{ar}, {ac}>({out.addr}, "
-                      f"{out.strides[0]}, {a.addr}, {ars}, {acs});")
+            sym = "*" if isinstance(op, O.RowScale) else "+"
+            self.ew(out, [(a.addr, ars, acs), (c.addr, cs, 0)],
+                    f"(x0 {sym} x1)")
         elif isinstance(op, O.CausalMask):
             a, rv, cv = ins
             _, _, ars, acs = a.as2d()
-            self.emit(f"tiles::causal_mask<{rows}, {cols}>({o}, {a.addr}, "
-                      f"{ars}, {acs}, {rv.addr}, {rv.strides[0]}, "
-                      f"{cv.addr}, {cv.strides[0]});")
+            self.ew(out, [(a.addr, ars, acs), (rv.addr, rv.strides[0], 0),
+                          (cv.addr, 0, cv.strides[0])],
+                    "(x1 >= x2 ? x0 : tiles::NEG_MASK)")
+        elif isinstance(op, O.Dot):
+            a, b = ins
+            _, k, _, _ = a.as2d()
+            self.count_flops(rows * cols * 2 * k)
+            self.dot(out, a, b, k)
+        elif isinstance(op, (O.RowSum, O.RowMax)):
+            a = ins[0]
+            ar, ac, ars, acs = a.as2d()
+            self.count_flops(rows * cols)
+            name = "row_sum" if isinstance(op, O.RowSum) else "row_max"
+            self.store(out, f"tiles::{name}<{ar}, {ac}>({out.addr}, "
+                       f"{out.strides[0]}, {a.addr}, {ars}, {acs});")
         else:
             raise RegionError(f"operator {op!r} has no CUDA tile template")
 
-    # -- graph-level code ---------------------------------------------------
-    def shapes(self, g: Graph, in_shapes: Sequence[Tuple[int, ...]]
-               ) -> Dict[Ref, Tuple[int, ...]]:
-        """Item shape of every value of ``g`` (one level)."""
-        sh: Dict[Ref, Tuple[int, ...]] = {
-            (iid, 0): tuple(s) for iid, s in zip(g.input_ids, in_shapes)}
-        for nid in g.topo():
-            node = g.nodes[nid]
-            if isinstance(node, (InputNode, OutputNode)):
-                continue
-            ins = [sh[(e.src, e.sp)] for e in g.in_edges(nid)]
-            if isinstance(node, FuncNode):
-                sh[(nid, 0)] = _op_shape(node.op, ins)
-            elif isinstance(node, ReduceNode):
-                sh[(nid, 0)] = ins[0]
-            elif isinstance(node, MapNode):
-                inner = self.shapes(node.inner, ins)
-                for p, oid in enumerate(node.inner.output_ids):
-                    e = node.inner.in_edge(oid, 0)
-                    sh[(nid, p)] = inner[(e.src, e.sp)]
-            else:
-                raise RegionError(f"{node.label()} has no CUDA lowering")
-        return sh
+    def dot(self, out: _View, a: _View, b: _View, k: int) -> None:
+        """``out = a @ b.T``: ``tiles::dot_k`` when both operands are
+        contiguous along k (those in device memory 16-byte aligned) and
+        its staging fits ``STAGE_LIMIT``, else ``tiles::dot``."""
+        rows, cols, ors, ocs = out.as2d()
+        _, _, ars, acs = a.as2d()
+        _, _, brs, bcs = b.as2d()
+        o = f"{out.addr}, {ors}, {ocs}"
+        sp = _kpad(k)
+        cc = min(cols, max(8, CHUNK_BYTES // (4 * sp) // 8 * 8))
+        floats = (rows + (2 if cols > cc else 1) * cc) * sp
+        staged = [v for v in (a, b) if v.ptr.startswith("in")]
+        if (k % 4 == 0 and acs == 1 and bcs == 1
+                and floats * 4 <= STAGE_LIMIT
+                and all(v.align % 4 == 0 and rs % 4 == 0 for v, rs in
+                        ((a, ars), (b, brs)) if v in staged)):
+            at = -(-self.smem // 4) * 4      # 16-byte aligned, released
+            self.peak = max(self.peak, at + floats)
+            self.aligned_inputs.update(int(v.ptr[2:]) for v in staged)
+            flags = ", ".join("true" if v in staged else "false"
+                              for v in (a, b))
+            self.store(out, f"tiles::dot_k<{rows}, {cols}, {k}, {cc}, {sp}, "
+                       f"{flags}>({o}, {a.addr}, {ars}, {b.addr}, {brs}, "
+                       f"smem + {at});")
+        else:
+            self.store(out, f"tiles::dot<{rows}, {cols}, {k}>({o}, "
+                       f"{a.addr}, {ars}, {acs}, {b.addr}, {brs}, {bcs});")
 
+    # -- graph-level code ---------------------------------------------------
     def graph(self, g: Graph, ins: Sequence[_View],
               dests: Sequence[Optional[_View]]) -> List[_View]:
         """Emit ``g`` on input views; output ``k`` lands in ``dests[k]``
         when one is given.  Returns the output views."""
         types = self.types(g)
-        shapes = self.shapes(g, [v.shape for v in ins])
+        shapes = _shapes(g, [v.shape for v in ins])
         env: Dict[Ref, _View] = {(iid, 0): v
                                  for iid, v in zip(g.input_ids, ins)}
         want: Dict[Ref, _View] = {}
@@ -501,7 +865,8 @@ class _Emitter:
                 continue
             ins_v = [env[(e.src, e.sp)] for e in g.in_edges(nid)]
             if isinstance(node, FuncNode):
-                out = want.get((nid, 0)) or self.alloc((), shapes[(nid, 0)])
+                out = (self.dest(want.get((nid, 0)))
+                       or self.alloc((), shapes[(nid, 0)]))
                 self.func(node.op, ins_v, out)
                 env[(nid, 0)] = out
             elif isinstance(node, ReduceNode):
@@ -533,10 +898,12 @@ class _Emitter:
         d = x.lists[0][0]
         if d in self.grid:
             raise RegionError(f"reduce over grid dim {d}")
-        acc = dest or self.alloc([l for l, _ in x.lists[1:]], x.shape)
+        split = node is self.split_node
+        acc = ((None if split else self.dest(dest))
+               or self.alloc([l for l, _ in x.lists[1:]], x.shape))
         is_max = node.op == O.REDUCE_MAX
         self.fill(acc, -math.inf if is_max else 0.0)
-        i = self.loop(d)
+        i = self.loop(d, split)
         expr = "fmaxf(x0, x1)" if is_max else "(x0 + x1)"
 
         def item(vs):
@@ -546,6 +913,8 @@ class _Emitter:
                     expr)
         self.over_items([acc, x.index(d, i)], item)
         self.close(d)
+        if split:
+            self.combine([acc], [is_max])
         return acc
 
     def map(self, g: Graph, nid: int, node: MapNode, ins: Sequence[_View],
@@ -553,6 +922,9 @@ class _Emitter:
         d = node.dim
         if node.serial and d in self.grid:
             raise RegionError(f"serial map[{d}] over a grid-selected dim")
+        split = node is self.split_node
+        if d not in self.grid:   # a grid map's body picks its own
+            dests = {p: self.dest(v) for p, v in dests.items()}
         outs: Dict[int, Optional[_View]] = {}
         for p, r in enumerate(node.reduced):
             if r is None:
@@ -565,7 +937,7 @@ class _Emitter:
             else:
                 outs[p] = self.alloc(vtypes[p].dims, shapes[p])
                 self.fill(outs[p], -math.inf if r == O.REDUCE_MAX else 0.0)
-        idx = self.loop(d)
+        idx = self.loop(d, split)
         mark = self.smem
         body_in = [v.index(d, idx) if m else v
                    for v, m in zip(ins, node.mapped)]
@@ -577,6 +949,9 @@ class _Emitter:
             self.accumulate(node, outs, res)
         self.smem = mark
         self.close(d)
+        if split:
+            self.combine([outs[p] for p in range(len(node.reduced))],
+                         [r == O.REDUCE_MAX for r in node.reduced])
         result = []
         for p, r in enumerate(node.reduced):
             v = outs[p]
@@ -631,21 +1006,23 @@ class _Emitter:
 # Kernel source and the launch wrapper
 # ---------------------------------------------------------------------------
 
-def _kernel_source(em: _Emitter, gid: str, label: str, entry: str,
-                   n_in: int, n_out: int) -> str:
-    grid = em.grid
-    gx = int(np.prod([em.dims[d] for d in grid])) if grid else 1
+def _kernel_source(em: _Emitter, plan: LaunchPlan, kname: str, gid: str,
+                   label: str, entry: str, n_in: int, n_out: int) -> str:
     smem = em.peak * 4
-    # the name the profiler shows: which emitter, which group
-    kname = f"{entry}_{_cname(gid)}"
+    cs = plan.cluster_size
+    lifted = f", {list(plan.lifted)} lifted" if plan.lifted else ""
+    cluster = (f"a cluster of {cs} blocks splits the {plan.cluster_dim} "
+               f"reduction of each cell" if cs > 1 else "one block a cell")
     head = [
         f"// {entry} kernel {gid}: {label}",
         "// Emitted by repro_torch/core/codegen_cuda.py; replaces the "
         f"pallas_call of repro.core.codegen_pallas.{entry}.",
-        f"// grid {list(grid)} = {gx} blocks x instances; "
-        f"{smem} bytes of shared memory.",
-        f"// {em.flops} float operations per block; inputs are read from "
-        "device memory tile by tile as the operators use them.",
+        f"// reference grid {list(plan.grid)}; launch grid "
+        f"{list(plan.launch_dims)}{lifted} = {plan.cells} cells; {cluster}: "
+        f"{plan.blocks} blocks x instances.",
+        f"// {smem} bytes of shared memory and {em.flops} float operations "
+        "per block; operands contiguous along k are staged by cp.async "
+        "(tiles::dot_k), the rest read where they lie.",
         '#include "tiles.cuh"',
         "",
         f"struct KArgs {{ const float* in[{max(n_in, 1)}]; "
@@ -654,7 +1031,7 @@ def _kernel_source(em: _Emitter, gid: str, label: str, entry: str,
         "",
         f"__global__ void __launch_bounds__({THREADS}) "
         f"{kname}(const KArgs A) {{",
-        "  extern __shared__ float smem[];",
+        "  extern __shared__ __align__(16) float smem[];",
         "  const long long u0 = blockIdx.y, u1 = blockIdx.z;",
     ]
     for j in range(n_in):
@@ -663,18 +1040,21 @@ def _kernel_source(em: _Emitter, gid: str, label: str, entry: str,
     for j in range(n_out):
         head.append(f"  float* out{j} = A.out[{j}] + u0 * A.os[{j}][0]"
                     f" + u1 * A.os[{j}][1];")
-    if grid:
+    if cs > 1:
+        head += ["  const int rank = tiles::cluster_rank();",
+                 f"  int cell = blockIdx.x / {cs};"]
+    else:
         head.append("  int cell = blockIdx.x;")
-        for d in reversed(grid):
-            n = em.dims[d]
-            head.append(f"  const int g_{_cname(d)} = cell % {n}; "
-                        f"cell /= {n};")
+    for d in reversed(plan.launch_dims):
+        n = em.dims[d]
+        head.append(f"  const int g_{_cname(d)} = cell % {n}; cell /= {n};")
     tail = [
         "}",
         "",
         'extern "C" int launch(void** ptrs, const long long* strides, '
         "int inst0, int inst1, void* stream) {",
         "  KArgs a;",
+        "  cudaError_t e = cudaSuccess;",
     ]
     for j in range(n_in):
         tail.append(f"  a.in[{j}] = (const float*)ptrs[{j}]; "
@@ -685,15 +1065,44 @@ def _kernel_source(em: _Emitter, gid: str, label: str, entry: str,
         tail.append(f"  a.out[{j}] = (float*)ptrs[{k}]; "
                     f"a.os[{j}][0] = strides[{2 * k}]; "
                     f"a.os[{j}][1] = strides[{2 * k + 1}];")
+    attrs = []
     if smem > 48 * 1024:  # dynamic shared memory past 48 KB is opt-in
+        attrs.append(f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem}")
+    if cs > PORTABLE_CLUSTER:
+        attrs.append("cudaFuncAttributeNonPortableClusterSizeAllowed, 1")
+    if attrs:  # once per device: the attributes stay with the function
         tail += [
-            f"  cudaError_t e = cudaFuncSetAttribute({kname}, "
-            f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});",
+            "  static unsigned long long ready = 0;",
+            "  int dev = 0;",
+            "  e = cudaGetDevice(&dev);",
+            "  if (e != cudaSuccess) return (int)e;",
+            "  if (!((ready >> dev) & 1ull)) {",
+        ]
+        for attr in attrs:
+            tail += [f"    e = cudaFuncSetAttribute({kname}, {attr});",
+                     "    if (e != cudaSuccess) return (int)e;"]
+        tail += ["    ready |= 1ull << dev;", "  }"]
+    if cs == 1:
+        tail.append(f"  {kname}<<<dim3({plan.blocks}, inst0, inst1), "
+                    f"{THREADS}, {smem}, (cudaStream_t)stream>>>(a);")
+    else:
+        tail += [
+            "  cudaLaunchConfig_t cfg = {};",
+            f"  cfg.gridDim = dim3({plan.blocks}, inst0, inst1);",
+            f"  cfg.blockDim = dim3({THREADS}, 1, 1);",
+            f"  cfg.dynamicSmemBytes = {smem};",
+            "  cfg.stream = (cudaStream_t)stream;",
+            "  cudaLaunchAttribute attr[1];",
+            "  attr[0].id = cudaLaunchAttributeClusterDimension;",
+            f"  attr[0].val.clusterDim.x = {cs};",
+            "  attr[0].val.clusterDim.y = 1;",
+            "  attr[0].val.clusterDim.z = 1;",
+            "  cfg.attrs = attr;",
+            "  cfg.numAttrs = 1;",
+            f"  e = cudaLaunchKernelEx(&cfg, {kname}, a);",
             "  if (e != cudaSuccess) return (int)e;",
         ]
     tail += [
-        f"  {kname}<<<dim3({gx}, inst0, inst1), {THREADS}, "
-        f"{smem}, (cudaStream_t)stream>>>(a);",
         "  return (int)cudaGetLastError();",
         "}",
         "",
@@ -712,28 +1121,40 @@ def _trailing_contiguous(t: torch.Tensor, lead: int) -> bool:
 
 
 class CudaKernel:
-    """One emitted kernel: its CUDA source, its plain version, and a launch
-    counter.  ``kern(*merged, instances=k)`` takes merged arrays (each
-    with ``k`` leading instance axes; size 1 is shared) and returns the
-    merged outputs."""
+    """One emitted kernel: its CUDA source, its plain version, its
+    :class:`LaunchPlan` and a launch counter.  ``kern(*merged,
+    instances=k)`` takes merged arrays (each with ``k`` leading instance
+    axes; size 1 is shared) and returns the merged outputs.
 
-    def __init__(self, gid: str, label: str, entry: str, source: str,
-                 runner: Callable, in_full, out_full, smem_bytes: int,
-                 blocks: int, flops: int = 0):
+    ``blocks`` is the launch's blocks per instance (cells x cluster
+    ranks), ``flops`` the float operations the launch executes per
+    instance (recomputed members and the cluster's exchange included),
+    ``aligned`` the inputs that ``tiles::dot_k`` stages by 16-byte
+    copies."""
+
+    def __init__(self, gid: str, label: str, entry: str, kname: str,
+                 source: str, runner: Callable, in_full, out_full,
+                 smem_bytes: int, plan: LaunchPlan, flops: int = 0,
+                 aligned: Sequence[int] = ()):
         self.gid, self.label, self.entry = gid, label, entry
+        self.kname = kname       # the name the profiler shows
         self.source = source
         self.runner = runner
         self.in_full = [tuple(s) for s in in_full]
         self.out_full = [tuple(s) for s in out_full]
         self.smem_bytes = smem_bytes
-        self.blocks = blocks
-        self.flops = flops    # float operations per instance
+        self.plan = plan
+        self.blocks = plan.blocks
+        self.flops = flops
+        self.aligned = tuple(aligned)
         self.launcher = CB.Launcher(source, "launch",
                                     what=f"kernel {gid} ({label})")
+        self._ptrs = ctypes.c_void_p * (len(in_full) + len(out_full))
+        self._signatures: Dict[tuple, tuple] = {}
 
     def __repr__(self):
         return (f"<CudaKernel {self.gid} {self.label} blocks={self.blocks} "
-                f"smem={self.smem_bytes}>")
+                f"cluster={self.plan.cluster_size} smem={self.smem_bytes}>")
 
     @property
     def key(self) -> str:
@@ -759,11 +1180,16 @@ class CudaKernel:
         return self.runner(*merged, instances=instances)
 
     def __call__(self, *merged, instances: int = 0):
+        if merged and merged[0].is_cuda:    # the others: checked by launch
+            return self.launch(*merged, instances=instances)
         if placement(self.gid, *merged) == "cpu":
             return self.plain(*merged, instances=instances)
         return self.launch(*merged, instances=instances)
 
-    def launch(self, *merged, instances: int = 0):
+    def _signature(self, merged, instances: int) -> tuple:
+        """Validate a call's inputs in full: ``(device, output shapes,
+        the ctypes stride array, the two instance extents)``, cached per
+        signature by :meth:`launch`."""
         if instances > MAX_INSTANCE_AXES:
             raise ValueError(f"{self.gid}: at most {MAX_INSTANCE_AXES} "
                              "instance axes")
@@ -783,23 +1209,53 @@ class CudaKernel:
             if not _trailing_contiguous(a, instances):
                 raise ValueError(f"{self.gid}: input {j} is not contiguous "
                                  "in its merged axes")
+            if j in self.aligned and any(
+                    a.stride(k) % 4 for k in range(instances)
+                    if a.shape[k] != 1):
+                raise ValueError(f"{self.gid}: input {j} is staged by "
+                                 "16-byte copies; its instance strides "
+                                 "must be multiples of 4 elements")
         inst = tuple(torch.broadcast_shapes(
             *[tuple(a.shape[:instances]) for a in merged]))
-        outs = [torch.empty(inst + s, dtype=torch.float32, device=dev)
-                for s in self.out_full]
+        out_shapes = [inst + s for s in self.out_full]
         strides: List[int] = []
-        for t in list(merged) + outs:
-            st = [t.stride(k) if t.shape[k] != 1 else 0
+        for t_shape, t_strides in (
+                [(tuple(a.shape), a.stride()) for a in merged]
+                + [(s, _row_major(s)) for s in out_shapes]):
+            st = [t_strides[k] if t_shape[k] != 1 else 0
                   for k in range(instances)]
             strides += st + [0] * (MAX_INSTANCE_AXES - instances)
         ext = list(inst) + [1] * (MAX_INSTANCE_AXES - instances)
-        tensors = list(merged) + outs
-        ptrs = (ctypes.c_void_p * len(tensors))(
-            *[t.data_ptr() for t in tensors])
         arr = (ctypes.c_longlong * len(strides))(*strides)
-        with torch.cuda.device(dev):
-            self.launcher.launch(ptrs, arr, ext[0], ext[1],
-                                 current_stream(dev))
+        return dev, out_shapes, arr, ext[0], ext[1]
+
+    def launch(self, *merged, instances: int = 0):
+        """Launch on CUDA tensors.  A call's signature (shapes, strides,
+        types, devices) is validated in full the first time it is seen;
+        later calls with it only allocate the outputs and build the
+        pointer array."""
+        sig = (instances, *[(a.dtype, a.get_device(), a.shape, a.stride())
+                            for a in merged])
+        known = self._signatures.get(sig)
+        if known is None:
+            known = self._signatures[sig] = self._signature(merged,
+                                                            instances)
+        dev, out_shapes, strides, ext0, ext1 = known
+        outs = [torch.empty(s, dtype=torch.float32, device=dev)
+                for s in out_shapes]
+        ptrs = [t.data_ptr() for t in merged] + [o.data_ptr() for o in outs]
+        for j in self.aligned:
+            if ptrs[j] % 16:
+                raise ValueError(f"{self.gid}: input {j} is staged by "
+                                 "16-byte copies and must be 16-byte "
+                                 "aligned")
+        if dev.index == current_device():
+            self.launcher.launch(self._ptrs(*ptrs), strides, ext0, ext1,
+                                 current_stream(dev.index))
+        else:
+            with torch.cuda.device(dev):
+                self.launcher.launch(self._ptrs(*ptrs), strides, ext0,
+                                     ext1, current_stream(dev.index))
         return tuple(outs)
 
 
@@ -819,39 +1275,53 @@ def _emit_kernel(members: Sequence[RegionSpec], grid: Sequence[str],
                  in_item_shapes, out_item_shapes, dims: Dict[str, int],
                  gid: str, label: str, entry: str, runner: Callable
                  ) -> CudaKernel:
-    em = _Emitter(dims, grid)
+    plan = launch_plan(members, grid, ref_types, in_refs, in_item_shapes,
+                       dims)
+    em = _Emitter(dims, plan.launch_dims, _split_node(members, plan),
+                  plan.cluster_size)
     env: Dict[Ref, _View] = {}
     for j, (r, ish) in enumerate(zip(in_refs, in_item_shapes)):
         env[r] = _merged_view(f"in{j}", ref_types[r], ish, dims)
     spilled = {r: _merged_view(f"out{j}", ref_types[r], ish, dims)
                for j, (r, ish) in enumerate(zip(out_refs, out_item_shapes))}
-    for spec in members:
+    for i, spec in enumerate(members):
+        em.member_guards = tuple(f"g_{_cname(d)} == 0" for d in plan.lifted
+                                 if d not in spec.grid_dims)
+        later = {r for m in members[i + 1:] for r in m.in_refs}
         ins = [env[r] for r in spec.in_refs]
-        shapes = em.shapes(spec.graph, [v.shape for v in ins])
+        shapes = _shapes(spec.graph, [v.shape for v in ins])
         dests = []
         for oid, r in zip(spec.graph.output_ids, spec.out_refs):
-            if r in spilled:
+            if r in spilled and not (em.guards and r in later):
                 dests.append(spilled[r])
                 continue
+            # resident, or spilled by a guarded member and read again
+            # here: this block keeps its own copy in shared memory
             e = spec.graph.in_edge(oid, 0)
             dests.append(em.alloc(ref_types[r].dims, shapes[(e.src, e.sp)]))
         for r, v in zip(spec.out_refs, em.graph(spec.graph, ins, dests)):
             if r in spilled and v.shape != spilled[r].shape:
                 raise RegionError(f"{gid}: emitted item shape {v.shape} of "
                                   f"{r} disagrees with {spilled[r].shape}")
+            if r in spilled and v is not spilled[r]:
+                em.copy(v, spilled[r])
             env[r] = v
     if em.peak * 4 > SMEM_LIMIT:
         raise RegionError(f"{gid}: {em.peak * 4} bytes of shared memory "
                           f"exceed the block limit {SMEM_LIMIT}")
-    source = _kernel_source(em, gid, label, entry, len(in_refs),
-                            len(out_refs))
+    # the name the profiler shows: the emitter, the group, and a digest of
+    # the body (the same group at another shape gets another name)
+    digest = hashlib.sha1("\n".join(em.lines).encode()).hexdigest()[:8]
+    kname = f"{entry}_{_cname(gid)}_{digest}"
+    source = _kernel_source(em, plan, kname, gid, label, entry,
+                            len(in_refs), len(out_refs))
     in_full = [merged_shape(ref_types[r], ish, dims)
                for r, ish in zip(in_refs, in_item_shapes)]
     out_full = [merged_shape(ref_types[r], ish, dims)
                 for r, ish in zip(out_refs, out_item_shapes)]
-    blocks = int(np.prod([dims[d] for d in grid])) if grid else 1
-    return CudaKernel(gid, label, entry, source, runner, in_full, out_full,
-                      em.peak * 4, blocks, em.flops * blocks)
+    return CudaKernel(gid, label, entry, kname, source, runner, in_full,
+                      out_full, em.peak * 4, plan, em.flops * plan.blocks,
+                      sorted(em.aligned_inputs))
 
 
 # ---------------------------------------------------------------------------
@@ -862,7 +1332,8 @@ def emit_region(spec: RegionSpec, dims: Dict[str, int],
                 in_item_shapes: List[Tuple[int, ...]], gid: str = ""):
     """Lower one region to one CUDA kernel.  Returns ``(kernel,
     out_item_shapes, report)``; the grid is the region's parallel spine
-    and its serial ``red_dim`` is a loop inside the kernel."""
+    and its serial ``red_dim`` a loop inside the kernel, whose trips the
+    kernel's launch plan may split over a thread-block cluster."""
     rg = spec.graph
     for d in spec.grid_dims:
         if d not in dims:
@@ -887,8 +1358,10 @@ def emit_group(group, types: Dict[Ref, VType], dims: Dict[str, int],
                in_item_shapes: List[Tuple[int, ...]]):
     """Lower one region group to one CUDA kernel: the members run in
     sequence inside it, values that cross members stay in shared memory,
-    and only the group's spilled ``out_refs`` are written out.  Returns
-    ``(kernel, out_item_shapes, reports)``."""
+    and only the group's spilled ``out_refs`` are written out; the launch
+    plan may put dims the group's grid dropped back on the launch grid and
+    split the last member's reduction over a cluster.  Returns ``(kernel,
+    out_item_shapes, reports)``."""
     for d in group.grid_dims:
         if d not in dims:
             raise RegionError(f"grid dim {d} missing from dims")

@@ -17,6 +17,17 @@ def placement(what: str, *tensors: torch.Tensor) -> str:
                      "CUDA tensors only (CPU tensors run its plain version)")
 
 
+def current_device() -> int:
+    """The index of the current CUDA device (CUDA initialised: a CUDA
+    tensor exists)."""
+    return torch._C._cuda_getDevice()
+
+
 def current_stream(device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as a pointer."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current CUDA stream on ``device`` (a ``torch.device`` or
+    an index), as a pointer: the raw query the launch paths take, without
+    building a ``torch.cuda.Stream``."""
+    index = device if isinstance(device, int) else device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

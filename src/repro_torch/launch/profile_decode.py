@@ -17,7 +17,8 @@ then runs ``--steps`` ragged decode steps:
   67 TFLOP/s (float32), the H100 SXM data sheet's rates.
 
 It prints one JSON object, and needs a card: without one it exits
-nonzero.
+nonzero.  :func:`profile_decode` does the same for an engine the caller
+has built and warmed.
 """
 
 from __future__ import annotations
@@ -63,30 +64,20 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def main(argv=None) -> dict:
-    from repro_torch.launch import serve as S
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--n-layers", type=int, default=None)
-    ap.add_argument("--prompt-len", type=int, default=20)
-    ap.add_argument("--json", dest="json_out", default=None)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("profile_decode: needs a CUDA card", file=sys.stderr)
-        sys.exit(1)
-
-    cfg = S.ServeConfig(n_layers=args.n_layers, seed=0)
-    engine = S.build_engine(cfg)
-    engine.warmup()
+def profile_decode(engine, steps: int = 5, prompt_len: int = 20) -> dict:
+    """Fill every slot of a warmed ``engine`` with a prefilled prompt of
+    ``prompt_len`` tokens, then time ``steps`` ragged decode steps on the
+    host clock and profile as many more under ``torch.profiler``.
+    Returns the breakdown (see the module docstring)."""
+    cfg_len = engine.prompt_buckets[-1]
     rng = np.random.default_rng(0)
     for slot in range(engine.max_batch):
-        padded = np.zeros((1, cfg.prompt_buckets[-1]), np.int64)
-        padded[0, :args.prompt_len] = rng.integers(0, engine.cfg.vocab,
-                                                   args.prompt_len)
+        padded = np.zeros((1, cfg_len), np.int64)
+        padded[0, :prompt_len] = rng.integers(0, engine.cfg.vocab,
+                                              prompt_len)
         _, cache = engine._prefill(padded)
         engine._insert(cache, slot)
-    pos = torch.full((engine.max_batch,), args.prompt_len, device="cuda")
+    pos = torch.full((engine.max_batch,), prompt_len, device="cuda")
     toks = torch.zeros((engine.max_batch, 1), dtype=torch.long,
                        device="cuda")
 
@@ -97,7 +88,7 @@ def main(argv=None) -> dict:
     step(0)
     torch.cuda.synchronize()
     host_ms = []
-    for i in range(args.steps):
+    for i in range(steps):
         t0 = time.perf_counter()
         step(i)
         torch.cuda.synchronize()
@@ -108,7 +99,7 @@ def main(argv=None) -> dict:
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for i in range(args.steps):
+        for i in range(steps):
             step(i)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
@@ -123,22 +114,22 @@ def main(argv=None) -> dict:
         by_name[name] = by_name.get(name, 0.0) + dur
         intervals.append((ev.time_range.start, ev.time_range.end))
     busy = _busy_us(intervals)
-    per_step = {k: v / args.steps / 1e3 for k, v in
+    per_step = {k: v / steps / 1e3 for k, v in
                 sorted(by_name.items(), key=lambda kv: -kv[1])}
     # the least time a step could take (float32, H100 SXM data sheet):
     # every weight read once, the cache rows attended to read once, the
     # logits written once; two operations per weight per sequence
     mc, b = engine.cfg, engine.max_batch
     weights = sum(t.numel() for t in _tensors(engine.params))
-    kv_rows = mc.n_layers * b * mc.n_kv_heads * (args.prompt_len + 1)
+    kv_rows = mc.n_layers * b * mc.n_kv_heads * (prompt_len + 1)
     step_bytes = 4 * (weights + 2 * kv_rows * mc.d_head + b * mc.vocab)
     step_flops = 2 * b * weights
-    out = {
+    return {
         "card": _card(),
         "device": torch.cuda.get_device_name(0),
         "n_layers": engine.cfg.n_layers,
         "batch": engine.max_batch,
-        "steps": args.steps,
+        "steps": steps,
         "host_step_ms": host_ms,
         "profiled_window_ms": window_us / 1e3,
         "device_busy_ms": busy / 1e3,
@@ -148,6 +139,24 @@ def main(argv=None) -> dict:
         "step_flops": step_flops,
         "step_bound_ms": max(step_bytes / 3.35e12, step_flops / 67e12) * 1e3,
     }
+
+
+def main(argv=None) -> dict:
+    from repro_torch.launch import serve as S
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--n-layers", type=int, default=None)
+    ap.add_argument("--prompt-len", type=int, default=20)
+    ap.add_argument("--json", dest="json_out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_decode: needs a CUDA card", file=sys.stderr)
+        sys.exit(1)
+
+    engine = S.build_engine(S.ServeConfig(n_layers=args.n_layers, seed=0))
+    engine.warmup()
+    out = profile_decode(engine, args.steps, args.prompt_len)
     print(json.dumps(out, indent=1))
     if args.json_out:
         with open(args.json_out, "w") as f:

@@ -7,8 +7,12 @@ Every in-repo program compiles on the ``cuda`` backend; every emitted
 kernel is built by nvcc, launched on CUDA tensors and held against its
 plain version at ``rtol = atol = 2e-4``; a CUDA call counts one launch
 per kernel.  The same holds for every fusion snapshot, grouped and
-ungrouped (the card side of ``tests/test_torch_coverage.py``).  This
-module imports no JAX: the machine with the card has none.
+ungrouped (the card side of ``tests/test_torch_coverage.py``), for every
+kernel of the serving path at its serving shape (full-width smollm-135m:
+decode batch 4, prompt buckets 8/16/32, max_len 96), and for a reduction
+whose trip count gives a cluster of 13 ranks or, having no divisor up to
+16, none.  This module imports no JAX: the machine with the card has
+none.
 """
 
 import numpy as np
@@ -105,3 +109,93 @@ def test_every_snapshot_runs_on_card(group, card):
         for g_, w_ in zip(got, want):
             torch.testing.assert_close(g_.cpu(), w_, rtol=TOL, atol=TOL,
                                        msg=label)
+
+
+# -- the serving path's kernels at their shapes -------------------------------
+
+SERVING = ("attention_prefill8", "attention_prefill16", "attention_prefill32",
+           "attention_decode", "swiglu_prefill8", "swiglu_prefill16",
+           "swiglu_prefill32", "swiglu_decode")
+
+
+def serving_inputs(name, device, seed=0):
+    """Seeded inputs of the serving program ``name`` at full smollm-135m
+    width, with its instance-axis count (as the model layers feed it)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    d, dff, dh, hkv, group = 576, 1536, 64, 3, 3
+    if name.startswith("attention"):
+        if name == "attention_decode":
+            b, s, skv = 4, 1, 96
+            qp = torch.tensor([5.0, 35.0, 65.0, 95.0]).reshape(b, 1, 1)
+        else:
+            b, s = 1, int(name[len("attention_prefill"):])
+            skv = s
+            qp = torch.arange(s, dtype=torch.float32).reshape(1, 1, s)
+        kp = torch.arange(skv, dtype=torch.float32).reshape(1, 1, skv)
+        return {"Q": randn(b, hkv, group, s, dh), "KT": randn(b, hkv, skv, dh),
+                "VT": randn(b, hkv, dh, skv), "QP": qp.to(device),
+                "KP": kp.to(device)}, 2
+    t = 4 if name == "swiglu_decode" else int(name[len("swiglu_prefill"):])
+    return {"X": randn(t, d), "WT": randn(dff, d, scale=d ** -0.5),
+            "VT": randn(dff, d, scale=d ** -0.5),
+            "UT": randn(d, dff, scale=dff ** -0.5)}, 0
+
+
+def serving_programs():
+    """The serving path's compiled programs by name (no card needed)."""
+    from repro_torch.launch import serve as S
+    from repro_torch.models import layers as L
+    cfg = S.ServeConfig()
+    return L.pipeline_kernels(S.model_config(cfg),
+                              prefill_lens=cfg.prompt_buckets,
+                              decode_batch=cfg.max_batch,
+                              max_len=cfg.max_len)
+
+
+@pytest.mark.parametrize("name", SERVING)
+def test_serving_kernels_on_card(name, card):
+    """Each kernel of the serving program ``name`` launched once on its
+    inputs, against its plain version; the SwiGLU kernels lie on 72
+    blocks (at least 36)."""
+    ck = serving_programs()[name]
+    inputs, inst = serving_inputs(name, card)
+    raw = ck._fn.raw_program
+    env = {ref: inputs[n] for ref, n in zip(raw.input_refs, ck.in_names)}
+    CC.build(ck.kernels)
+    for kr, kern in raw.region_runners:
+        kin = [env[r] for r in kr.in_refs]
+        before = kern.launches
+        got = kern(*kin, instances=inst)
+        want = kern.plain(*kin, instances=inst)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        for g_, w_ in zip(got, want):
+            torch.testing.assert_close(g_, w_, rtol=TOL, atol=TOL,
+                                       msg=f"{name}/{kern.gid}")
+        if name.startswith("swiglu"):
+            assert kern.blocks >= 36
+        env.update(zip(kr.out_refs, got))
+
+
+@pytest.mark.parametrize("k_trips,ranks", [(13, 13), (17, 1)])
+def test_cluster_size_follows_the_trip_count_on_card(k_trips, ranks, card):
+    """rmsnorm_swiglu with 13 or 17 K blocks: the down projection's K
+    reduction splits over a cluster of 13 ranks (a non-portable size), or,
+    17 having no divisor up to 16, runs in one block per cell."""
+    dims = {"M": 2, "D": 2, "K": k_trips, "N": 2}
+    blocks = {"M": 4, "D": 8, "K": 4, "N": 4}
+    kern = TP.compile(TAP.rmsnorm_ffn_swiglu_program(16.0), dims,
+                      options=TP.CompileOptions(backend="cuda",
+                                                blocks=blocks))
+    assert [k.plan.cluster_size for k in kern.kernels] == [ranks]
+    feed = {n: torch.from_numpy(v)
+            for n, v in merged_inputs(kern.graph, dims, blocks).items()}
+    want = kern(feed)
+    got = kern({n: v.to(card) for n, v in feed.items()})
+    torch.cuda.synchronize()
+    for n in kern.out_names:
+        torch.testing.assert_close(got[n].cpu(), want[n], rtol=TOL, atol=TOL)

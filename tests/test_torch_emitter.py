@@ -4,8 +4,9 @@ smollm-135m widths of the serving path, without nvcc and without a card.
 * its ``LoweringReport`` equals the reference Pallas emitter's for the
   two main-path programs at every engine shape;
 * it writes CUDA source for every kernel (one ``__global__`` per region
-  group, tile templates from ``csrc/tiles.cuh``, shared memory inside
-  the H100 block limit);
+  group, tile templates from ``csrc/tiles.cuh``, the coalesced product
+  ``tiles::dot_k`` for every tile product, shared memory inside the H100
+  block limit);
 * chaining the kernels' plain versions by ``KernelRun`` gives the
   whole-program output (``rtol = atol = 1e-5``);
 * a kernel called on CPU tensors runs its plain version and counts no
@@ -70,11 +71,14 @@ def test_report_equals_reference_at_full_width(name, tmp_path):
 def test_full_width_swiglu_lowers_to_group_and_region():
     """At full width the SwiGLU program is two kernels: the RMS statistic
     and gate/up projections as one ``emit_group`` megakernel, the down
-    projection as one ``emit_region`` kernel."""
+    projection as one ``emit_region`` kernel.  Each lies on 72 blocks of
+    the card: g0 on its 12 lifted K cells times a cluster of 6 splitting
+    D, g1 on its 6 N cells times a cluster of 12 splitting K."""
     kern = _port("swiglu_decode")
     assert [k.entry for k in kern.kernels] == ["emit_group", "emit_region"]
     assert kern.lowering_report.resident_edges == 1
-    assert [k.blocks for k in kern.kernels] == [1, 6]
+    assert [k.blocks for k in kern.kernels] == [72, 72]
+    assert [k.plan.cluster_size for k in kern.kernels] == [6, 12]
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
@@ -86,7 +90,8 @@ def test_cuda_source_for_every_kernel(name):
         src = k.source
         assert '#include "tiles.cuh"' in src
         assert "__global__" in src and 'extern "C" int launch(' in src
-        assert "tiles::dot<" in src
+        # every product of the serving path is contiguous along k
+        assert "tiles::dot_k<" in src and "tiles::dot<" not in src
         assert src.count("{") == src.count("}")
         assert 0 < k.smem_bytes <= CC.SMEM_LIMIT
         assert k.flops > 0
