@@ -10,7 +10,10 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    the ragged decode step, and the SwiGLU group and down-projection
    kernels of each), generated by ``repro_torch.core.codegen_cuda``, and
    the three hand-written kernels of ``repro_torch/csrc/`` (flash
-   attention, RMSNorm+SwiGLU, LayerNorm+matmul), all for sm_90a;
+   attention, RMSNorm+SwiGLU, LayerNorm+matmul), all for sm_90a; then the
+   HMMA (tensor-core) instructions and the registers and stack of each
+   hand kernel's instantiations (``cuobjdump``): flash attention and
+   RMSNorm+SwiGLU must have HMMA instructions;
 3. each emitted kernel against its plain PyTorch version on the card, on
    inputs of the shapes the serving path gives it (``rtol = atol =
    2e-4``), timed with CUDA events (back to back, so a short kernel is
@@ -27,11 +30,16 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    backend; then ``launch.profile_decode`` breaks 3 decode steps of a
    fresh engine down by kernel (g0, g1, attention, torch ops, the device's
    busy share, the step's host time);
-5. each hand-written kernel against its plain version at every shape of
-   paths A and B below, plus one bfloat16 case each (float32: ``2e-4`` for
-   attention, ``2e-4 * sqrt(K)`` absolute for LayerNorm+matmul, ``4e-4``
-   for SwiGLU; bfloat16: ``5e-2``), timed beside its plain version (and
-   ``scaled_dot_product_attention`` for attention), with its bound;
+5. each hand-written kernel against its plain version (which follows the
+   kernel's split of the key or d_ff axis) at every shape of paths A and
+   B below, plus one bfloat16 case each (float32: ``2e-4`` for attention,
+   ``2e-4 * sqrt(K)`` absolute for LayerNorm+matmul, ``4e-4`` for SwiGLU;
+   bfloat16: ``5e-2``), with its launch grid and cluster size, timed with
+   CUDA events beside its plain version (and
+   ``scaled_dot_product_attention`` for attention), with its bound; then
+   the device time per launch of every case and of its SDPA call, from
+   one ``torch.profiler`` session.  The float32 bound is 3xTF32 on the
+   tensor cores (495 / 3 TFLOP/s), the float32 FMA bound beside it;
 6. a plumbing check of each kernel's ``autograd.Function``: its forward
    launches the kernel once, and its backward (autograd of the plain
    oracle, by design) returns finite gradients of the inputs' shapes for
@@ -53,6 +61,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -66,8 +75,12 @@ PATH_TOL = 1e-3     # logits of a hand-kernel path vs its plain impls
 BF16_TOL = 5e-2     # hand kernel vs plain version, bfloat16
 PATH_REPEATS = 10   # timed calls of each hand-kernel path
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-FP32_FLOPS = 67e12          # H100 SXM data sheet, float32 outside tensor cores
+# float32 work within the float32 tolerance: 3xTF32 on the tensor cores,
+# the data sheet's dense 495 TFLOP/s TF32 over the three products
+FP32_FLOPS = 495e12 / 3
+FP32_FMA_FLOPS = 67e12      # H100 SXM data sheet, float32 outside tensor cores
 BF16_FLOPS = 989e12         # H100 SXM data sheet, dense bfloat16
+HAND_TC = ("flash_attention", "rmsnorm_swiglu")   # hand kernels on HMMA
 
 
 def fail(msg: str) -> None:
@@ -209,6 +222,9 @@ HAND = {  # module of repro_torch.kernels: the TPU kernel it replaces
     "rmsnorm_swiglu": "src/repro/kernels/rmsnorm_swiglu.py:58",
     "layernorm_matmul": "src/repro/kernels/layernorm_matmul.py:65",
 }
+HAND_FN = {  # the __global__ function of each hand kernel's source
+    "flash_attention": "flash_fwd", "rmsnorm_swiglu": "swiglu_fwd",
+    "layernorm_matmul": "ln_mm_fwd"}
 
 
 def hand_modules():
@@ -221,20 +237,22 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(in_out_bytes: int, flops: float, dtype):
-    """(least time in ms, what bounds it) on the H100 data sheet."""
-    import torch
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+def bound(in_out_bytes: int, flops: float, bf16: bool = False):
+    """(least time in ms, what bounds it, the float32 bound outside the
+    tensor cores or None) on the H100 data sheet."""
     t_bytes = in_out_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = flops / (BF16_FLOPS if bf16 else FP32_FLOPS) * 1e3
+    fma = None if bf16 else max(t_bytes, flops / FP32_FMA_FLOPS * 1e3)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+                                 else "operations"), fma
 
 
 def hand_cases(gen):
     """Every hand-kernel case: the shapes paths A and B give each kernel
     (the first of each kernel is its main shape), plus one bfloat16 case
-    per kernel.  Inputs scaled as in tests/test_kernels.py."""
+    per kernel, each with its launch (grid, cluster).  Inputs scaled as in
+    tests/test_kernels.py.  The plain versions follow the kernels' splits
+    of the key (flash) and d_ff (SwiGLU) axes."""
     import torch
     import torch.nn.functional as F
     mods = hand_modules()
@@ -252,15 +270,18 @@ def hand_cases(gen):
         k = randn(b, hkv, skv, dh, dtype=dtype)
         v = randn(b, hkv, skv, dh, dtype=dtype)
         mod = mods["flash_attention"]
+        shape = mod.launch_shape(b, h, hkv, sq, skv, dh, dtype)
         kept = sum(min(skv, r + 1) for r in range(sq)) if causal \
             else sq * skv
         cases.append(dict(
             kernel="flash_attention", label=label, dtype=dtype,
             tol=(TOL, TOL) if dtype == f32 else (BF16_TOL, BF16_TOL),
             run=lambda: mod.flash_attention_cuda(q, k, v, causal=causal),
-            plain=lambda: mod.plain(q, k, v, causal=causal),
+            plain=lambda: mod.plain(q, k, v, causal=causal,
+                                    split=shape.split),
             library=lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=hkv != h),
+            grid=shape.grid, cluster=shape.split, threads=shape.threads,
             bytes=nbytes(q, k, v, q), flops=4.0 * dh * kept * b * h))
 
     def swiglu(label, m, d, kdim, n, dtype=f32):
@@ -270,12 +291,15 @@ def hand_cases(gen):
         u = randn(kdim, n, scale=kdim ** -0.5, dtype=dtype)
         g = randn(d, scale=0.1) + 1.0
         mod = mods["rmsnorm_swiglu"]
+        shape = mod.launch_shape(m, d, kdim, n, dtype)
         out = torch.empty(m, n, dtype=dtype, device="cuda")
         cases.append(dict(
             kernel="rmsnorm_swiglu", label=label, dtype=dtype,
             tol=(2 * TOL, 2 * TOL) if dtype == f32 else (BF16_TOL, BF16_TOL),
             run=lambda: mod.rmsnorm_swiglu_cuda(x, w, v, u, g),
-            plain=lambda: mod.plain(x, w, v, u, g), library=None,
+            plain=lambda: mod.plain(x, w, v, u, g, cluster=shape.cluster,
+                                    kslice=shape.kslice), library=None,
+            grid=shape.grid, cluster=shape.cluster, threads=shape.threads,
             bytes=nbytes(x, w, v, u, g, out),
             flops=4.0 * m * d * kdim + 2.0 * m * kdim * n))
 
@@ -292,6 +316,7 @@ def hand_cases(gen):
                  else (BF16_TOL, BF16_TOL)),
             run=lambda: mod.layernorm_matmul_cuda(x, y, g, bt),
             plain=lambda: mod.plain(x, y, g, bt), library=None,
+            grid=(-(-n // 64), -(-m // mod.BM)), cluster=1, threads=256,
             bytes=nbytes(x, y, g, bt, out), flops=2.0 * m * kdim * n))
 
     attention("smollm prefill q (4,9,512,64) kv (4,3,512,64) causal",
@@ -312,10 +337,61 @@ def hand_cases(gen):
     return cases
 
 
-def check_hand_kernels(cases):
-    """Phase 5: every case against its plain version, then timed."""
+def window_device_ms(calls, iters: int = 20):
+    """Device time of each ``(fn, name)`` in ``calls``, from one
+    ``torch.profiler`` session: each fn runs ``iters`` times inside a
+    ``record_function`` window that ends in a synchronize, windows 2 ms
+    apart; every kernel that started on the card inside a window, and
+    whose name holds ``name`` (any kernel where ``name`` is None), counts
+    toward that fn.  Returns, for each fn, (the kernels' summed ms, the
+    kernels recorded)."""
     import torch
-    rows = {}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for fn, _ in calls:
+        fn()
+    torch.cuda.synchronize()
+    tags = [f"chip_smoke_window_{i}" for i in range(len(calls))]
+    with torch.profiler.profile(activities=acts) as prof:
+        for tag, (fn, _) in zip(tags, calls):
+            with torch.profiler.record_function(tag):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            time.sleep(2e-3)    # no kernel near a window's edge
+    events = prof.events()
+    windows = [None] * len(calls)
+    for ev in events:
+        if ev.device_type == torch.autograd.DeviceType.CPU and \
+                ev.name in tags:
+            windows[tags.index(ev.name)] = (ev.time_range.start,
+                                            ev.time_range.end)
+    total = [0.0] * len(calls)
+    count = [0] * len(calls)
+    for ev in events:
+        if ev.device_type != torch.autograd.DeviceType.CUDA or \
+                ev.name in tags:
+            continue
+        for i, win in enumerate(windows):
+            name = calls[i][1]
+            if win and win[0] <= ev.time_range.start < win[1] and (
+                    name is None or name in ev.name):
+                total[i] += ev.time_range.end - ev.time_range.start
+                count[i] += 1
+                break
+    for i, n in enumerate(count):
+        if n < iters // 2:
+            fail(f"window {i}: the profiler recorded {n} kernels for "
+                 f"{iters} calls")
+    return [(t / 1e3, n) for t, n in zip(total, count)]
+
+
+def check_hand_kernels(cases):
+    """Phase 5: every case against its plain version, then timed: CUDA
+    events back to back, and the device time per call of the kernel and
+    of SDPA from one profiler session."""
+    import torch
+    rows, done = {}, []
     for c in cases:
         name, label = c["kernel"], c["label"]
         got, want = c["run"](), c["plain"]()
@@ -330,25 +406,90 @@ def check_hand_kernels(cases):
                  f"version (max abs err {err:.3e}, atol {atol:.2e})")
         ms, plain_ms = time_ms(c["run"]), time_ms(c["plain"])
         lib_ms = time_ms(c["library"]) if c["library"] else None
-        bound_ms, bound_by = bound(c["bytes"], c["flops"], c["dtype"])
+        bound_ms, bound_by, fma_ms = bound(
+            c["bytes"], c["flops"], c["dtype"] == torch.bfloat16)
+        blocks = math.prod(c["grid"])
         case = {"shape": label, "max_abs_err": err, "atol": atol,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "ms": ms, "device_ms": None, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "library_device_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "flops": c["flops"], "bytes": c["bytes"]}
+                "bound_fma_ms": fma_ms, "flops": c["flops"],
+                "bytes": c["bytes"], "grid": list(c["grid"]),
+                "cluster": c["cluster"], "blocks": blocks,
+                "threads": c["threads"]}
         print(f"{name} [{label}]: max_abs_err={err:.3e} (atol {atol:.2e}) "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms} "
-              f"bound_ms={bound_ms:.6f} ({bound_by})", flush=True)
+              f"bound_ms={bound_ms:.6f} ({bound_by}; float32 FMA bound "
+              f"{fma_ms}) grid={list(c['grid'])} cluster={c['cluster']} "
+              f"blocks={blocks} threads={c['threads']}", flush=True)
         if name not in rows:        # the first case is the main shape
             rows[name] = {
                 "name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{name}.cu",
-                "replaces": HAND[name], "launches": 0,
-                **{k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                        "bound_ms", "bound_by",
-                                        "library_ms")},
-                "cases": []}
+                "replaces": HAND[name], "launches": 0, "cases": []}
         rows[name]["cases"].append(case)
+        done.append((c, case))
+    calls = []
+    for c, _ in done:
+        calls.append((c["run"], HAND_FN[c["kernel"]]))
+        if c["library"]:
+            calls.append((c["library"], None))
+    iters = 20
+    dev = iter(window_device_ms(calls, iters))
+    for c, case in done:
+        total, n = next(dev)
+        if n > iters:
+            fail(f"{c['kernel']} [{c['label']}]: {n} kernels in the "
+                 f"profile of {iters} calls, not one a call")
+        case["device_ms"] = total / n       # per launch, of those recorded
+        if c["library"]:
+            total, _ = next(dev)
+            case["library_device_ms"] = total / iters   # per call
+        print(f"{c['kernel']} [{c['label']}]: device_ms="
+              f"{case['device_ms']:.4f} per launch (torch.profiler; CUDA "
+              f"events {case['ms']:.4f}); library device_ms="
+              f"{case['library_device_ms']}", flush=True)
+    for row in rows.values():
+        main = row["cases"][0]
+        row.update({k: main[k] for k in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_fma_ms", "library_ms", "library_device_ms")})
     return rows
+
+
+def tensor_core_report(hand):
+    """The HMMA instructions and resource use (cuobjdump) of each hand
+    kernel's library; fails if a kernel redesigned for the tensor cores
+    has none."""
+    import shutil
+    from repro_torch.core import cuda_build as CB
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name, k in hand.items():
+        lib = str(CB.library_path(k.key))
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                              text=True, timeout=300)
+        if sass.returncode != 0:
+            fail(f"cuobjdump -sass {name}: {sass.stderr.strip()}")
+        hmma = sum("HMMA" in line for line in sass.stdout.splitlines())
+        res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                             text=True, timeout=300)
+        usage, func = {}, None
+        for line in res.stdout.splitlines():
+            if line.strip().startswith("Function "):
+                # the template arguments of a mangled kernel name
+                func = line.strip()[len("Function "):].rstrip(":")
+                m = re.search(r"(flash_fwd|swiglu_fwd|ln_mm_fwd)I(.*?)EEv",
+                              func)
+                func = f"{m.group(1)}<{m.group(2)}>" if m else func
+            elif "REG:" in line and func:
+                regs = re.search(r"REG:(\d+) STACK:(\d+)", line)
+                usage[func] = (f"{regs.group(1)} registers, "
+                               f"{regs.group(2)} B stack")
+        print(f"{name}: {hmma} HMMA instructions in {Path(lib).name}; "
+              f"resources: {json.dumps(usage)}", flush=True)
+        if name in HAND_TC and hmma == 0:
+            fail(f"{name}: no HMMA instruction, the kernel does not run on "
+                 "the tensor cores")
 
 
 def check_backward(gen):
@@ -535,6 +676,7 @@ def main() -> int:
     print(f"built {len(kernels)} emitted and {len(hand)} hand-written "
           f"kernels ({', '.join(hand)}) with nvcc (sm_90a), one process "
           f"each, in {build_s:.2f} s", flush=True)
+    tensor_core_report(hand)
 
     # -- 3. each kernel against its plain version --------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -575,8 +717,7 @@ def main() -> int:
                                       + inputs["VT"].shape[-2]) * 4
                 in_bytes += kv_need - kv_all
                 flops = flops * kept / total
-            t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP32_FLOPS * 1e3
+            bound_ms, bound_by, fma_ms = bound(in_bytes + out_bytes, flops)
             plan = kern.plan
             rows[name] = {
                 "name": name, "route": "cuda",
@@ -585,8 +726,8 @@ def main() -> int:
                              if kern.entry == "emit_region"
                              else "src/repro/core/codegen_pallas.py:634"),
                 "launches": 0, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_fma_ms": fma_ms,
                 "library_ms": lib_ms, "device_ms": None,
                 "launch_dims": list(plan.launch_dims),
                 "lifted": list(plan.lifted), "cluster_dim": plan.cluster_dim,

@@ -49,19 +49,18 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
 
 
-def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+def attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       scale: Optional[float] = None, causal: bool = False,
-                      q_offset=0, block_kv: int = 512) -> torch.Tensor:
-    """Flash-attention semantics in plain PyTorch (the reference's
-    ``attention_xla_flash``): a loop over KV chunks of ``block_kv`` keys
-    with the running-max carry of the paper's appendix, so memory stays
-    O(Sq * Dh + block_kv * Dh) per head."""
+                      q_offset=0, k_start: int = 0, block_kv: int = 512):
+    """The online softmax of the paper's appendix over the keys ``k``, ``v``
+    (positions ``k_start`` on), in chunks of ``block_kv`` keys: the carry
+    ``(m, l, acc)``, each ``(B, Hkv, group, Sq, .)``, unnormalised.  No keys
+    give the exact-zero carry ``(NEG_INF, 0, 0)``."""
     b, hq, sq, dh = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
     group = hq // hkv
     if scale is None:
         scale = 1.0 / dh ** 0.5
-    block_kv = min(block_kv, skv)
     qf = q.float().reshape(b, hkv, group, sq, dh)
     rows = _causal_rows(q_offset, sq, q.device) if causal else None
     m = torch.full((b, hkv, group, sq, 1), NEG_INF, device=q.device)
@@ -72,7 +71,8 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         vc = v[:, :, k0:k0 + block_kv].float()
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kc) * scale
         if causal:
-            cols = k0 + torch.arange(kc.shape[2], device=q.device)[None, :]
+            cols = k_start + k0 + torch.arange(kc.shape[2],
+                                               device=q.device)[None, :]
             s = torch.where(rows >= cols, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
@@ -80,7 +80,20 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vc)
         m = m_new
-    return (acc / l).reshape(b, hq, sq, dv).to(q.dtype)
+    return m, l, acc
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      scale: Optional[float] = None, causal: bool = False,
+                      q_offset=0, block_kv: int = 512) -> torch.Tensor:
+    """Flash-attention semantics in plain PyTorch (the reference's
+    ``attention_xla_flash``): a loop over KV chunks of ``block_kv`` keys
+    with the running-max carry of the paper's appendix, so memory stays
+    O(Sq * Dh + block_kv * Dh) per head."""
+    _, l, acc = attention_partial(q, k, v, scale=scale, causal=causal,
+                                  q_offset=q_offset,
+                                  block_kv=min(block_kv, k.shape[2]))
+    return (acc / l).reshape(*q.shape[:3], v.shape[-1]).to(q.dtype)
 
 
 def layernorm_ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

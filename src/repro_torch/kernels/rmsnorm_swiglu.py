@@ -2,18 +2,21 @@
 ``repro.kernels.rmsnorm_swiglu`` (``rmsnorm_swiglu_pallas``).
 
 The kernel is CUDA C++ written by hand, ``csrc/rmsnorm_swiglu.cu``, built
-by nvcc for ``sm_90a`` at first use.  A block owns ``BM = 16`` rows: their
-RMS-normalised rows stay in shared memory, the d_ff dimension is streamed
-in steps of ``BK = 64`` (the paper's serial K map) with W/V tiles of
-``DC = 32`` rows of D, the h tile never leaves the chip, and the output
-accumulator of up to ``BN = 1024`` columns lives in registers.  A wider N
-is split across blocks, each recomputing h (the paper's N replication);
-N <= 1024 has none.
+by nvcc for ``sm_90a`` at first use.  Its three products run on the
+tensor cores (bfloat16 ``mma.sync``; float32 as 3xTF32).  A block owns
+``BM = 32`` rows: their RMS-normalised rows stay in shared memory, the
+d_ff axis is split over the ranks of a thread-block cluster
+(:func:`launch_shape`) and streamed in steps of ``BKF = 64`` through a
+``cp.async`` ring, the h tile never leaves the chip, and each rank's
+partial output of up to ``BN = 576`` columns lives in registers until the
+ranks sum their partials in rank order.  A wider N is split across
+blocks, each recomputing h (the paper's N replication).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -22,33 +25,83 @@ from repro_torch.core.runtime import current_stream, placement
 from repro_torch.kernels import DTYPE_CODES
 from repro_torch.kernels import ref as R
 
-BM, BK, DC = 16, 64, 32      # the kernel's tiles
+BM, BKF, BN = 32, 64, 576   # rows, d_ff columns a step, output columns
+THREADS = 512                # 2 x 8 warps
+NSTAGE = 2                   # stages of the cp.async ring
+#: rows of W / V and of U a ring chunk, by dtype (the kernel's Tiles)
+CHUNKS = {torch.float32: (96, 16), torch.bfloat16: (192, 32)}
+SMS = 132                    # streaming multiprocessors of an H100 SXM
+MAX_CLUSTER = 8              # ranks of a cluster (the portable size)
 SMEM_LIMIT = 232448          # bytes of shared memory a block may use
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CB.csrc_launcher(
     "rmsnorm_swiglu.cu", "rmsnorm_swiglu_fwd",
-    [_P] * 6 + [_I] * 4 + [ctypes.c_float, _I, _P])
+    [_P] * 6 + [_I] * 4 + [ctypes.c_float] + [_I] * 4 + [_P])
 
 
-def smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one block: the normalised rows, the W/V
-    tiles, the h tile and the row statistics, float32."""
-    return 4 * (BM * d + 2 * DC * BK + BM * BK + BM)
+class LaunchShape(NamedTuple):
+    cluster: int     # ranks over d_ff
+    kslice: int      # d_ff columns a rank (a multiple of BKF)
+    grid: tuple      # (cluster, row blocks, column blocks)
+    threads: int
+    smem: int        # dynamic shared memory of a block, bytes
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
 
 
-def plain(x, w, v, u, gamma, *, eps: float = 1e-6) -> torch.Tensor:
-    """The kernel's plain version (``kernels.ref.rmsnorm_swiglu_ref``)."""
-    return R.rmsnorm_swiglu_ref(x, w, v, u, gamma, eps)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory of one block: the normalised rows, the ring
+    and the h tile in the operand's type, or the rank's float32 partial
+    output if larger."""
+    dc, ku = CHUNKS.get(dtype, CHUNKS[torch.float32])
+    pad, esize = (8, 2) if dtype == torch.bfloat16 else (4, 4)
+    stage = max(2 * dc * (BKF + 8), ku * (BN + 8))
+    body = (BM * (_cdiv(d, dc) * dc + pad) + NSTAGE * stage
+            + BM * (BKF + pad)) * esize
+    return max(body, BM * (BN + 4) * 4)
+
+
+def launch_shape(m: int, d: int, k: int, n: int,
+                 dtype: torch.dtype) -> LaunchShape:
+    """The kernel's launch: as many d_ff ranks (up to 8, each at least one
+    64-column step) as keep the blocks within the 132 SMs."""
+    base = _cdiv(m, BM) * _cdiv(n, BN)
+    steps = _cdiv(k, BKF)
+    cluster = max(1, min(MAX_CLUSTER, steps, SMS // base))
+    kslice = _cdiv(steps, cluster) * BKF
+    cluster = _cdiv(k, kslice)           # no rank without columns
+    return LaunchShape(cluster, kslice, (cluster, _cdiv(m, BM), _cdiv(n, BN)),
+                       THREADS, smem_bytes(d, dtype))
+
+
+def plain(x, w, v, u, gamma, *, eps: float = 1e-6, cluster: int = 1,
+          kslice: int = 0) -> torch.Tensor:
+    """The kernel's plain version: ``kernels.ref.rmsnorm_swiglu_ref`` with
+    the d_ff axis cut into ``cluster`` slices of ``kslice`` columns, their
+    partial outputs summed in rank order."""
+    if cluster == 1:
+        return R.rmsnorm_swiglu_ref(x, w, v, u, gamma, eps)
+    xn = R.rmsnorm_ref(x, gamma, eps).float()
+    out = 0.0
+    for k0 in range(0, cluster * kslice, kslice):
+        ks = slice(k0, k0 + kslice)
+        h = R.swish(xn @ w[:, ks].float()) * (xn @ v[:, ks].float())
+        out = out + h @ u[ks].float()
+    return out.to(x.dtype)
 
 
 def rmsnorm_swiglu_cuda(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                         u: torch.Tensor, gamma: torch.Tensor, *,
                         eps: float = 1e-6) -> torch.Tensor:
     """x: (M, D); w, v: (D, K); u: (K, N); gamma: (D,).  Returns (M, N) in
-    x's dtype.  CPU tensors run :func:`plain`; CUDA tensors launch the
-    kernel or raise."""
-    if placement("rmsnorm_swiglu", x, w, v, u, gamma) == "cpu":
-        return plain(x, w, v, u, gamma, eps=eps)
+    x's dtype.  CPU tensors run :func:`plain` with the kernel's split;
+    CUDA tensors launch the kernel or raise."""
     if x.dim() != 2:
         raise ValueError(f"x must be (M, D), got {tuple(x.shape)}")
     m, d = x.shape
@@ -62,20 +115,29 @@ def rmsnorm_swiglu_cuda(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     n = u.shape[1]
     if min(m, d, k, n) < 1:
         raise ValueError("empty operand")
+    shape = launch_shape(m, d, k, n, x.dtype)
+    if placement("rmsnorm_swiglu", x, w, v, u, gamma) == "cpu":
+        return plain(x, w, v, u, gamma, eps=eps, cluster=shape.cluster,
+                     kslice=shape.kslice)
     if x.dtype not in DTYPE_CODES or len(
             {t.dtype for t in (x, w, v, u)}) > 1:
         raise ValueError(f"dtypes {x.dtype}, {w.dtype}, {v.dtype}, "
                          f"{u.dtype}: the kernel takes float32 or bfloat16, "
                          "all alike")
-    if smem_bytes(d) > SMEM_LIMIT:
-        raise ValueError(f"D = {d} needs {smem_bytes(d)} bytes of shared "
+    if shape.smem > SMEM_LIMIT:
+        raise ValueError(f"D = {d} needs {shape.smem} bytes of shared "
                          f"memory per block, over {SMEM_LIMIT}")
+    if shape.grid[1] > 65535 or shape.grid[2] > 65535:
+        raise ValueError(f"M = {m}, N = {n} exceed the grid's limits")
     x, w, v, u = (t.contiguous() for t in (x, w, v, u))
     g = gamma.float().contiguous()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    per16 = 16 // x.element_size()
+    vec = all(t.data_ptr() % 16 == 0 for t in (x, w, v, u)) and all(
+        s % per16 == 0 for s in (d, k, n))
     with torch.cuda.device(x.device):
         KERNEL.launch(x.data_ptr(), w.data_ptr(), v.data_ptr(),
                       u.data_ptr(), g.data_ptr(), out.data_ptr(), m, d, k, n,
-                      float(eps), DTYPE_CODES[x.dtype],
-                      current_stream(x.device))
+                      float(eps), DTYPE_CODES[x.dtype], shape.cluster,
+                      shape.kslice, int(vec), current_stream(x.device))
     return out

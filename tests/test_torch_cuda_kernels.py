@@ -53,7 +53,13 @@ def _launched(kernel, fn):
     "b,hq,hkv,sq,skv,dh,causal",
     [(2, 4, 2, 64, 64, 32, False), (1, 8, 8, 96, 96, 64, True),
      (2, 4, 1, 48, 80, 32, False), (1, 2, 2, 1, 100, 64, True),
-     (1, 2, 2, 33, 33, 128, True), (2, 6, 6, 64, 1500, 64, False)])
+     (1, 2, 2, 33, 33, 128, True), (2, 6, 6, 64, 1500, 64, False),
+     # the split regimes of launch_shape: whisper decoder self (16-row
+     # blocks, 2 ranks), a short last rank, ranks past the causal
+     # frontier, head dims 32 and 128 under a split, GQA under a split
+     (2, 6, 6, 64, 64, 64, True), (1, 4, 4, 16, 1000, 64, False),
+     (2, 9, 3, 128, 128, 64, True), (1, 2, 2, 8, 300, 32, True),
+     (1, 2, 2, 8, 300, 128, False), (1, 6, 2, 40, 700, 64, True)])
 def test_flash_attention_on_card(card, b, hq, hkv, sq, skv, dh, causal,
                                  dtype):
     gen = torch.Generator(device=card).manual_seed(0)
@@ -63,7 +69,8 @@ def test_flash_attention_on_card(card, b, hq, hkv, sq, skv, dh, causal,
     qoff = skv - sq if causal else 0
     got = _launched(FA.KERNEL, lambda: FA.flash_attention_cuda(
         q, k, v, causal=causal, q_offset=qoff))
-    want = FA.plain(q, k, v, causal=causal, q_offset=qoff)
+    split = FA.launch_shape(b, hq, hkv, sq, skv, dh, dtype).split
+    want = FA.plain(q, k, v, causal=causal, q_offset=qoff, split=split)
     assert got.dtype == dtype and torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
@@ -91,7 +98,11 @@ def test_layernorm_matmul_on_card(card, m, k, n, dtype):
 @pytest.mark.parametrize("m,d,k,n", [(64, 128, 96, 64), (40, 64, 256, 64),
                                      (16, 128, 64, 128),
                                      (2048, 576, 1536, 576),
-                                     (20, 72, 70, 1100)])
+                                     (20, 72, 70, 1100),
+                                     # M not a multiple of 32, D of 16, K
+                                     # of 64; N > 1024 at path width
+                                     (100, 200, 300, 96),
+                                     (33, 576, 1536, 1300)])
 def test_rmsnorm_swiglu_on_card(card, m, d, k, n, dtype):
     gen = torch.Generator(device=card).manual_seed(2)
     x = _randn(gen, card, m, d, dtype=dtype)
@@ -101,7 +112,9 @@ def test_rmsnorm_swiglu_on_card(card, m, d, k, n, dtype):
     gamma = _randn(gen, card, d, scale=0.1) + 1.0
     got = _launched(SW.KERNEL, lambda: SW.rmsnorm_swiglu_cuda(
         x, w, v, u, gamma))
-    want = SW.plain(x, w, v, u, gamma)
+    shape = SW.launch_shape(m, d, k, n, dtype)
+    want = SW.plain(x, w, v, u, gamma, cluster=shape.cluster,
+                    kslice=shape.kslice)
     assert got.dtype == dtype and torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(),
                                atol=2 * TOL[dtype], rtol=2 * TOL[dtype])

@@ -1,0 +1,277 @@
+"""The Hopper design of the hand flash-attention and RMSNorm+SwiGLU kernels,
+checked on the CPU.
+
+* The plain versions follow the kernels' splits (the key axis over
+  cluster ranks for attention, d_ff for SwiGLU) and are held against the
+  JAX reference's Pallas kernels in interpret mode at the kernels'
+  tolerances (2e-4 attention, 4e-4 SwiGLU), for split counts 1, 2, 3 and
+  8, an uneven last split, an empty last rank, ranks past the causal
+  frontier, GQA and one query row.
+* A numpy emulation of 3xTF32 (TF32 rounding through the int32 view, the
+  tensor cores' cut of the small part, three products a step summed in
+  float32) of attention and SwiGLU at the paths' widths stays within a
+  tenth of the card tolerances of the float64 result, and more than ten
+  times closer than one TF32 pass (which misses SwiGLU's 4e-4).
+* ``launch_shape`` fills the card at the whisper decoder-self and cross
+  shapes and keeps every path shape within the cluster and shared-memory
+  limits.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as JK
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import rmsnorm_swiglu as SW
+from repro_torch.launch import hand_variants as HV
+
+ATTN_TOL, SWIGLU_TOL = 2e-4, 4e-4
+
+# (b, hq, hkv, sq, skv, dh, causal, q_offset)
+ATTN = {
+    "gqa-causal-uneven": (1, 4, 2, 40, 200, 32, True, 160),
+    "cross": (2, 3, 3, 16, 150, 64, False, 0),
+    "ranks-past-frontier": (1, 2, 2, 8, 64, 64, True, 0),
+    "one-query-row": (1, 2, 2, 1, 100, 64, True, 99),
+}
+
+
+def _normal(seed, *shapes, scales=None):
+    rng = np.random.default_rng(seed)
+    scales = scales or [1.0] * len(shapes)
+    return [(rng.normal(size=s) * c).astype(np.float32)
+            for s, c in zip(shapes, scales)]
+
+
+@functools.lru_cache(maxsize=None)
+def _attn_case(name):
+    b, hq, hkv, sq, skv, dh, causal, qoff = ATTN[name]
+    q, k, v = _normal(len(name), (b, hq, sq, dh), (b, hkv, skv, dh),
+                      (b, hkv, skv, dh))
+    want = JK.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), causal=causal, q_offset=qoff,
+                              impl="interpret", block_q=32, block_kv=32)
+    return (q, k, v), np.asarray(want)
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 8])
+@pytest.mark.parametrize("name", list(ATTN))
+def test_split_flash_plain_matches_reference(name, split):
+    """Each rank's online softmax over 64-key tiles, combined in rank
+    order, is the reference's attention (an empty rank or a rank past the
+    causal frontier adds exactly nothing)."""
+    (q, k, v), want = _attn_case(name)
+    _, _, _, _, skv, _, causal, qoff = ATTN[name]
+    got = FA.plain(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+                   q_offset=qoff, split=split)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATTN_TOL,
+                               rtol=ATTN_TOL)
+
+
+def test_split_flash_plain_keeps_the_exact_zero_partial():
+    """Rows that see no key of a rank: its carry is (NEG_INF, 0, 0) when
+    it has no keys at all, and its weight in the combine is exactly 0, so
+    a split leaves the unsplit result's digits nearly untouched."""
+    (q, k, v), _ = _attn_case("ranks-past-frontier")
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    one = FA.plain(*t, causal=True, split=1)
+    four = FA.plain(*t, causal=True, split=4)   # ranks 1-3 see no key
+    torch.testing.assert_close(four, one, atol=1e-6, rtol=1e-6)
+    m, l, acc = FA.R.attention_partial(t[0], t[1][:, :, :0], t[2][:, :, :0],
+                                       k_start=64, block_kv=64)
+    assert (m == FA.R.NEG_INF).all() and (l == 0).all() and (acc == 0).all()
+
+
+@functools.lru_cache(maxsize=None)
+def _swiglu_case():
+    m, d, k, n = 40, 64, 256, 64
+    x, w, v, u, g = _normal(7, (m, d), (d, k), (d, k), (k, n), (d,),
+                            scales=[1.0, d ** -0.5, d ** -0.5, k ** -0.5,
+                                    0.1])
+    g = g + 1.0
+    want = JK.rmsnorm_swiglu(*(jnp.asarray(a) for a in (x, w, v, u, g)),
+                             impl="interpret", block_m=8, block_k=64)
+    return (x, w, v, u, g), np.asarray(want)
+
+
+@pytest.mark.parametrize("cluster,kslice", [(1, 256), (2, 128), (3, 128),
+                                            (4, 64)])
+def test_split_swiglu_plain_matches_reference(cluster, kslice):
+    """Partial outputs over d_ff slices, summed in rank order (3 ranks of
+    128: the last one empty), are the reference's SwiGLU."""
+    arrs, want = _swiglu_case()
+    got = SW.plain(*(torch.from_numpy(a) for a in arrs), cluster=cluster,
+                   kslice=kslice)
+    np.testing.assert_allclose(got.numpy(), want, atol=SWIGLU_TOL,
+                               rtol=SWIGLU_TOL)
+
+
+def test_cpu_wrappers_run_the_plain_version_with_the_kernels_split():
+    q, k, v = (torch.from_numpy(a) for a in _normal(
+        3, (2, 6, 64, 64), (2, 6, 1500, 64), (2, 6, 1500, 64)))
+    split = FA.launch_shape(2, 6, 6, 64, 1500, 64, torch.float32).split
+    assert split == 8
+    torch.testing.assert_close(FA.flash_attention_cuda(q, k, v),
+                               FA.plain(q, k, v, split=split), atol=0,
+                               rtol=0)
+    x, w, v2, u, g = (torch.from_numpy(a) for a in _normal(
+        4, (64, 64), (64, 256), (64, 256), (256, 32), (64,)))
+    shape = SW.launch_shape(64, 64, 256, 32, torch.float32)
+    assert shape.cluster > 1
+    torch.testing.assert_close(
+        SW.rmsnorm_swiglu_cuda(x, w, v2, u, g),
+        SW.plain(x, w, v2, u, g, cluster=shape.cluster,
+                 kslice=shape.kslice), atol=0, rtol=0)
+
+
+# -- 3xTF32, emulated ---------------------------------------------------------
+
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """Round float32 to TF32 (10-bit mantissa, nearest, ties away) through
+    the int32 view, as ``mma.cuh``'s ``tf32`` does."""
+    bits = a.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(
+        np.float32)
+
+
+def _cut(a: np.ndarray) -> np.ndarray:
+    """The tensor cores' reading of a float32 as TF32: its top 19 bits."""
+    return (a.astype(np.float32).view(np.uint32)
+            & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _mm(a: np.ndarray, b: np.ndarray, passes: int) -> np.ndarray:
+    """a (R, K) @ b (K, C) as the kernels' mma.sync m16n8k8 steps do it:
+    for each 8-deep step the products (3xTF32: al bh, ah bl, ah bh; one
+    pass: ah bh), each step's sum added to a float32 accumulator."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _cut(a - ah), _cut(b - bh)
+    terms = [(ah, bh)] if passes == 1 else [(al, bh), (ah, bl), (ah, bh)]
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for x, y in terms:
+            step = x[:, k0:k0 + 8].astype(np.float64) @ \
+                y[k0:k0 + 8].astype(np.float64)
+            acc = (acc + step.astype(np.float32)).astype(np.float32)
+    return acc
+
+
+def _attention_rows(q, k, v, mm):
+    s = mm(q, k.T) / np.float32(np.sqrt(q.shape[1]))
+    p = np.exp(s - s.max(1, keepdims=True)).astype(np.float32)
+    return mm(p, v) / p.sum(1, keepdims=True)
+
+
+def _swiglu_rows(x, w, v, u, mm):
+    xn = (x / np.sqrt((x * x).mean(1, keepdims=True) + 1e-6)).astype(
+        np.float32)
+    a, b = mm(xn, w), mm(xn, v)
+    h = (a / (1.0 + np.exp(-a)) * b).astype(np.float32)
+    return mm(h, u)
+
+
+def _exact(a, b):
+    return a.astype(np.float64) @ b.astype(np.float64)
+
+
+@pytest.mark.parametrize("skv", [512, 1500])
+def test_3xtf32_attention_meets_the_float32_tolerance(skv):
+    """Attention rows at Dh = 64 over smollm's 512 and whisper's 1500
+    keys: 3xTF32 within a tenth of 2e-4 of float64, and more than ten
+    times closer than one TF32 pass."""
+    q, k, v = _normal(11, (4, 64), (skv, 64), (skv, 64))
+    want = _attention_rows(q.astype(np.float64), k, v, _exact)
+    three = _attention_rows(q, k, v, functools.partial(_mm, passes=3))
+    one = _attention_rows(q, k, v, functools.partial(_mm, passes=1))
+    err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
+    assert err3 < ATTN_TOL / 10
+    assert err1 > 10 * err3
+
+
+def test_3xtf32_swiglu_meets_the_float32_tolerance():
+    """SwiGLU rows at smollm-135m's widths (D 576, d_ff 1536, N 576):
+    3xTF32 within a tenth of 4e-4 of float64; one TF32 pass misses 4e-4."""
+    d, k, n = 576, 1536, 576
+    x, w, v, u = _normal(12, (3, d), (d, k), (d, k), (k, n),
+                         scales=[1.0, d ** -0.5, d ** -0.5, k ** -0.5])
+    want = _swiglu_rows(x.astype(np.float64), w, v, u, _exact)
+    three = _swiglu_rows(x, w, v, u, functools.partial(_mm, passes=3))
+    one = _swiglu_rows(x, w, v, u, functools.partial(_mm, passes=1))
+    err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
+    assert err3 < SWIGLU_TOL / 10
+    assert err1 > SWIGLU_TOL
+
+
+def test_tf32_rounding_matches_its_definition():
+    x = np.array([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                  -(1.0 + 2 ** -11), 3.0e-7], np.float32)
+    got = _tf32(x)
+    assert got[0] == 1.0
+    assert got[1] == 1.0 + 2 ** -10            # half away from zero
+    assert got[2] == 1.0 + 2 ** -9
+    assert got[3] == -(1.0 + 2 ** -10)
+    assert (got.view(np.uint32) & 0x1fff == 0).all()
+    lo = x - got
+    assert (got.astype(np.float64) + lo == x).all()     # the split is exact
+
+
+# -- launch shapes ------------------------------------------------------------
+
+PATH_ATTN = {  # (b, hq, hkv, sq, skv, dh) of paths A and B
+    "smollm prefill": (4, 9, 3, 512, 512, 64),
+    "whisper encoder": (2, 6, 6, 1500, 1500, 64),
+    "whisper decoder self": (2, 6, 6, 64, 64, 64),
+    "whisper cross": (2, 6, 6, 64, 1500, 64),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("name", ["whisper decoder self", "whisper cross"])
+def test_launch_shape_fills_the_card_at_the_short_whisper_shapes(name,
+                                                                 dtype):
+    shape = FA.launch_shape(*PATH_ATTN[name], dtype)
+    assert shape.blocks >= 96
+    assert shape.split > 1
+    assert shape.grid == (shape.split, *shape.grid[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("name", list(PATH_ATTN))
+def test_launch_shape_keeps_path_shapes_within_limits(name, dtype):
+    b, hq, hkv, sq, skv, dh = PATH_ATTN[name]
+    shape = FA.launch_shape(b, hq, hkv, sq, skv, dh, dtype)
+    assert 1 <= shape.split <= FA.MAX_SPLIT
+    assert shape.smem <= FA.SMEM_LIMIT
+    assert shape.bq in (16, 64) and shape.threads == 2 * shape.bq
+    assert shape.chunk % 16 == 0
+    assert (shape.split - 1) * shape.chunk < skv <= shape.split * shape.chunk
+    sw = SW.launch_shape(2048, 576, 1536, 576, dtype)
+    assert 1 <= sw.cluster <= SW.MAX_CLUSTER and sw.smem <= SW.SMEM_LIMIT
+    assert sw.blocks <= SW.SMS
+    assert sw.kslice % SW.BKF == 0
+    assert (sw.cluster - 1) * sw.kslice < 1536 <= sw.cluster * sw.kslice
+
+
+def test_launch_shape_splits_every_key_axis_without_empty_ranks():
+    for skv in (1, 15, 16, 17, 64, 65, 100, 300, 1000, 1500, 4096):
+        for sq in (1, 16, 64, 200):
+            for heads in (1, 6, 36):
+                s = FA.launch_shape(1, heads, 1, sq, skv, 64, torch.float32)
+                assert (s.split - 1) * s.chunk < skv <= s.split * s.chunk
+                assert s.split == 1 or s.blocks <= 8 * FA.SMS
+
+
+@pytest.mark.parametrize("name", list(HV.VARIANTS))
+def test_hand_variants_edit_both_kernels(name):
+    """The timing variants of ``launch/hand_variants.py`` apply to the
+    kernels' shared header as it stands (the tool raises otherwise)."""
+    for file, mod in (("flash_attention.cu", FA), ("rmsnorm_swiglu.cu", SW)):
+        kern = HV.variant(file, mod.KERNEL, HV.VARIANTS[name])
+        assert '#include "mma.cuh"' not in kern.source
+        assert kern.key != mod.KERNEL.key
+        for _, new in HV.VARIANTS[name]:
+            assert new in kern.source
