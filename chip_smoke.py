@@ -12,8 +12,8 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    the three hand-written kernels of ``repro_torch/csrc/`` (flash
    attention, RMSNorm+SwiGLU, LayerNorm+matmul), all for sm_90a; then the
    HMMA (tensor-core) instructions and the registers and stack of each
-   hand kernel's instantiations (``cuobjdump``): flash attention and
-   RMSNorm+SwiGLU must have HMMA instructions;
+   hand kernel's instantiations (``cuobjdump``): every hand kernel must
+   have HMMA instructions;
 3. each emitted kernel against its plain PyTorch version on the card, on
    inputs of the shapes the serving path gives it (``rtol = atol =
    2e-4``), timed with CUDA events (back to back, so a short kernel is
@@ -38,7 +38,10 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    CUDA events beside its plain version (and
    ``scaled_dot_product_attention`` for attention), with its bound; then
    the device time per launch of every case and of its SDPA call, from
-   one ``torch.profiler`` session.  The float32 bound is 3xTF32 on the
+   one ``torch.profiler`` session, and, as context (no single PyTorch
+   call computes LayerNorm+matmul, so it has no yardstick), the device
+   time of the unfused ``F.layer_norm`` then ``torch.matmul`` at each
+   LayerNorm+matmul case.  The float32 bound is 3xTF32 on the
    tensor cores (495 / 3 TFLOP/s), the float32 FMA bound beside it;
 6. a plumbing check of each kernel's ``autograd.Function``: its forward
    launches the kernel once, and its backward (autograd of the plain
@@ -80,7 +83,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 495e12 / 3
 FP32_FMA_FLOPS = 67e12      # H100 SXM data sheet, float32 outside tensor cores
 BF16_FLOPS = 989e12         # H100 SXM data sheet, dense bfloat16
-HAND_TC = ("flash_attention", "rmsnorm_swiglu")   # hand kernels on HMMA
+HAND_TC = ("flash_attention", "rmsnorm_swiglu",   # hand kernels on HMMA
+           "layernorm_matmul")
 
 
 def fail(msg: str) -> None:
@@ -252,7 +256,7 @@ def hand_cases(gen):
     (the first of each kernel is its main shape), plus one bfloat16 case
     per kernel, each with its launch (grid, cluster).  Inputs scaled as in
     tests/test_kernels.py.  The plain versions follow the kernels' splits
-    of the key (flash) and d_ff (SwiGLU) axes."""
+    of the key (flash), d_ff (SwiGLU) and K (LayerNorm+matmul) axes."""
     import torch
     import torch.nn.functional as F
     mods = hand_modules()
@@ -309,14 +313,19 @@ def hand_cases(gen):
         g = randn(kdim, scale=0.1) + 1.0
         bt = randn(kdim, scale=0.1)
         mod = mods["layernorm_matmul"]
+        shape = mod.launch_shape(m, kdim, n, dtype)
         out = torch.empty(m, n, dtype=dtype, device="cuda")
+        gc, btc = g.to(dtype), bt.to(dtype)
         cases.append(dict(
             kernel="layernorm_matmul", label=label, dtype=dtype,
             tol=((TOL * kdim ** 0.5, TOL) if dtype == f32
                  else (BF16_TOL, BF16_TOL)),
             run=lambda: mod.layernorm_matmul_cuda(x, y, g, bt),
-            plain=lambda: mod.plain(x, y, g, bt), library=None,
-            grid=(-(-n // 64), -(-m // mod.BM)), cluster=1, threads=256,
+            plain=lambda: mod.plain(x, y, g, bt, split=shape.split),
+            library=None,
+            context=lambda: torch.matmul(
+                F.layer_norm(x, (kdim,), gc, btc), y),
+            grid=shape.grid, cluster=shape.split, threads=shape.threads,
             bytes=nbytes(x, y, g, bt, out), flops=2.0 * m * kdim * n))
 
     attention("smollm prefill q (4,9,512,64) kv (4,3,512,64) causal",
@@ -340,11 +349,13 @@ def hand_cases(gen):
 def window_device_ms(calls, iters: int = 20):
     """Device time of each ``(fn, name)`` in ``calls``, from one
     ``torch.profiler`` session: each fn runs ``iters`` times inside a
-    ``record_function`` window that ends in a synchronize, windows 2 ms
-    apart; every kernel that started on the card inside a window, and
-    whose name holds ``name`` (any kernel where ``name`` is None), counts
-    toward that fn.  Returns, for each fn, (the kernels' summed ms, the
-    kernels recorded)."""
+    ``record_function`` window that ends in a synchronize, windows 10 ms
+    apart; every kernel whose name holds ``name`` (any kernel where
+    ``name`` is None) and that started on the card between the midpoints
+    of the gaps around a window counts toward that fn, so an offset of
+    the card's timeline against the host's of up to 5 ms attributes no
+    kernel to the wrong window.  Returns, for each fn, (the kernels'
+    summed ms, the kernels recorded)."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -358,7 +369,7 @@ def window_device_ms(calls, iters: int = 20):
                 for _ in range(iters):
                     fn()
                 torch.cuda.synchronize()
-            time.sleep(2e-3)    # no kernel near a window's edge
+            time.sleep(10e-3)   # no kernel near a window's edge
     events = prof.events()
     windows = [None] * len(calls)
     for ev in events:
@@ -366,15 +377,21 @@ def window_device_ms(calls, iters: int = 20):
                 ev.name in tags:
             windows[tags.index(ev.name)] = (ev.time_range.start,
                                             ev.time_range.end)
+    if None in windows:
+        fail(f"the profiler recorded {windows.count(None)} of "
+             f"{len(windows)} windows")
+    # attribution bounds: the midpoints of the gaps between windows
+    cuts = [(a[1] + b[0]) / 2 for a, b in zip(windows, windows[1:])]
+    bounds = list(zip([-math.inf] + cuts, cuts + [math.inf]))
     total = [0.0] * len(calls)
     count = [0] * len(calls)
     for ev in events:
         if ev.device_type != torch.autograd.DeviceType.CUDA or \
                 ev.name in tags:
             continue
-        for i, win in enumerate(windows):
+        for i, (lo, hi) in enumerate(bounds):
             name = calls[i][1]
-            if win and win[0] <= ev.time_range.start < win[1] and (
+            if lo <= ev.time_range.start < hi and (
                     name is None or name in ev.name):
                 total[i] += ev.time_range.end - ev.time_range.start
                 count[i] += 1
@@ -434,6 +451,8 @@ def check_hand_kernels(cases):
         calls.append((c["run"], HAND_FN[c["kernel"]]))
         if c["library"]:
             calls.append((c["library"], None))
+        if c.get("context"):
+            calls.append((c["context"], None))
     iters = 20
     dev = iter(window_device_ms(calls, iters))
     for c, case in done:
@@ -445,6 +464,13 @@ def check_hand_kernels(cases):
         if c["library"]:
             total, _ = next(dev)
             case["library_device_ms"] = total / iters   # per call
+        if c.get("context"):
+            total, n = next(dev)
+            case["unfused_device_ms"] = total / iters   # per call
+            print(f"{c['kernel']} [{c['label']}]: context, not the "
+                  f"yardstick: unfused F.layer_norm then torch.matmul "
+                  f"device_ms={case['unfused_device_ms']:.4f} per call "
+                  f"({n} kernels in {iters} calls)", flush=True)
         print(f"{c['kernel']} [{c['label']}]: device_ms="
               f"{case['device_ms']:.4f} per launch (torch.profiler; CUDA "
               f"events {case['ms']:.4f}); library device_ms="

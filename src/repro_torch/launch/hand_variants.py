@@ -1,6 +1,6 @@
-"""Where the hand flash-attention and RMSNorm+SwiGLU kernels spend their
-time, on the card: each kernel is rebuilt with one part taken out and
-timed against itself at the paths' shapes.
+"""Where the hand flash-attention, RMSNorm+SwiGLU and LayerNorm+matmul
+kernels spend their time, on the card: each kernel is rebuilt with one
+part taken out and timed against itself at the paths' shapes.
 
     PYTHONPATH=src python -m repro_torch.launch.hand_variants
 
@@ -18,10 +18,16 @@ Variants (the outputs of all but ``kernel`` are wrong by design):
 RMSNorm+SwiGLU is also timed as one cluster of its M = 2048 launch (the
 first 32 rows, 2 blocks): if that takes as long as all 128 blocks, each
 SM's own chain of chunks, not a resource the SMs share, sets the time.
+LayerNorm+matmul is timed at path B's encoder and decoder shapes, with
+its own variants besides (``LN_VARIANTS``: no register cap, no output
+stores, no split pass over gamma * Y, deeper K steps, other ring depths),
+and under other launches than ``launch_shape``'s (``LN_LAUNCHES``: rows
+a block and K ranks), which shows what its choices buy.
 
-Times are CUDA events over 50 back-to-back launches after 3 warm ones;
-the card's name and power limit head the output.  Needs a CUDA card and
-nvcc (sm_90a).
+Times are CUDA events over 50 back-to-back launches after 3 warm ones
+(a kernel shorter than the host's enqueue of a launch, about 0.012 ms,
+reads that enqueue time instead); the card's name and power limit head
+the output.  Needs a CUDA card and nvcc (sm_90a).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from repro_torch.core import cuda_build as CB
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import layernorm_matmul as LN
 from repro_torch.kernels import rmsnorm_swiglu as SW
 
 _MMA = ('  asm("mma.sync.aligned.m16n8k', '  if (c == nullptr) asm("mma.sync.aligned.m16n8k')
@@ -43,18 +50,45 @@ VARIANTS = {
     "no products": [_MMA],
     "one TF32 pass": [("  mma_tf32(c, al, bh);\n  mma_tf32(c, ah, bl);\n", "")],
 }
+KERNEL_FILES = ((FA, "flash_attention.cu"), (SW, "rmsnorm_swiglu.cu"),
+                (LN, "layernorm_matmul.cu"))
+#: LayerNorm+matmul only: its 128 x 64 blocks without the register cap
+#: that lets two share an SM; without its output stores; without the pass
+#: that splits gamma * Y (the products read a stale split tile); K steps
+#: of 64 (half the barriers a call) and rings of 2 or 4 stages
+_BK64 = ("constexpr int BK = 32; ", "constexpr int BK = 64; ")
+LN_VARIANTS = {
+    "one block an SM": [("WM == 4 ? 2 : 1", "1")],
+    "no output stores": [("store(&z[", "if (z == nullptr) store(&z[")],
+    "no split pass": [("for (int k = yk; k < BK;", "for (int k = yk; k < 0;")],
+    "K steps of 64": [_BK64],
+    "K steps of 64, 2 stages": [_BK64, ("NSTAGE = 3;", "NSTAGE = 2;")],
+    "2 stages": [("NSTAGE = 3;", "NSTAGE = 2;")],
+    "4 stages": [("NSTAGE = 3;", "NSTAGE = 4;")],
+}
+#: path B's LayerNorm+matmul shapes (M, K, N), and the launches (rows a
+#: block, K ranks) timed at each
+LN_SHAPES = {"encoder": (3000, 384, 1536), "decoder": (128, 384, 1536)}
+LN_LAUNCHES = {"encoder": ((128, 1), (64, 1), (128, 2)),
+               "decoder": ((128, 6), (128, 4), (128, 8), (64, 3), (64, 6),
+                           (32, 2), (32, 4))}
 
 
 def variant(file: str, launcher: CB.Launcher, subs) -> CB.Launcher:
-    """``launcher``'s kernel with ``mma.cuh`` inlined and edited."""
+    """``launcher``'s kernel with ``mma.cuh`` inlined and edited (an edit
+    that ``mma.cuh`` does not hold applies to the kernel's own source)."""
     header = (CB.CSRC / "mma.cuh").read_text()
+    body = (CB.CSRC / file).read_text()
     for old, new in subs:
-        count = header.count(old)
-        if count == 0:
-            raise RuntimeError(f"variant edit not found in mma.cuh: {old!r}")
-        header = header.replace(old, new)
-    source = (CB.CSRC / file).read_text().replace(
-        '#include "mma.cuh"', header.replace("#pragma once", ""))
+        if old in header:
+            header = header.replace(old, new)
+        elif old in body:
+            body = body.replace(old, new)
+        else:
+            raise RuntimeError(f"variant edit not found in mma.cuh or "
+                               f"{file}: {old!r}")
+    source = body.replace('#include "mma.cuh"',
+                          header.replace("#pragma once", ""))
     return CB.Launcher(source, launcher.symbol, launcher.argtypes)
 
 
@@ -78,9 +112,11 @@ def main() -> None:
                           text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
     kernels = {(mod.__name__, name): variant(file, mod.KERNEL, subs)
-               for mod, file in ((FA, "flash_attention.cu"),
-                                 (SW, "rmsnorm_swiglu.cu"))
+               for mod, file in KERNEL_FILES
                for name, subs in VARIANTS.items()}
+    kernels.update({(LN.__name__, name): variant(
+        "layernorm_matmul.cu", LN.KERNEL, subs)
+        for name, subs in LN_VARIANTS.items()})
     CB.build_many([(k.key, k.source) for k in kernels.values()])
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -131,6 +167,31 @@ def main() -> None:
                     shape.bq, shape.split, shape.chunk, stream))
                 print(f"flash_attention {dtype} q {(b, hq, sq)} kv "
                       f"{(b, hkv, skv)} {name}: {ms:.4f} ms", flush=True)
+        for label, (m, k, n) in LN_SHAPES.items():
+            x, y = randn(m, k, dtype=dtype), randn(k, n, dtype=dtype)
+            g, bt = randn(k, scale=0.1) + 1.0, randn(k, scale=0.1)
+            z = torch.empty(m, n, dtype=dtype, device="cuda")
+
+            def ln_launch(kern, bm, split):
+                return lambda: kern.launch(
+                    x.data_ptr(), y.data_ptr(), g.data_ptr(), bt.data_ptr(),
+                    z.data_ptr(), m, k, n, 1e-5, bf16, bm, split,
+                    LN.k_slice(k, split), 1, stream)
+
+            shape = LN.launch_shape(m, k, n, dtype)
+            for name in (*VARIANTS, *LN_VARIANTS):
+                if bf16 and name == "one TF32 pass":
+                    continue
+                ms = time_ms(ln_launch(kernels[(LN.__name__, name)],
+                                       shape.bm, shape.split))
+                print(f"layernorm_matmul {dtype} {label} {(m, k, n)} "
+                      f"{name}: {ms:.4f} ms", flush=True)
+            for bm, split in LN_LAUNCHES[label]:
+                blocks = split * -(-m // bm) * -(-n // LN.BN)
+                ms = time_ms(ln_launch(LN.KERNEL, bm, split))
+                print(f"layernorm_matmul {dtype} {label} launch {bm} x "
+                      f"{LN.BN} split={split} ({blocks} blocks): {ms:.4f} ms",
+                      flush=True)
 
 
 if __name__ == "__main__":

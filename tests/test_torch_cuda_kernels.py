@@ -79,7 +79,14 @@ def test_flash_attention_on_card(card, b, hq, hkv, sq, skv, dh, causal,
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("m,k,n", [(64, 128, 96), (100, 256, 64),
                                    (32, 64, 32), (8, 128, 8),
-                                   (3000, 384, 1536)])
+                                   (3000, 384, 1536),
+                                   # whisper decoder (128 x 64 blocks, K
+                                   # over 6 cluster ranks); rows of X and
+                                   # Y not multiples of 16 bytes (the
+                                   # narrow copy path), with a K split and
+                                   # without one
+                                   (128, 384, 1536), (40, 66, 6),
+                                   (1500, 66, 1530)])
 def test_layernorm_matmul_on_card(card, m, k, n, dtype):
     gen = torch.Generator(device=card).manual_seed(1)
     x = _randn(gen, card, m, k, dtype=dtype)
@@ -88,7 +95,8 @@ def test_layernorm_matmul_on_card(card, m, k, n, dtype):
     beta = _randn(gen, card, k, scale=0.1)
     got = _launched(LN.KERNEL, lambda: LN.layernorm_matmul_cuda(
         x, y, gamma, beta))
-    want = LN.plain(x, y, gamma, beta)
+    split = LN.launch_shape(m, k, n, dtype).split
+    want = LN.plain(x, y, gamma, beta, split=split)
     assert got.dtype == dtype and torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(),
                                atol=TOL[dtype] * k ** 0.5, rtol=TOL[dtype])

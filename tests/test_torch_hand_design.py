@@ -1,19 +1,25 @@
-"""The Hopper design of the hand flash-attention and RMSNorm+SwiGLU kernels,
-checked on the CPU.
+"""The Hopper design of the hand flash-attention, RMSNorm+SwiGLU and
+LayerNorm+matmul kernels, checked on the CPU.
 
 * The plain versions follow the kernels' splits (the key axis over
-  cluster ranks for attention, d_ff for SwiGLU) and are held against the
-  JAX reference's Pallas kernels in interpret mode at the kernels'
-  tolerances (2e-4 attention, 4e-4 SwiGLU), for split counts 1, 2, 3 and
-  8, an uneven last split, an empty last rank, ranks past the causal
-  frontier, GQA and one query row.
+  cluster ranks for attention, d_ff for SwiGLU, K for LayerNorm+matmul)
+  and are held against the JAX reference's Pallas kernels in interpret
+  mode at the kernels' tolerances (2e-4 attention, 4e-4 SwiGLU, 2e-4 *
+  sqrt(K) LayerNorm+matmul), for split counts 1, 2, 3 and 8 (1 to 8 for
+  LayerNorm+matmul), an uneven last split, an empty last rank, ranks past
+  the causal frontier, GQA and one query row.
 * A numpy emulation of 3xTF32 (TF32 rounding through the int32 view, the
   tensor cores' cut of the small part, three products a step summed in
-  float32) of attention and SwiGLU at the paths' widths stays within a
-  tenth of the card tolerances of the float64 result, and more than ten
-  times closer than one TF32 pass (which misses SwiGLU's 4e-4).
+  float32) of attention, SwiGLU and LayerNorm+matmul at the paths' widths
+  stays within a tenth of the card tolerances of the float64 result, and
+  more than ten times closer than one TF32 pass (which misses SwiGLU's
+  4e-4).  LayerNorm+matmul's bfloat16 scheme (two passes over hi and lo
+  of the float32 gamma * Y) likewise; on rows whose mean dwarfs their
+  spread, where ``acc - mu * colsum(gamma Y)`` cancels, 3xTF32 keeps
+  float32's digits and one pass loses them.
 * ``launch_shape`` fills the card at the whisper decoder-self and cross
-  shapes and keeps every path shape within the cluster and shared-memory
+  shapes (attention) and at both of path B's LayerNorm+matmul shapes, and
+  keeps every path shape within the cluster, grid and shared-memory
   limits.
 """
 
@@ -26,10 +32,11 @@ import torch
 
 from repro.kernels import ops as JK
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import layernorm_matmul as LN
 from repro_torch.kernels import rmsnorm_swiglu as SW
 from repro_torch.launch import hand_variants as HV
 
-ATTN_TOL, SWIGLU_TOL = 2e-4, 4e-4
+ATTN_TOL, SWIGLU_TOL, LN_TOL, BF16_TOL = 2e-4, 4e-4, 2e-4, 5e-2
 
 # (b, hq, hkv, sq, skv, dh, causal, q_offset)
 ATTN = {
@@ -108,6 +115,40 @@ def test_split_swiglu_plain_matches_reference(cluster, kslice):
                    kslice=kslice)
     np.testing.assert_allclose(got.numpy(), want, atol=SWIGLU_TOL,
                                rtol=SWIGLU_TOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_case():
+    m, k, n = 40, 256, 48
+    x, y, g, b = _normal(8, (m, k), (k, n), (k,), (k,),
+                         scales=[1.0, 1.0, 0.1, 0.1])
+    g = g + 1.0
+    want = JK.layernorm_matmul(*(jnp.asarray(a) for a in (x, y, g, b)),
+                               impl="interpret", block_m=8, block_n=16,
+                               block_k=64)
+    return (x, y, g, b), np.asarray(want)
+
+
+@pytest.mark.parametrize("split", range(1, LN.MAX_SPLIT + 1))
+def test_split_layernorm_matmul_plain_matches_reference(split):
+    """Partial products and statistics over K slices of 32-column steps,
+    summed in rank order (3, 5, 6 and 7 ranks take uneven or fewer
+    slices), are the reference's LayerNorm+matmul."""
+    arrs, want = _ln_case()
+    got = LN.plain(*(torch.from_numpy(a) for a in arrs), split=split)
+    k = arrs[0].shape[1]
+    np.testing.assert_allclose(got.numpy(), want, atol=LN_TOL * k ** 0.5,
+                               rtol=LN_TOL)
+
+
+def test_cpu_layernorm_matmul_runs_the_plain_version_with_the_split():
+    x, y, g, b = (torch.from_numpy(a) for a in _normal(
+        5, (128, 384), (384, 1536), (384,), (384,)))
+    split = LN.launch_shape(128, 384, 1536, torch.float32).split
+    assert split == 6
+    torch.testing.assert_close(LN.layernorm_matmul_cuda(x, y, g, b),
+                               LN.plain(x, y, g, b, split=split), atol=0,
+                               rtol=0)
 
 
 def test_cpu_wrappers_run_the_plain_version_with_the_kernels_split():
@@ -206,6 +247,115 @@ def test_3xtf32_swiglu_meets_the_float32_tolerance():
     assert err1 > SWIGLU_TOL
 
 
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """Round float32 to bfloat16 (nearest, ties to even) through the
+    uint32 view, as ``__floats2bfloat162_rn`` does."""
+    bits = a.astype(np.float32).view(np.uint32)
+    bits = bits + np.uint32(0x7fff) + ((bits >> 16) & np.uint32(1))
+    return (bits & np.uint32(0xffff0000)).view(np.float32)
+
+
+def _mm_bf16(a: np.ndarray, b: np.ndarray, passes: int) -> np.ndarray:
+    """a (R, K) @ b (K, C), a exact in bfloat16 and b float32, as the
+    LayerNorm+matmul kernel's m16n8k16 steps do it: b split into hi =
+    bf16(b) and lo = bf16(b - hi); for each 16-deep step a lo then a hi
+    (two passes; one pass: a hi alone), each step's sum added to a
+    float32 accumulator."""
+    hi = _bf16(b)
+    lo = _bf16(b - hi)
+    terms = [(a, hi)] if passes == 1 else [(a, lo), (a, hi)]
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 16):
+        for x, y in terms:
+            step = x[:, k0:k0 + 16].astype(np.float64) @ \
+                y[k0:k0 + 16].astype(np.float64)
+            acc = (acc + step.astype(np.float32)).astype(np.float32)
+    return acc
+
+
+def _ln_numerator(x, y, g, mm):
+    """The kernel's acc - mu * colsum(gamma Y), its products by ``mm``."""
+    yg = (g[:, None] * y).astype(y.dtype)
+    return mm(x, yg) - x.sum(1, keepdims=True) / x.shape[1] * yg.sum(0)
+
+
+def _ln_fold(x, y, g, b, mm, eps=1e-5):
+    """The kernel's fold, its products by ``mm``: Z."""
+    k = x.shape[1]
+    mu = x.sum(1, keepdims=True) / k
+    var = (x * x).sum(1, keepdims=True) / k - mu * mu
+    return _ln_numerator(x, y, g, mm) / np.sqrt(var + eps) + b @ y
+
+
+def _ln_operands(shifted: bool):
+    """Four rows at path B's widths (K 384, N 1536); shifted: the rows of
+    tests/test_torch_kernels.py's one-pass variance test, x * 1e-2 + 300,
+    whose mean dwarfs their spread."""
+    x, y, g, b = _normal(21, (4, 384), (384, 1536), (384,), (384,),
+                         scales=[1.0, 1.0, 0.1, 0.1])
+    if shifted:
+        x = (x * 1e-2 + 300.0).astype(np.float32)
+    return x, y, (g + 1.0).astype(np.float32), b
+
+
+def test_3xtf32_layernorm_matmul_meets_the_float32_tolerance():
+    """Path B's widths: 3xTF32 within a tenth of 2e-4 * sqrt(K) of
+    float64, and more than ten times closer than one TF32 pass."""
+    x, y, g, b = _ln_operands(shifted=False)
+    want = _ln_fold(*(a.astype(np.float64) for a in (x, y, g, b)), _exact)
+    three = _ln_fold(x, y, g, b, functools.partial(_mm, passes=3))
+    one = _ln_fold(x, y, g, b, functools.partial(_mm, passes=1))
+    err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
+    assert err3 < LN_TOL * 384 ** 0.5 / 10
+    assert err1 > 10 * err3
+
+
+def test_bf16_two_pass_layernorm_matmul_meets_the_bf16_tolerance():
+    """bfloat16 X and Y at path B's widths, gamma * Y in float32 as the
+    reference multiplies it: two bfloat16 passes (hi, lo of gamma Y)
+    within a hundredth of 5e-2 of float64, more than a hundred times
+    closer than one pass over bf16(gamma Y)."""
+    x, y, g, b = (_bf16(a) if i < 2 else a
+                  for i, a in enumerate(_ln_operands(shifted=False)))
+    want = _ln_fold(*(a.astype(np.float64) for a in (x, y, g, b)), _exact)
+    two = _ln_fold(x, y, g, b, functools.partial(_mm_bf16, passes=2))
+    one = _ln_fold(x, y, g, b, functools.partial(_mm_bf16, passes=1))
+    err2, err1 = np.abs(two - want).max(), np.abs(one - want).max()
+    assert err2 < BF16_TOL / 100
+    assert err1 > 100 * err2
+
+
+def test_shifted_rows_keep_the_cancelling_numerator():
+    """Rows x * 1e-2 + 300: acc and mu * colsum(gamma Y) agree in all but
+    their last digits.  The one-pass variance makes Z itself noise there
+    in float32, in the plain version as in the kernel, so the numerator
+    is what the products must keep: 3xTF32 within 1.5 times a float32
+    product's error, one TF32 pass over a hundred times worse; bfloat16
+    inputs, two passes within 5 times that error (the dropped lo * lo
+    term, 2^-17 of each), one pass over a hundred times worse than two."""
+    x, y, g, _ = _ln_operands(shifted=True)
+
+    def num(xx, yy, mm):
+        return _ln_numerator(xx, yy, g, mm)
+
+    def f32(a, c):
+        return (a @ c).astype(np.float32)
+
+    want = num(x.astype(np.float64), y.astype(np.float64), _exact)
+    err = {p: np.abs(num(x, y, functools.partial(_mm, passes=p))
+                     - want).max() for p in (1, 3)}
+    err_f32 = np.abs(num(x, y, f32) - want).max()
+    assert err[3] < 1.5 * err_f32
+    assert err[1] > 100 * err_f32
+    xb, yb = _bf16(x), _bf16(y)
+    want = num(xb.astype(np.float64), yb.astype(np.float64), _exact)
+    errb = {p: np.abs(num(xb, yb, functools.partial(_mm_bf16, passes=p))
+                      - want).max() for p in (1, 2)}
+    errb_f32 = np.abs(num(xb, yb, f32) - want).max()
+    assert errb[2] < 5 * errb_f32
+    assert errb[1] > 100 * errb[2]
+
+
 def test_tf32_rounding_matches_its_definition():
     x = np.array([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
                   -(1.0 + 2 ** -11), 3.0e-7], np.float32)
@@ -265,13 +415,58 @@ def test_launch_shape_splits_every_key_axis_without_empty_ranks():
                 assert s.split == 1 or s.blocks <= 8 * FA.SMS
 
 
+PATH_LN = {  # (m, k, n) of path B
+    "whisper encoder": (3000, 384, 1536),
+    "whisper decoder": (128, 384, 1536),
+}
+
+
+def _ln_limits(shape, m, k, n):
+    assert 1 <= shape.split <= LN.MAX_SPLIT
+    assert shape.kslice % LN.BK == 0
+    assert (shape.split - 1) * shape.kslice < k <= shape.split * shape.kslice
+    assert shape.bm in LN.BMS and shape.threads == 2 * shape.bm
+    assert shape.grid == (shape.split, -(-m // shape.bm), -(-n // LN.BN))
+    assert max(shape.grid[1:]) <= 65535
+    assert shape.smem <= LN.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("name", list(PATH_LN))
+def test_layernorm_matmul_launch_fills_the_card_at_path_b(name, dtype):
+    m, k, n = PATH_LN[name]
+    shape = LN.launch_shape(m, k, n, dtype)
+    assert shape.blocks >= LN.SMS
+    _ln_limits(shape, m, k, n)
+    if name == "whisper decoder":        # 24 blocks of 128 rows unsplit
+        assert (shape.bm, shape.split, shape.blocks) == (128, 6, 144)
+    else:
+        assert (shape.bm, shape.split, shape.blocks) == (128, 1, 576)
+
+
+def test_layernorm_matmul_launch_splits_k_without_empty_ranks():
+    for m in (1, 8, 40, 128, 1000, 3000):
+        for k in (1, 31, 32, 33, 66, 384, 1000, 4096):
+            for n in (6, 64, 1536):
+                s = LN.launch_shape(m, k, n, torch.float32)
+                _ln_limits(s, m, k, n)
+                assert s.split == 1 or s.blocks <= 8 * LN.SMS
+
+
 @pytest.mark.parametrize("name", list(HV.VARIANTS))
 def test_hand_variants_edit_both_kernels(name):
     """The timing variants of ``launch/hand_variants.py`` apply to the
-    kernels' shared header as it stands (the tool raises otherwise)."""
-    for file, mod in (("flash_attention.cu", FA), ("rmsnorm_swiglu.cu", SW)):
+    kernels' shared header as it stands (the tool raises otherwise), for
+    all three hand kernels; LayerNorm+matmul's own variants to its
+    source."""
+    for mod, file in HV.KERNEL_FILES:
         kern = HV.variant(file, mod.KERNEL, HV.VARIANTS[name])
         assert '#include "mma.cuh"' not in kern.source
         assert kern.key != mod.KERNEL.key
         for _, new in HV.VARIANTS[name]:
+            assert new in kern.source
+    for subs in HV.LN_VARIANTS.values():
+        kern = HV.variant("layernorm_matmul.cu", LN.KERNEL, subs)
+        assert kern.key != LN.KERNEL.key
+        for _, new in subs:
             assert new in kern.source
