@@ -6,35 +6,43 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
 
 1. the card: its name and power limit, as ``nvidia-smi`` reports them;
 2. build, one nvcc per source, all started together: every kernel the
-   serving path emits (the attention kernel of each prompt bucket and of
-   the ragged decode step, and the SwiGLU group and down-projection
-   kernels of each), generated by ``repro_torch.core.codegen_cuda``, and
+   serving paths emit (for each architecture of ``SERVED``: the attention
+   kernel of each prompt bucket and of the ragged decode step, and the
+   SwiGLU kernels of each, 2 at smollm-135m's widths and 3 at the wider
+   dense models'), generated by ``repro_torch.core.codegen_cuda``, and
    the three hand-written kernels of ``repro_torch/csrc/`` (flash
    attention, RMSNorm+SwiGLU, LayerNorm+matmul), all for sm_90a; then the
    HMMA (tensor-core) instructions and the registers and stack of each
    hand kernel's instantiations (``cuobjdump``): every hand kernel must
    have HMMA instructions;
 3. each emitted kernel against its plain PyTorch version on the card, on
-   inputs of the shapes the serving path gives it (``rtol = atol =
+   inputs of the shapes its serving path gives it (``rtol = atol =
    2e-4``), timed with CUDA events (back to back, so a short kernel is
    timed at the host's enqueue rate) beside the plain version and, where
    one PyTorch call computes the same function, that call
    (``scaled_dot_product_attention`` for attention, ``matmul`` for the
    down projection), and its device time per launch from
-   ``torch.profiler``; its row names its launch plan (lifted dims,
-   cluster size, blocks);
-4. ``repro_torch.launch.serve.run`` at the full width and depth of
-   smollm-135m (seeded random weights) through the CUDA kernels, with
-   every launch counter set to 0 just before and read just after; its
-   greedy tokens are held against the same engine on the plain ``torch``
-   backend; then ``launch.profile_decode`` breaks 3 decode steps of a
-   fresh engine down by kernel (g0, g1, attention, torch ops, the device's
-   busy share, the step's host time);
+   ``torch.profiler`` (one session for all); its row names its launch
+   plan (lifted dims, cluster size, blocks, shared memory);
+4. ``repro_torch.launch.serve`` at full width for each architecture of
+   ``SERVED`` (smollm-135m and llama3.2-1b at full depth, qwen3-moe-
+   30b-a3b and qwen2-7b at 2 layers, qwen3-32b at 1; seeded random
+   weights; 8 requests, prompts of 4-24 tokens, 4-12 new tokens) through
+   the CUDA kernels, with every launch counter set to 0 just before and
+   read just after; its greedy tokens are held against the same engine
+   on the plain ``torch`` backend; then ``launch.profile_decode`` breaks
+   3 decode steps of the same engine down by kernel (each decode kernel,
+   torch ops, the device's busy share, the step's host time), beside
+   ``torch.cuda.max_memory_allocated``.  The architectures after the
+   first each run in a child process (this script with ``--serve``), so
+   their weights and profiler sessions end with it;
 5. each hand-written kernel against its plain version (which follows the
-   kernel's split of the key or d_ff axis) at every shape of paths A and
-   B below, plus one bfloat16 case each (float32: ``2e-4`` for attention,
-   ``2e-4 * sqrt(K)`` absolute for LayerNorm+matmul, ``4e-4`` for SwiGLU;
-   bfloat16: ``5e-2``), with its launch grid and cluster size, timed with
+   kernel's split of the key or d_ff axis) at every shape of paths A, B
+   and C below, plus one bfloat16 case each, and SwiGLU at llama3.2-1b's
+   widths in bfloat16 and at qwen2-7b's D 3584 (float32: ``2e-4`` for
+   attention, ``2e-4 * sqrt(K)`` absolute for LayerNorm+matmul, ``4e-4``
+   for SwiGLU; bfloat16: ``5e-2``), with its launch grid, cluster size
+   and (SwiGLU) X layout, timed with
    CUDA events beside its plain version (and
    ``scaled_dot_product_attention`` for attention), with its bound; then
    the device time per launch of every case and of its SDPA call, from
@@ -48,14 +56,16 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    oracle, by design) returns finite gradients of the inputs' shapes for
    every input that needs one;
 7. path A: ``LM.forward`` and ``LM.prefill`` of full-width smollm-135m
-   (30 layers, batch 4 x 512 tokens) on ``attn_impl = mlp_impl = "cuda"``,
-   and path B: ``EncDec.prefill`` of full-width whisper-tiny (4 + 4
-   layers, 1500 frames, batch 2 x 64 tokens); each call once with the
-   launch counters set to 0 just before and read just after (exact
-   counts), its logits finite and within 1e-3 of the same call on the
-   plain impls, then timed over ``PATH_REPEATS`` calls (median and
-   spread);
-8. a ``kernels`` JSON line, the card line, and the result line.
+   (30 layers, batch 4 x 512 tokens) on ``attn_impl = mlp_impl = "cuda"``;
+   path B: ``EncDec.prefill`` of full-width whisper-tiny (4 + 4 layers,
+   1500 frames, batch 2 x 64 tokens); path C: ``LM.forward`` and
+   ``LM.prefill`` of full-width llama3.2-1b (16 layers, 4 x 512 tokens);
+   each call once with the launch counters set to 0 just before and read
+   just after (exact counts), its logits finite and within 1e-3 of the
+   same call on the plain impls, then timed over ``PATH_REPEATS`` calls
+   (median and spread);
+8. the serving records, the paths' times, each phase's seconds, a
+   ``kernels`` JSON line, the card line, and the result line.
 """
 
 from __future__ import annotations
@@ -77,6 +87,14 @@ SERVE_TOL = 1e-3    # logits of the CUDA engine vs the torch engine
 PATH_TOL = 1e-3     # logits of a hand-kernel path vs its plain impls
 BF16_TOL = 5e-2     # hand kernel vs plain version, bfloat16
 PATH_REPEATS = 10   # timed calls of each hand-kernel path
+#: the serving phases: each architecture at full width, with its depth
+#: (None: the config's) cut only where the run's time limit asks
+SERVED = (("smollm-135m", None), ("llama3.2-1b", None),
+          ("qwen3-moe-30b-a3b", 2), ("qwen2-7b", 2), ("qwen3-32b", 1))
+#: the engine and trace of every serving phase
+SERVE = dict(n_requests=8, prompt_lens=(4, 24), gen_lens=(4, 12), seed=0,
+             record_logits=True, max_batch=4, max_len=96,
+             prompt_buckets=(8, 16, 32))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # float32 work within the float32 tolerance: 3xTF32 on the tensor cores,
 # the data sheet's dense 495 TFLOP/s TF32 over the three products
@@ -120,35 +138,6 @@ def kernel_name(event_name: str) -> str:
     (``void emit_group_g0_22_23(KArgs)`` -> ``emit_group_g0_22_23``)."""
     head = event_name.split("(")[0].split()
     return head[-1] if head else event_name
-
-
-def device_ms(calls, iters: int = 20):
-    """Device time per launch of each ``(kernel name, fn)`` in ``calls``
-    (the names differ), from one ``torch.profiler`` session in which each
-    fn is launched ``iters`` times after a warm call: the mean over the
-    launches the profiler recorded (it may miss one at the session's
-    edge)."""
-    import torch
-    cuda = torch.profiler.ProfilerActivity.CUDA
-    for _, fn in calls:
-        fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[cuda]) as prof:
-        for _, fn in calls:
-            for _ in range(iters):
-                fn()
-        torch.cuda.synchronize()
-    total = {name: [0.0, 0] for name, _ in calls}
-    for ev in prof.events():
-        name = kernel_name(ev.name)
-        if ev.device_type == torch.autograd.DeviceType.CUDA and \
-                name in total:
-            total[name][0] += ev.time_range.end - ev.time_range.start
-            total[name][1] += 1
-    for name, (_, n) in total.items():
-        if n < iters // 2:
-            fail(f"{name}: the profiler recorded {n} of {iters} launches")
-    return [total[name][0] / total[name][1] / 1e3 for name, _ in calls]
 
 
 def program_inputs(name, kern, cfg, max_batch, max_len, gen):
@@ -304,7 +293,8 @@ def hand_cases(gen):
             plain=lambda: mod.plain(x, w, v, u, g, cluster=shape.cluster,
                                     kslice=shape.kslice), library=None,
             grid=shape.grid, cluster=shape.cluster, threads=shape.threads,
-            bytes=nbytes(x, w, v, u, g, out),
+            layout="X panel held" if shape.panel else "X streamed",
+            smem=shape.smem, bytes=nbytes(x, w, v, u, g, out),
             flops=4.0 * m * d * kdim + 2.0 * m * kdim * n))
 
     def lnmm(label, m, kdim, n, dtype=f32):
@@ -337,70 +327,64 @@ def hand_cases(gen):
               1500, 64, False)
     attention("smollm prefill bf16", 4, 9, 512, 512, 64, True, hkv=3,
               dtype=bf16)
+    attention("llama prefill q (4,32,512,64) kv (4,8,512,64) causal",
+              4, 32, 512, 512, 64, True, hkv=8)
     swiglu("smollm x (2048,576) W/V (576,1536) U (1536,576)", 2048, 576,
            1536, 576)
     swiglu("smollm M=2048 bf16", 2048, 576, 1536, 576, dtype=bf16)
+    swiglu("llama x (2048,2048) W/V (2048,8192) U (8192,2048)", 2048, 2048,
+           8192, 2048)
+    swiglu("llama M=2048 bf16", 2048, 2048, 8192, 2048, dtype=bf16)
+    swiglu("qwen2-7b width x (256,3584) W/V (3584,18944) U (18944,3584)",
+           256, 3584, 18944, 3584)
     lnmm("whisper encoder x (3000,384) Y (384,1536)", 3000, 384, 1536)
     lnmm("whisper decoder x (128,384) Y (384,1536)", 128, 384, 1536)
     lnmm("whisper encoder M=3000 bf16", 3000, 384, 1536, dtype=bf16)
     return cases
 
 
-def window_device_ms(calls, iters: int = 20):
+def window_device_ms(calls, iters: int = 20, gap_s: float = 40e-3):
     """Device time of each ``(fn, name)`` in ``calls``, from one
-    ``torch.profiler`` session: each fn runs ``iters`` times inside a
-    ``record_function`` window that ends in a synchronize, windows 10 ms
-    apart; every kernel whose name holds ``name`` (any kernel where
-    ``name`` is None) and that started on the card between the midpoints
-    of the gaps around a window counts toward that fn, so an offset of
-    the card's timeline against the host's of up to 5 ms attributes no
-    kernel to the wrong window.  Returns, for each fn, (the kernels'
-    summed ms, the kernels recorded)."""
+    ``torch.profiler`` session: each fn runs ``iters`` times and then
+    synchronizes, the runs ``gap_s`` apart on the host clock, so the
+    card's timeline shows one burst of kernels a fn, the bursts split by
+    idle gaps of about ``gap_s`` (a burst's own gaps are the host's enqueue
+    stalls, far shorter).  The bursts are told apart on the card's own
+    clock, whatever its offset against the host's
+    (``profile_decode.bursts``).  A lead-in burst comes first: the
+    profiler can miss a session's first kernels on the card (one run
+    recorded 1 of the first fn's 20), so only the last ``len(calls)``
+    bursts count.  Every kernel of a burst whose name holds ``name`` (any
+    kernel where ``name`` is None) counts toward that fn.  Returns, for
+    each fn, (the kernels' summed ms, the kernels recorded)."""
     import torch
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    from repro_torch.launch.profile_decode import bursts
     for fn, _ in calls:
         fn()
     torch.cuda.synchronize()
-    tags = [f"chip_smoke_window_{i}" for i in range(len(calls))]
-    with torch.profiler.profile(activities=acts) as prof:
-        for tag, (fn, _) in zip(tags, calls):
-            with torch.profiler.record_function(tag):
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-            time.sleep(10e-3)   # no kernel near a window's edge
-    events = prof.events()
-    windows = [None] * len(calls)
-    for ev in events:
-        if ev.device_type == torch.autograd.DeviceType.CPU and \
-                ev.name in tags:
-            windows[tags.index(ev.name)] = (ev.time_range.start,
-                                            ev.time_range.end)
-    if None in windows:
-        fail(f"the profiler recorded {windows.count(None)} of "
-             f"{len(windows)} windows")
-    # attribution bounds: the midpoints of the gaps between windows
-    cuts = [(a[1] + b[0]) / 2 for a, b in zip(windows, windows[1:])]
-    bounds = list(zip([-math.inf] + cuts, cuts + [math.inf]))
-    total = [0.0] * len(calls)
-    count = [0] * len(calls)
-    for ev in events:
-        if ev.device_type != torch.autograd.DeviceType.CUDA or \
-                ev.name in tags:
-            continue
-        for i, (lo, hi) in enumerate(bounds):
-            name = calls[i][1]
-            if lo <= ev.time_range.start < hi and (
-                    name is None or name in ev.name):
-                total[i] += ev.time_range.end - ev.time_range.start
-                count[i] += 1
-                break
-    for i, n in enumerate(count):
-        if n < iters // 2:
-            fail(f"window {i}: the profiler recorded {n} kernels for "
-                 f"{iters} calls")
-    return [(t / 1e3, n) for t, n in zip(total, count)]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for fn in [calls[0][0]] + [fn for fn, _ in calls]:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(gap_s)
+    found = bursts([(ev.time_range.start, ev.time_range.end, ev.name)
+                    for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA],
+                   gap_s * 1e6 / 2)
+    if len(found) not in (len(calls), len(calls) + 1):
+        fail(f"the card's timeline holds {len(found)} bursts of kernels "
+             f"for {len(calls)} timed calls and a lead-in")
+    out = []
+    for i, ((_, want), burst) in enumerate(zip(calls,
+                                               found[-len(calls):])):
+        mine = [e - s for s, e, n in burst if want is None or want in n]
+        if len(mine) < iters // 2:
+            fail(f"window {i}: the profiler recorded {len(mine)} kernels "
+                 f"for {iters} calls")
+        out.append((sum(mine) / 1e3, len(mine)))
+    return out
 
 
 def check_hand_kernels(cases):
@@ -433,12 +417,14 @@ def check_hand_kernels(cases):
                 "bound_fma_ms": fma_ms, "flops": c["flops"],
                 "bytes": c["bytes"], "grid": list(c["grid"]),
                 "cluster": c["cluster"], "blocks": blocks,
-                "threads": c["threads"]}
+                "threads": c["threads"], "layout": c.get("layout"),
+                "smem": c.get("smem")}
         print(f"{name} [{label}]: max_abs_err={err:.3e} (atol {atol:.2e}) "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms} "
               f"bound_ms={bound_ms:.6f} ({bound_by}; float32 FMA bound "
               f"{fma_ms}) grid={list(c['grid'])} cluster={c['cluster']} "
-              f"blocks={blocks} threads={c['threads']}", flush=True)
+              f"blocks={blocks} threads={c['threads']} layout="
+              f"{c.get('layout')} smem={c.get('smem')}", flush=True)
         if name not in rows:        # the first case is the main shape
             rows[name] = {
                 "name": name, "route": "cuda",
@@ -613,9 +599,11 @@ def run_path(label, call, plain_call, expect, kernels):
     return counts, timing, diff
 
 
-def run_paths(kernels):
-    """Path A (smollm-135m forward and prefill) and path B (whisper-tiny
-    prefill) on the hand kernels, full width, seeded random weights."""
+def run_paths(kernels, phase_s):
+    """Path A (smollm-135m forward and prefill), path B (whisper-tiny
+    prefill) and path C (llama3.2-1b forward and prefill) on the hand
+    kernels, full width and depth, seeded random weights; each path's
+    seconds into ``phase_s``."""
     import torch
     from repro_torch import configs as C
     from repro_torch.models.lm import build_model
@@ -630,6 +618,7 @@ def run_paths(kernels):
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     out = {}
+    t0 = time.perf_counter()
     cfg, hand, plain = models("smollm-135m")
     params = hand.init_params(seed=0, device="cuda")
     toks = torch.randint(0, cfg.vocab, (4, 512), generator=gen,
@@ -645,6 +634,8 @@ def run_paths(kernels):
             lambda: hand.prefill(params, toks, max_len=512)[0],
             lambda: plain.prefill(params, toks, max_len=512)[0], a, kernels)
     del params
+    phase_s["7 path A"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     cfg, hand, plain = models("whisper-tiny")
     params = hand.init_params(seed=0, device="cuda")
     toks = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
@@ -659,7 +650,244 @@ def run_paths(kernels):
             lambda: hand.prefill(params, toks, frames, max_len=128)[0],
             lambda: plain.prefill(params, toks, frames, max_len=128)[0], b,
             kernels)
+    del params
+    phase_s["7 path B"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg, hand, plain = models("llama3.2-1b")
+    params = hand.init_params(seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (4, 512), generator=gen,
+                         device="cuda")
+    c = {"flash_attention": 16, "rmsnorm_swiglu": 16, "layernorm_matmul": 0}
+    with torch.no_grad():
+        out["C forward"] = run_path(
+            "path C: llama3.2-1b LM.forward (4 x 512)",
+            lambda: hand.forward(params, toks),
+            lambda: plain.forward(params, toks), c, kernels)
+        out["C prefill"] = run_path(
+            "path C: llama3.2-1b LM.prefill (4 x 512, max_len 512)",
+            lambda: hand.prefill(params, toks, max_len=512)[0],
+            lambda: plain.prefill(params, toks, max_len=512)[0], c, kernels)
+    del params
+    torch.cuda.empty_cache()
+    phase_s["7 path C"] = time.perf_counter() - t0
     return out
+
+
+def check_emitted(served, gen):
+    """Phase 3: every emitted kernel of every served architecture against
+    its plain version on the card, at the shapes its serving path gives
+    it, timed beside the plain version and the library call; a kernel two
+    architectures share (the same source) is checked once.  Then the
+    device time per launch of every distinct kernel from one profiler
+    session (by burst: two kernels whose bodies differ only in their
+    grid share a name).  Returns the rows by ``<arch>/<program>/<kernel id>``."""
+    import torch
+    rows, calls, by_key, dups = {}, [], {}, []
+    for arch, (mc, programs) in served.items():
+        for prog, ck in programs.items():
+            inputs, inst = program_inputs(prog, ck, mc, SERVE["max_batch"],
+                                          SERVE["max_len"], gen)
+            raw = ck._fn.raw_program
+            env = {ref: inputs[name]
+                   for ref, name in zip(raw.input_refs, ck.in_names)}
+            for kr, kern in raw.region_runners:
+                name = f"{arch}/{prog}/{kern.gid}"
+                kin = [env[r] for r in kr.in_refs]
+                got = kern.launch(*kin, instances=inst)
+                want = kern.plain(*kin, instances=inst)
+                torch.cuda.synchronize()
+                err = 0.0
+                for g_, w_ in zip(got, want):
+                    if not torch.isfinite(g_).all():
+                        fail(f"{name}: non-finite kernel output")
+                    if not torch.allclose(g_, w_, rtol=TOL, atol=TOL):
+                        fail(f"{name}: kernel disagrees with its plain "
+                             "version (max abs err "
+                             f"{(g_ - w_).abs().max().item():.3e})")
+                    err = max(err, (g_ - w_).abs().max().item())
+                for ref, o in zip(kr.out_refs, got):
+                    env[ref] = o
+                if kern.key in by_key:      # the same kernel, checked
+                    dups.append((name, by_key[kern.key], err))
+                    print(f"{name}: the kernel of {by_key[kern.key]}, "
+                          f"max_abs_err={err:.3e}", flush=True)
+                    continue
+                by_key[kern.key] = name
+                launch = functools.partial(kern.launch, *kin,
+                                           instances=inst)
+                ms = time_ms(launch)
+                plain_ms = time_ms(lambda: kern.plain(*kin, instances=inst))
+                lib = library_call(prog, kin, inputs, kern)
+                lib_ms = time_ms(lib) if lib is not None else None
+                n_inst = got[0].numel() // math.prod(kern.out_full[0])
+                in_bytes = sum(t.numel() * 4 for t in kin)
+                out_bytes = sum(t.numel() * 4 for t in got)
+                flops = kern.flops * n_inst
+                if prog.startswith("attention"):
+                    kept, total, key_rows = attention_valid(inputs)
+                    kv_all = (inputs["KT"].numel()
+                              + inputs["VT"].numel()) * 4
+                    kv_need = key_rows * (inputs["KT"].shape[-1]
+                                          + inputs["VT"].shape[-2]) * 4
+                    in_bytes += kv_need - kv_all
+                    flops = flops * kept / total
+                bound_ms, bound_by, fma_ms = bound(in_bytes + out_bytes,
+                                                   flops)
+                plan = kern.plan
+                rows[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "src/repro_torch/core/codegen_cuda.py",
+                    "replaces": ("src/repro/core/codegen_pallas.py:409"
+                                 if kern.entry == "emit_region"
+                                 else "src/repro/core/codegen_pallas.py:634"),
+                    "launches": 0, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bound_fma_ms": fma_ms,
+                    "library_ms": lib_ms, "device_ms": None,
+                    "launch_dims": list(plan.launch_dims),
+                    "lifted": list(plan.lifted),
+                    "cluster_dim": plan.cluster_dim,
+                    "cluster_size": plan.cluster_size,
+                    "blocks": kern.blocks * n_inst,
+                    "smem_bytes": kern.smem_bytes}
+                print(f"{name}: max_abs_err={err:.3e} ms={ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
+                      f"bound_ms={bound_ms:.6f} ({bound_by}) launch grid "
+                      f"{list(plan.launch_dims)} cluster="
+                      f"{plan.cluster_size} blocks={rows[name]['blocks']} "
+                      f"smem={kern.smem_bytes}", flush=True)
+                calls.append((name, kern.kname, launch))
+            del env, inputs
+    dev = window_device_ms([(fn, kn) for _, kn, fn in calls])
+    for (name, _, _), (total, n) in zip(calls, dev):
+        d_ms = rows[name]["device_ms"] = total / n
+        print(f"{name}: device_ms={d_ms:.4f} per launch (torch.profiler) "
+              f"against ms={rows[name]['ms']:.4f} (CUDA events, back to "
+              "back)", flush=True)
+    for name, first, err in dups:
+        rows[name] = dict(rows[first], name=name,
+                          max_abs_err=max(err, rows[first]["max_abs_err"]))
+    return rows
+
+
+def serve_phase(arch, n_layers):
+    """Phase 4 for one architecture: ``launch.serve`` at full width
+    (``n_layers`` cuts the depth; None: the config's), with every launch
+    counter of its emitted kernels set to 0 just before and read just
+    after; its greedy tokens held against the same engine on the plain
+    ``torch`` backend (or its logits within 1e-3 up to the first
+    differing token); then 3 decode steps of the same engine broken down
+    by kernel (``launch.profile_decode``).  Returns the phase's record."""
+    import torch
+    from repro_torch.core import codegen_cuda as CC
+    from repro_torch.launch import profile_decode as PD
+    from repro_torch.launch import serve as S
+    from repro_torch.models import layers as L
+
+    cfg = S.ServeConfig(arch=arch, n_layers=n_layers, **SERVE)
+    mc = S.model_config(cfg)
+    programs = L.pipeline_kernels(mc, prefill_lens=cfg.prompt_buckets,
+                                  decode_batch=cfg.max_batch,
+                                  max_len=cfg.max_len)
+    kernels = {f"{arch}/{prog}/{k.gid}": k for prog, ck in programs.items()
+               for k in ck.kernels}
+    CC.build(list(kernels.values()))      # built by phase 2: loads only
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    engine = S.build_engine(cfg)
+    engine.warmup()
+    report = engine.run(S.trace_for(cfg, engine.cfg.vocab))
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    label = f"serve {arch} ({mc.n_layers} layers, cuda)"
+    print(f"{label}: {report.n_completed}/{report.n_requests} requests, "
+          f"{report.steps} steps, {report.tokens_per_s:.2f} tok/s, p50 "
+          f"{report.p50_token_ms:.2f} ms, p99 {report.p99_token_ms:.2f} ms, "
+          f"recompiles {report.decode_recompiles}, {serve_s:.1f} s with "
+          "weights and warmup", flush=True)
+    if report.n_completed != cfg.n_requests:
+        fail(f"{label}: only {report.n_completed}/{cfg.n_requests} "
+             "requests completed")
+    if report.decode_recompiles != 0:
+        fail(f"{label}: {report.decode_recompiles} recompiles after warmup")
+    idle = [n for n, c in launches.items() if c <= 0]
+    if idle:
+        fail(f"{label}: kernels never launched on the serving path: {idle}")
+    for rid, rows_l in report.logits.items():
+        if not all(torch.isfinite(r).all() for r in rows_l):
+            fail(f"{label}: request {rid}: non-finite logits")
+
+    plain = S.run(dataclasses.replace(cfg, backend="torch"),
+                  params=engine.params)
+    same = 0
+    for rid, toks in report.tokens.items():
+        ref = plain.tokens[rid]
+        if toks == ref:
+            same += 1
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(toks, ref)) if a != b)
+        diff = max((a - b).abs().max().item() for a, b in zip(
+            report.logits[rid][:j + 1], plain.logits[rid][:j + 1]))
+        print(f"{label}: request {rid}: first differing token at step "
+              f"{j}; logits up to it agree within {diff:.3e}", flush=True)
+        if diff > SERVE_TOL:
+            fail(f"{label}: request {rid}: logits differ by {diff:.3e} "
+                 "from the torch backend")
+    print(f"{label}: greedy tokens equal to the torch backend for {same}/"
+          f"{len(report.tokens)} requests", flush=True)
+
+    prof = PD.profile_decode(engine, steps=3)
+    by = {}
+    for n, ms_ in prof["device_ms_per_step_by_kernel"].items():
+        by[kernel_name(n)] = by.get(kernel_name(n), 0.0) + ms_
+    names = {f"{prog}/{k.gid}": k.kname for prog in ("attention_decode",
+                                                    "swiglu_decode")
+             if prog in programs for k in programs[prog].kernels}
+    step = {part: by.get(kn, 0.0) for part, kn in names.items()}
+    missing = [part for part, ms_ in step.items() if ms_ <= 0]
+    if missing:
+        fail(f"{label}: the decode profile saw no device time of {missing}")
+    step["torch_ops"] = sum(v for n, v in by.items()
+                            if n not in names.values())
+    step.update(device_busy_share=prof["device_busy_share"],
+                host_step_ms=prof["host_step_ms"],
+                step_bound_ms=prof["step_bound_ms"],
+                n_layers=prof["n_layers"], batch=prof["batch"])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: decode step (ms per step, torch.profiler over 3 "
+          f"steps): {json.dumps(step)}; max_memory_allocated {peak} B",
+          flush=True)
+    return {"arch": arch, "n_layers": mc.n_layers,
+            "completed": report.n_completed, "requests": report.n_requests,
+            "steps": report.steps, "tokens_per_s": report.tokens_per_s,
+            "p50_token_ms": report.p50_token_ms,
+            "p99_token_ms": report.p99_token_ms,
+            "recompiles": report.decode_recompiles, "serve_s": serve_s,
+            "same_tokens": same, "decode_step": step,
+            "max_memory_allocated": peak, "launches": launches}
+
+
+def serve_in_child(arch, n_layers):
+    """:func:`serve_phase` in a process of its own (this script with
+    ``--serve``), so that the architecture's weights, caches and profiler
+    session end with it; the kernels it loads were built by phase 2."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--serve", arch,
+         "--n-layers", str(n_layers or 0)], capture_output=True, text=True,
+        timeout=600, cwd=ROOT)
+    lines = out.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if out.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        fail(f"serving {arch} (child process, rc {out.returncode}): "
+             f"{out.stderr.strip()[-3000:]}")
+    rec = json.loads(lines[-1])
+    rec["process_s"] = time.perf_counter() - t0
+    return rec
 
 
 def main() -> int:
@@ -668,9 +896,13 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke test runs on "
              "the card only")
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:2] == ["--serve"]:        # a serving phase's child
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rec = serve_phase(sys.argv[2], int(sys.argv[4]) or None)
+        print(json.dumps(rec))
+        return 0
     from repro_torch.core import codegen_cuda as CC
     from repro_torch.core import cuda_build as CB
-    from repro_torch.launch import profile_decode as PD
     from repro_torch.launch import serve as S
     from repro_torch.models import layers as L
 
@@ -678,186 +910,71 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}", flush=True)
+    phase_s = {}
 
     # -- 2. build ---------------------------------------------------------
-    cfg = S.ServeConfig(n_requests=8, prompt_lens=(4, 24), gen_lens=(4, 12),
-                        seed=0, record_logits=True)
-    mc = S.model_config(cfg)
-    programs = L.pipeline_kernels(mc, prefill_lens=cfg.prompt_buckets,
-                                  decode_batch=cfg.max_batch,
-                                  max_len=cfg.max_len)
-    kernels = {}
-    for prog, ck in programs.items():
-        print(f"{prog}: {ck.lowering_report.summary()}", flush=True)
-        for k in ck.kernels:
-            kernels[f"{prog}/{k.gid}"] = (prog, ck, k)
-    hand = {name: mod.KERNEL for name, mod in hand_modules().items()}
     t0 = time.perf_counter()
-    CB.build_many(list({k.key: k.source for _, _, k in kernels.values()}
-                       .items()) + [(k.key, k.source) for k in hand.values()])
-    CC.build([k for _, _, k in kernels.values()])
+    served = {}
+    for arch, n_layers in SERVED:
+        mc = S.model_config(S.ServeConfig(arch=arch, n_layers=n_layers,
+                                          **SERVE))
+        served[arch] = (mc, L.pipeline_kernels(
+            mc, prefill_lens=SERVE["prompt_buckets"],
+            decode_batch=SERVE["max_batch"], max_len=SERVE["max_len"]))
+        for prog, ck in served[arch][1].items():
+            print(f"{arch}/{prog}: {ck.lowering_report.summary()}",
+                  flush=True)
+    emitted = {k.key: k for _, programs in served.values()
+               for ck in programs.values() for k in ck.kernels}
+    hand = {name: mod.KERNEL for name, mod in hand_modules().items()}
+    CB.build_many([(k.key, k.source) for k in emitted.values()]
+                  + [(k.key, k.source) for k in hand.values()])
+    CC.build(list(emitted.values()))
     for k in hand.values():
         k.build()
     build_s = time.perf_counter() - t0
-    print(f"built {len(kernels)} emitted and {len(hand)} hand-written "
+    print(f"built {len(emitted)} emitted and {len(hand)} hand-written "
           f"kernels ({', '.join(hand)}) with nvcc (sm_90a), one process "
           f"each, in {build_s:.2f} s", flush=True)
     tensor_core_report(hand)
+    phase_s["2 build"] = time.perf_counter() - t0
 
-    # -- 3. each kernel against its plain version --------------------------
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, calls = {}, []
-    for prog, ck in programs.items():
-        inputs, inst = program_inputs(prog, ck, mc, cfg.max_batch,
-                                      cfg.max_len, gen)
-        raw = ck._fn.raw_program
-        env = {ref: inputs[name]
-               for ref, name in zip(raw.input_refs, ck.in_names)}
-        for kr, kern in raw.region_runners:
-            name = f"{prog}/{kern.gid}"
-            kin = [env[r] for r in kr.in_refs]
-            got = kern.launch(*kin, instances=inst)
-            want = kern.plain(*kin, instances=inst)
-            torch.cuda.synchronize()
-            err = 0.0
-            for g_, w_ in zip(got, want):
-                if not torch.isfinite(g_).all():
-                    fail(f"{name}: non-finite kernel output")
-                if not torch.allclose(g_, w_, rtol=TOL, atol=TOL):
-                    fail(f"{name}: kernel disagrees with its plain version "
-                         f"(max abs err {(g_ - w_).abs().max().item():.3e})")
-                err = max(err, (g_ - w_).abs().max().item())
-            launch = functools.partial(kern.launch, *kin, instances=inst)
-            ms = time_ms(launch)
-            plain_ms = time_ms(lambda: kern.plain(*kin, instances=inst))
-            lib = library_call(prog, kin, inputs, kern)
-            lib_ms = time_ms(lib) if lib is not None else None
-            n_inst = got[0].numel() // math.prod(kern.out_full[0])
-            in_bytes = sum(t.numel() * 4 for t in kin)
-            out_bytes = sum(t.numel() * 4 for t in got)
-            flops = kern.flops * n_inst
-            if prog.startswith("attention"):
-                kept, total, key_rows = attention_valid(inputs)
-                kv_all = (inputs["KT"].numel() + inputs["VT"].numel()) * 4
-                kv_need = key_rows * (inputs["KT"].shape[-1]
-                                      + inputs["VT"].shape[-2]) * 4
-                in_bytes += kv_need - kv_all
-                flops = flops * kept / total
-            bound_ms, bound_by, fma_ms = bound(in_bytes + out_bytes, flops)
-            plan = kern.plan
-            rows[name] = {
-                "name": name, "route": "cuda",
-                "source": "src/repro_torch/core/codegen_cuda.py",
-                "replaces": ("src/repro/core/codegen_pallas.py:409"
-                             if kern.entry == "emit_region"
-                             else "src/repro/core/codegen_pallas.py:634"),
-                "launches": 0, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "bound_fma_ms": fma_ms,
-                "library_ms": lib_ms, "device_ms": None,
-                "launch_dims": list(plan.launch_dims),
-                "lifted": list(plan.lifted), "cluster_dim": plan.cluster_dim,
-                "cluster_size": plan.cluster_size,
-                "blocks": kern.blocks * n_inst,
-                "smem_bytes": kern.smem_bytes}
-            print(f"{name}: max_abs_err={err:.3e} ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
-                  f"bound_ms={rows[name]['bound_ms']:.6f} "
-                  f"({rows[name]['bound_by']}) launch grid "
-                  f"{list(plan.launch_dims)} cluster={plan.cluster_size} "
-                  f"blocks={rows[name]['blocks']} smem={kern.smem_bytes}",
-                  flush=True)
-            calls.append((name, kern.kname, launch))
-            for ref, o in zip(kr.out_refs, got):
-                env[ref] = o
-    dev = device_ms([(kn, fn) for _, kn, fn in calls])
-    for (name, _, _), d_ms in zip(calls, dev):
-        rows[name]["device_ms"] = d_ms
-        print(f"{name}: device_ms={d_ms:.4f} per launch (torch.profiler) "
-              f"against ms={rows[name]['ms']:.4f} (CUDA events, back to "
-              "back)", flush=True)
-
-    # -- 4. the serving path ------------------------------------------------
-    for _, _, k in kernels.values():
-        k.launches = 0
+    # -- 3. each emitted kernel against its plain version -------------------
     t0 = time.perf_counter()
-    report = S.run(cfg)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    launches = {name: k.launches for name, (_, _, k) in kernels.items()}
-    print(f"serve (cuda): {report.n_completed}/{report.n_requests} requests, "
-          f"{report.steps} steps, {report.tokens_per_s:.2f} tok/s, "
-          f"p50 {report.p50_token_ms:.2f} ms, p99 "
-          f"{report.p99_token_ms:.2f} ms, recompiles "
-          f"{report.decode_recompiles}, {serve_s:.1f} s with warmup",
-          flush=True)
-    if report.n_completed != cfg.n_requests:
-        fail(f"only {report.n_completed}/{cfg.n_requests} requests "
-             "completed")
-    if report.decode_recompiles != 0:
-        fail(f"{report.decode_recompiles} recompiles after warmup")
-    idle = [n for n, c in launches.items() if c <= 0]
-    if idle:
-        fail(f"kernels never launched on the serving path: {idle}")
-    for rid, rows_l in report.logits.items():
-        if not all(torch.isfinite(r).all() for r in rows_l):
-            fail(f"request {rid}: non-finite logits")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = check_emitted(served, gen)
+    phase_s["3 emitted kernels"] = time.perf_counter() - t0
 
-    plain_report = S.run(dataclasses.replace(cfg, backend="torch"))
-    same = 0
-    for rid, toks in report.tokens.items():
-        ref = plain_report.tokens[rid]
-        if toks == ref:
-            same += 1
-            continue
-        j = next(i for i, (a, b) in enumerate(zip(toks, ref)) if a != b)
-        diff = max((a - b).abs().max().item() for a, b in zip(
-            report.logits[rid][:j + 1], plain_report.logits[rid][:j + 1]))
-        print(f"request {rid}: first differing token at step {j}; logits "
-              f"up to it agree within {diff:.3e}", flush=True)
-        if diff > SERVE_TOL:
-            fail(f"request {rid}: logits differ by {diff:.3e} from the "
-                 "torch backend")
-    print(f"greedy tokens equal to the torch backend for {same}/"
-          f"{len(report.tokens)} requests", flush=True)
-
-    # -- the decode step, by kernel -----------------------------------------
-    engine = S.build_engine(cfg)
-    engine.warmup()
-    prof = PD.profile_decode(engine, steps=3)
-    del engine
-    names = {"g0": programs["swiglu_decode"].kernels[0].kname,
-             "g1": programs["swiglu_decode"].kernels[1].kname,
-             "attention": programs["attention_decode"].kernels[0].kname}
-    by = {}
-    for n, ms_ in prof["device_ms_per_step_by_kernel"].items():
-        by[kernel_name(n)] = by.get(kernel_name(n), 0.0) + ms_
-    step = {part: by.get(kn, 0.0) for part, kn in names.items()}
-    missing = [part for part, ms_ in step.items() if ms_ <= 0]
-    if missing:
-        fail(f"the decode profile saw no device time of {missing}")
-    step["torch_ops"] = sum(v for n, v in by.items()
-                            if n not in names.values())
-    step.update(device_busy_share=prof["device_busy_share"],
-                host_step_ms=prof["host_step_ms"],
-                step_bound_ms=prof["step_bound_ms"],
-                n_layers=prof["n_layers"], batch=prof["batch"])
-    print("decode step (ms per step, torch.profiler over 3 steps): "
-          + json.dumps(step), flush=True)
+    # -- 4. the serving paths -------------------------------------------------
+    serving = {}
+    for arch, n_layers in SERVED:
+        t0 = time.perf_counter()
+        serving[arch] = (serve_phase(arch, n_layers) if arch == SERVED[0][0]
+                         else serve_in_child(arch, n_layers))
+        phase_s[f"4 serve {arch}"] = time.perf_counter() - t0
 
     # -- 5-7. the hand-written kernels and their paths ---------------------
+    t0 = time.perf_counter()
     hand_rows = check_hand_kernels(hand_cases(gen))
+    phase_s["5 hand kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     check_backward(gen)
-    paths = run_paths(hand)
+    phase_s["6 backward"] = time.perf_counter() - t0
+    paths = run_paths(hand, phase_s)
 
-    for name, row in rows.items():
-        row["launches"] = launches[name]
+    for arch, rec in serving.items():
+        for name, n in rec["launches"].items():
+            rows[name]["launches"] = n
     for name, row in hand_rows.items():
         row["launches_by_path"] = {p: c[name] for p, (c, _, _) in
                                    paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+    print("serving: " + json.dumps({a: {k: v for k, v in r.items()
+                                        if k != "launches"}
+                                    for a, r in serving.items()}))
     print("paths: " + json.dumps({p: {**timing, "max_abs_diff_vs_plain": d}
                                   for p, (_, timing, d) in paths.items()}))
+    print("phase seconds: " + json.dumps(phase_s))
     print(json.dumps({"kernels": list(rows.values())
                       + list(hand_rows.values())}))
     print(card)

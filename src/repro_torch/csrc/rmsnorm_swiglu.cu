@@ -20,42 +20,57 @@
 // make 64 row blocks x 2 ranks = 128 blocks, and each weight byte read
 // from L2 serves 32 rows (16-row blocks over the whole of K each read all
 // of W, V and U: 1.36 GB of L2 traffic a call in float32, here 0.68 GB).
-// Each rank recomputes its rows' RMS statistic and writes the normalised
-// X panel once into shared memory in the operand's type (float32, or
-// bfloat16 as the reference rounds it).  It walks its K slice in steps of
-// BKF = 64: the gate/up tiles a, b (32 x 64) accumulate in registers over
-// D in chunks of DC rows of W and V; h = swish(a) * b goes to shared
-// memory only (in the operand's type); then the down projection adds h U,
-// in chunks of KU rows of U, into the (32 x BN) output accumulator in
-// registers.  16 warps, 2 along the rows x 8 along the columns: a warp
-// owns 16 rows and, of h, 8 columns; of the output, 72 columns, so BN =
-// 576 columns a block and 36 accumulator floats a thread.  The choice
-// against the alternatives: BM = 64 under 3 warpgroups needs 96
-// accumulator floats and about 170 registers a thread at 384 threads, the
-// whole register file; a first version with 8 warps of 16 x 144 output
-// columns, 64-row W/V chunks and three stages took 1.4x as long on the
-// card (PERF.md).  A wider N is split over
-// blockIdx.z, each column block recomputing h (the paper's N replication).
-// At the end each rank stores its partial (32 x BN, float32) in shared
-// memory and, after a cluster barrier, sums one column window of all
-// ranks' partials through distributed shared memory in rank order
-// (deterministic, no atomics).
+// Each rank first takes its rows' RMS statistic r in a pre-pass over X (a
+// warp a row).  It walks its K slice in steps of BKF = 64: the gate/up
+// tiles a, b (32 x 64) accumulate in registers over D in chunks of DC
+// columns of RMS_g(X) beside DC rows of W and V; h = swish(a) * b goes to
+// shared memory only (in the operand's type); then the down projection
+// adds h U, in chunks of KU rows of U, into the (32 x BN) output
+// accumulator in registers.  Where RMS_g(X) comes from, two layouts:
 //
-// W/V chunks and U chunks go through one two-stage cp.async ring (16-byte
-// copies, zero-filled past the edges; plain loads when a row is not a
-// multiple of 16 bytes): chunk j + 1 loads while chunk j is multiplied,
-// one barrier per chunk, and the first chunk flies while the RMS
-// statistic is taken.  Chunks: DC = 96, KU = 16 (float32); DC = 192, KU =
-// 32 (bfloat16).  Row strides are padded so that the fragment loads
-// (float32) and ldmatrix (bfloat16, .trans for W, V, U) hit distinct
-// banks.
+// * the panel (PANEL, where it fits: D <= 864 in float32, D <= 1728 in
+//   bfloat16): the pre-pass writes the block's 32 normalised rows once into
+//   shared memory, in the operand's type, and every step reads them there;
+// * streamed (any D): X is not kept on chip.  Each step streams its
+//   DC-column chunks again with the weights (a quarter more bytes through
+//   the ring at D = 576), so shared memory does not grow with D.  A warp
+//   normalises the X values of its A fragments as it loads them.
 //
-// Shared memory at D = 576: 193,536 B (float32), 152,576 B (bfloat16):
-// the X panel 32 x (DP + pad), DP = D rounded up to DC; 2 stages of
-// max(2 DC x 72, KU x 584) elements; h 32 x (64 + pad).  So D <= 864
-// (float32) and D <= 1728 (bfloat16); the wrapper refuses more.
-// Registers (cuobjdump -res-usage, as nvcc -Xptxas -v reports them): 93 to
-// 96 a thread, no stack, no spills.
+// Both compute x r gamma in float32 and round it to the operand's type
+// (the reference's RMS_g(x) in bfloat16) before the product, so both feed
+// the products the same values; r stays out of the product's sum.  The
+// wrapper takes the panel where it fits: at smollm-135m's widths the
+// streamed layout took 1.11x (float32) and 1.22x (bfloat16) the panel's
+// time on the card (launch/hand_variants.py, PERF.md).
+// 16 warps, 2 along the rows x 8 along the columns: a warp owns 16 rows
+// and, of h, 8 columns; of the output, 72 columns, so BN = 576 columns a
+// block and 36 accumulator floats a thread.  The choice against the
+// alternatives: BM = 64 under 3 warpgroups needs 96 accumulator floats
+// and about 170 registers a thread at 384 threads, the whole register
+// file; a first version with 8 warps of 16 x 144 output columns, 64-row
+// W/V chunks and three stages took 1.4x as long on the card (PERF.md).  A
+// wider N is split over blockIdx.z, each column block recomputing h (the
+// paper's N replication).  At the end each rank stores its partial (32 x
+// BN, float32) in shared memory and, after a cluster barrier, sums one
+// column window of all ranks' partials through distributed shared memory
+// in rank order (deterministic, no atomics).
+//
+// X/W/V chunks (with gamma's DC values) and U chunks go through one
+// two-stage cp.async ring (16-byte copies, zero-filled past the edges;
+// plain loads when a row is not a multiple of 16 bytes): chunk j + 1 loads
+// while chunk j is multiplied, one barrier per chunk, and the first chunk
+// flies while the RMS statistic is taken.  Chunks: DC = 96, KU = 16
+// (float32); DC = 192, KU = 32 (bfloat16).  Row strides are padded so
+// that the fragment loads (float32, and bfloat16 X) and ldmatrix
+// (bfloat16 W, V, U, .trans) hit distinct banks.
+//
+// Shared memory: streamed, at any D, 145,792 B (float32), 142,464 B
+// (bfloat16): 2 stages of max(2 DC x 72 + 32 x (DC + pad) + gamma's DC
+// floats, KU x 584) elements; h 32 x (64 + pad); r 32 floats.  The panel
+// at D = 576: 193,664 B (float32), 152,704 B (bfloat16): the panel 32 x
+// (D rounded up to DC, + pad), 2 stages of max(2 DC x 72, KU x 584), h, r.
+// Registers (cuobjdump -res-usage, as nvcc -Xptxas -v reports them): 93
+// to 96 a thread with the panel, 96 to 110 streamed; no stack, no spills.
 //
 // Layout: x (M, D), w and v (D, K), u (K, N), out (M, N), contiguous,
 // all float32 or all bfloat16; gamma (D,) float32.
@@ -85,24 +100,39 @@ constexpr int WLD = BKF + 8;  // staged W / V row stride
 constexpr int ULD = BN + 8;   // staged U row stride
 constexpr int PLD = BN + 4;   // partial output row stride (float)
 
-// the chunks: DC rows of W and V, KU rows of U; X panel and h row padding
+// the chunks: DC columns of X and rows of W and V, KU rows of U; the X
+// chunk, panel and h row padding.  A W/V stage holds W and V and, when X
+// is streamed, the X chunk (BM x XLD) and gamma's DC float32 values (GSZ
+// elements of T), in that order.
 template <typename T>
 struct Tiles {
   static constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
   static constexpr int DC = BF ? 192 : 96;
   static constexpr int KU = BF ? 32 : 16;
   static constexpr int PAD = BF ? 8 : 4;
+  static constexpr int XLD = DC + PAD;
   static constexpr int HLD = BKF + PAD;
-  static constexpr int STAGE =
-      2 * DC * WLD > KU * ULD ? 2 * DC * WLD : KU * ULD;
-  __host__ __device__ static int panel(int d) { return (d + DC - 1) / DC * DC; }
+  static constexpr int GSZ = DC * 4 / (int)sizeof(T);
+  static constexpr int WV = 2 * DC * WLD;
+  static constexpr int WVX = WV + BM * XLD + GSZ;
+  static constexpr int U = KU * ULD;
+  static constexpr int STAGE_PANEL = WV > U ? WV : U;
+  static constexpr int STAGE_STREAMED = WVX > U ? WVX : U;
+  // the resident panel's row stride: D rounded up to DC, padded
+  __host__ __device__ static int panel_ld(int d) {
+    return (d + DC - 1) / DC * DC + PAD;
+  }
 };
 
-template <typename T>
+// the panel's share grows with D; the streamed layout's does not
+template <typename T, bool PANEL>
 int smem_bytes(int d) {
   using S = Tiles<T>;
-  const int body = (BM * (S::panel(d) + S::PAD) + NSTAGE * S::STAGE +
-                    BM * S::HLD) * (int)sizeof(T);
+  const int body = ((PANEL ? BM * S::panel_ld(d) : 0) +
+                    NSTAGE * (PANEL ? S::STAGE_PANEL : S::STAGE_STREAMED) +
+                    BM * S::HLD) *
+                       (int)sizeof(T) +
+                   BM * 4;
   const int part = BM * PLD * 4;
   return body > part ? body : part;
 }
@@ -140,7 +170,15 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, T* dst2,
   }
 }
 
-template <typename T, bool VEC>
+// x r g in float32, rounded to bfloat16, for the two bfloat16 values of
+// a fragment register (the lower address in the low half)
+__device__ __forceinline__ uint32_t norm2(uint32_t raw, float r, float2 g) {
+  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+  return pack_bf16(f.x * r * g.x, f.y * r * g.y);
+}
+
+template <typename T, bool VEC, bool PANEL>
 __global__ void __launch_bounds__(THREADS)
 swiglu_fwd(const T* __restrict__ x, const T* __restrict__ w,
            const T* __restrict__ v, const T* __restrict__ u,
@@ -148,12 +186,15 @@ swiglu_fwd(const T* __restrict__ x, const T* __restrict__ w,
            int D, int K, int N, float eps, int kslice) {
   using S = Tiles<T>;
   constexpr bool BF = S::BF;
-  constexpr int DC = S::DC, KU = S::KU, HLD = S::HLD, STAGE = S::STAGE;
-  const int DP = S::panel(D), XLD = DP + S::PAD;
+  constexpr int DC = S::DC, KU = S::KU, XLD = S::XLD, HLD = S::HLD;
+  constexpr int STAGE = PANEL ? S::STAGE_PANEL : S::STAGE_STREAMED;
+  constexpr int XOFF = S::WV, GOFF = XOFF + BM * XLD;
+  const int PLDX = PANEL ? S::panel_ld(D) : 0;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);   // [BM][XLD]  RMS_g(x)
-  T* ring = xs + BM * XLD;              // [NSTAGE][STAGE]
-  T* hs = ring + NSTAGE * STAGE;        // [BM][HLD]
+  T* xs = reinterpret_cast<T*>(smem);  // [BM][PLDX]  RMS_g(x), PANEL only
+  T* ring = xs + BM * PLDX;            // [NSTAGE][STAGE]
+  T* hs = ring + NSTAGE * STAGE;       // [BM][HLD]
+  float* rs = reinterpret_cast<float*>(hs + BM * HLD);  // [BM]  1 / rms
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -163,25 +204,34 @@ swiglu_fwd(const T* __restrict__ x, const T* __restrict__ w,
   const int nvalid = min(BN, N - n0);
   const int kb = rank * kslice, ke = min(K, kb + kslice);
   const int nsteps = ke > kb ? (ke - kb + BKF - 1) / BKF : 0;
-  const int nd = DP / DC;            // W / V chunks a step
+  const int nd = (D + DC - 1) / DC;  // X / W / V chunks a step
   const int jps = nd + BKF / KU;     // chunks a step
   const int jobs = nsteps * jps;
   const int hw = wn * NH * 8;        // the warp's first h column
   const int nw = wn * NTW * 8;       // the warp's first output column
   const int xrow = 16 * wm + g;      // the warp's fragment row
 
-  // chunk j of this rank: W and V rows [d0, d0 + DC) x the step's columns,
-  // or U rows [k0, k0 + KU) x the block's columns
+  // chunk j of this rank: W and V rows [d0, d0 + DC) x the step's
+  // columns (streamed: and X columns [d0, d0 + DC) of the block's rows, and
+  // gamma's); or U rows [k0, k0 + KU) x the block's columns
   auto load_job = [&](int j, int stage) {
     T* st = ring + stage * STAGE;
     const int s = j / jps, jj = j - s * jps;
     const int kc0 = kb + s * BKF;
-    if (jj < nd)
+    if (jj < nd) {
       load_tile<T, VEC, DC, BKF, WLD>(st, w, st + DC * WLD, v, K, jj * DC, D,
                                       kc0, ke);
-    else
+      if constexpr (!PANEL) {
+        load_tile<T, VEC, BM, DC, XLD>(st + XOFF, x, nullptr, nullptr, D, m0,
+                                       M, jj * DC, D);
+        load_tile<float, VEC, 1, DC, DC>(reinterpret_cast<float*>(st + GOFF),
+                                         gamma, nullptr, nullptr, D, 0, 1,
+                                         jj * DC, D);
+      }
+    } else {
       load_tile<T, VEC, KU, BN, ULD>(st, u, nullptr, nullptr, N,
                                      kc0 + (jj - nd) * KU, ke, n0, N);
+    }
   };
 #pragma unroll
   for (int p = 0; p < NSTAGE - 1; ++p) {
@@ -189,25 +239,30 @@ swiglu_fwd(const T* __restrict__ x, const T* __restrict__ w,
     cp_async_commit();
   }
 
-  // the RMS statistic of the block's rows and the normalised panel: a warp
-  // a row, raw values first, then scaled in place
+  // the RMS statistic of the block's rows, a warp a row; the panel holds
+  // the raw rows (zeros past D), then, scaled in place, RMS_g(x)
   for (int r = warp; r < BM; r += THREADS / 32) {
     const bool in = m0 + r < M;
     const T* xr = x + (size_t)(m0 + r) * D;
     float ss = 0.f;
-    for (int c = lane; c < DP; c += 32) {
+    for (int c = lane; c < (PANEL ? PLDX - S::PAD : D); c += 32) {
       const float xv = in && c < D ? to_f32(xr[c]) : 0.f;
       ss = fmaf(xv, xv, ss);
-      store(&xs[r * XLD + c], xv);
+      if constexpr (PANEL) store(&xs[r * PLDX + c], xv);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       ss += __shfl_xor_sync(0xffffffffu, ss, off);
     const float ir = rsqrtf(ss / D + eps);
-    __syncwarp();
-    for (int c = lane; c < D; c += 32)
-      store(&xs[r * XLD + c], to_f32(xs[r * XLD + c]) * ir * gamma[c]);
+    if (lane == 0) rs[r] = ir;
+    if constexpr (PANEL) {
+      __syncwarp();
+      for (int c = lane; c < D; c += 32)
+        store(&xs[r * PLDX + c], to_f32(xs[r * PLDX + c]) * ir * gamma[c]);
+    }
   }
+  __syncthreads();
+  const float r0 = rs[xrow], r1 = rs[xrow + 8];  // the fragment rows'
 
   float ga[NH][4], ua[NH][4], acc[NTW][4];
 #pragma unroll
@@ -225,25 +280,40 @@ swiglu_fwd(const T* __restrict__ x, const T* __restrict__ w,
     const int jj = j % jps;
 
     if (jj < nd) {
-      // gate / up: a += X[:, d0:d0+DC] W[d0:d0+DC, step], b likewise
+      // gate / up: a += RMS_g(X)[:, d0:d0+DC] W[d0:d0+DC, step], b likewise
       if (jj == 0) {
 #pragma unroll
         for (int n = 0; n < NH; ++n)
 #pragma unroll
           for (int i = 0; i < 4; ++i) ga[n][i] = ua[n][i] = 0.f;
       }
+      const float* gs = reinterpret_cast<const float*>(st + GOFF);
       if constexpr (BF) {
         // one ldmatrix.x4.trans: W's b0, b1 (lanes 0-15), V's (16-31)
         const T* wv = st + (lane >> 4) * DC * WLD +
                       ((lane & 7) + ((lane >> 3) & 1) * 8) * WLD + hw;
 #pragma unroll
         for (int kc = 0; kc < DC / 16; ++kc) {
-          const T* xa = xs + xrow * XLD + jj * DC + kc * 16 + 2 * t;
-          const uint32_t a[4] = {
-              *reinterpret_cast<const uint32_t*>(xa),
-              *reinterpret_cast<const uint32_t*>(xa + 8 * XLD),
-              *reinterpret_cast<const uint32_t*>(xa + 8),
-              *reinterpret_cast<const uint32_t*>(xa + 8 * XLD + 8)};
+          uint32_t a[4];
+          if constexpr (PANEL) {
+            const T* xa = xs + xrow * PLDX + jj * DC + kc * 16 + 2 * t;
+            a[0] = *reinterpret_cast<const uint32_t*>(xa);
+            a[1] = *reinterpret_cast<const uint32_t*>(xa + 8 * PLDX);
+            a[2] = *reinterpret_cast<const uint32_t*>(xa + 8);
+            a[3] = *reinterpret_cast<const uint32_t*>(xa + 8 * PLDX + 8);
+          } else {
+            const T* xa = st + XOFF + xrow * XLD + kc * 16 + 2 * t;
+            const float2 gl =
+                *reinterpret_cast<const float2*>(gs + kc * 16 + 2 * t);
+            const float2 gh =
+                *reinterpret_cast<const float2*>(gs + kc * 16 + 2 * t + 8);
+            a[0] = norm2(*reinterpret_cast<const uint32_t*>(xa), r0, gl);
+            a[1] = norm2(*reinterpret_cast<const uint32_t*>(xa + 8 * XLD), r1,
+                         gl);
+            a[2] = norm2(*reinterpret_cast<const uint32_t*>(xa + 8), r0, gh);
+            a[3] = norm2(*reinterpret_cast<const uint32_t*>(xa + 8 * XLD + 8),
+                         r1, gh);
+          }
 #pragma unroll
           for (int n = 0; n < NH; ++n) {
             uint32_t b[4];
@@ -253,13 +323,23 @@ swiglu_fwd(const T* __restrict__ x, const T* __restrict__ w,
           }
         }
       } else {
-        const float* xf = reinterpret_cast<const float*>(xs);
         const float* wf = reinterpret_cast<const float*>(st);
         const float* vf = wf + DC * WLD;
 #pragma unroll
         for (int kc = 0; kc < DC / 8; ++kc) {
-          const float* xa = xf + xrow * XLD + jj * DC + kc * 8 + t;
-          const float af[4] = {xa[0], xa[8 * XLD], xa[4], xa[8 * XLD + 4]};
+          float af[4];
+          if constexpr (PANEL) {
+            const float* xa = reinterpret_cast<const float*>(xs) +
+                              xrow * PLDX + jj * DC + kc * 8 + t;
+            af[0] = xa[0], af[1] = xa[8 * PLDX], af[2] = xa[4],
+            af[3] = xa[8 * PLDX + 4];
+          } else {
+            const float* xa = reinterpret_cast<const float*>(st + XOFF) +
+                              xrow * XLD + kc * 8 + t;
+            const float g0 = gs[kc * 8 + t], g1 = gs[kc * 8 + t + 4];
+            af[0] = xa[0] * r0 * g0, af[1] = xa[8 * XLD] * r1 * g0;
+            af[2] = xa[4] * r0 * g1, af[3] = xa[8 * XLD + 4] * r1 * g1;
+          }
           uint32_t ah[4], al[4];
           split4(af, ah, al);
 #pragma unroll
@@ -370,12 +450,12 @@ swiglu_fwd(const T* __restrict__ x, const T* __restrict__ w,
   cl.sync();  // no rank leaves while another reads its partial
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool PANEL>
 int launch(const void* x, const void* w, const void* v, const void* u,
            const float* gamma, void* out, int M, int D, int K, int N,
            float eps, int cs, int kslice, cudaStream_t stream) {
-  auto kernel = swiglu_fwd<T, VEC>;
-  const int smem = smem_bytes<T>(D);
+  auto kernel = swiglu_fwd<T, VEC, PANEL>;
+  const int smem = smem_bytes<T, PANEL>(D);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -398,28 +478,43 @@ int launch(const void* x, const void* w, const void* v, const void* u,
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool PANEL>
+int by_vec(const void* x, const void* w, const void* v, const void* u,
+           const float* gamma, void* out, int M, int D, int K, int N,
+           float eps, int cs, int kslice, int vec, cudaStream_t stream) {
+  if (vec)
+    return launch<T, true, PANEL>(x, w, v, u, gamma, out, M, D, K, N, eps,
+                                  cs, kslice, stream);
+  return launch<T, false, PANEL>(x, w, v, u, gamma, out, M, D, K, N, eps, cs,
+                                 kslice, stream);
+}
+
 template <typename T>
 int dispatch(const void* x, const void* w, const void* v, const void* u,
              const float* gamma, void* out, int M, int D, int K, int N,
-             float eps, int cs, int kslice, int vec, cudaStream_t stream) {
-  if (vec)
-    return launch<T, true>(x, w, v, u, gamma, out, M, D, K, N, eps, cs,
-                           kslice, stream);
-  return launch<T, false>(x, w, v, u, gamma, out, M, D, K, N, eps, cs,
-                          kslice, stream);
+             float eps, int cs, int kslice, int vec, int panel,
+             cudaStream_t stream) {
+  if (panel)
+    return by_vec<T, true>(x, w, v, u, gamma, out, M, D, K, N, eps, cs,
+                           kslice, vec, stream);
+  return by_vec<T, false>(x, w, v, u, gamma, out, M, D, K, N, eps, cs,
+                          kslice, vec, stream);
 }
 
 }  // namespace
 
 // cs: ranks of the cluster over d_ff (1..8), kslice columns each (a
-// multiple of 64, cs * kslice >= K); vec: every row of x, w, v, u is a
-// multiple of 16 bytes and every pointer 16-byte aligned (cp.async copies).
+// multiple of 64, cs * kslice >= K); vec: every row of x, w, v, u and
+// gamma is a multiple of 16 bytes and every pointer, gamma's too, 16-byte
+// aligned (cp.async copies); panel: hold the normalised X panel in shared
+// memory (smem_bytes<T, true>(D) must fit) instead of streaming X.
 // Returns a cudaError_t code: 0 when the launch was accepted.
 extern "C" int rmsnorm_swiglu_fwd(const void* x, const void* w,
                                   const void* v, const void* u,
                                   const void* gamma, void* out, int M, int D,
                                   int K, int N, float eps, int bf16, int cs,
-                                  int kslice, int vec, void* stream) {
+                                  int kslice, int vec, int panel,
+                                  void* stream) {
   if (M < 1 || D < 1 || K < 1 || N < 1 || cs < 1 || cs > MAX_CS ||
       kslice < BKF || kslice % BKF != 0 || (long long)cs * kslice < K)
     return (int)cudaErrorInvalidValue;
@@ -427,7 +522,7 @@ extern "C" int rmsnorm_swiglu_fwd(const void* x, const void* w,
   const float* g = (const float*)gamma;
   if (bf16)
     return dispatch<__nv_bfloat16>(x, w, v, u, g, out, M, D, K, N, eps, cs,
-                                   kslice, vec, st);
+                                   kslice, vec, panel, st);
   return dispatch<float>(x, w, v, u, g, out, M, D, K, N, eps, cs, kslice,
-                         vec, st);
+                         vec, panel, st);
 }

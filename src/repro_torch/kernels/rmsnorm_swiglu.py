@@ -4,13 +4,17 @@
 The kernel is CUDA C++ written by hand, ``csrc/rmsnorm_swiglu.cu``, built
 by nvcc for ``sm_90a`` at first use.  Its three products run on the
 tensor cores (bfloat16 ``mma.sync``; float32 as 3xTF32).  A block owns
-``BM = 32`` rows: their RMS-normalised rows stay in shared memory, the
-d_ff axis is split over the ranks of a thread-block cluster
-(:func:`launch_shape`) and streamed in steps of ``BKF = 64`` through a
+``BM = 32`` rows and takes their RMS statistic in a pre-pass; the d_ff
+axis is split over the ranks of a thread-block cluster
+(:func:`launch_shape`) and walked in steps of ``BKF = 64`` through a
 ``cp.async`` ring, the h tile never leaves the chip, and each rank's
 partial output of up to ``BN = 576`` columns lives in registers until the
-ranks sum their partials in rank order.  A wider N is split across
-blocks, each recomputing h (the paper's N replication).
+ranks sum their partials in rank order.  The normalised rows stay in
+shared memory where they fit (D <= 864 in float32, 1728 in bfloat16: the
+faster layout at smollm-135m's widths); at any wider D each step streams
+X's columns beside W and V instead, so shared memory does not grow with
+D.  A wider N is split across blocks, each recomputing h (the paper's N
+replication).
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ SMEM_LIMIT = 232448          # bytes of shared memory a block may use
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CB.csrc_launcher(
     "rmsnorm_swiglu.cu", "rmsnorm_swiglu_fwd",
-    [_P] * 6 + [_I] * 4 + [ctypes.c_float] + [_I] * 4 + [_P])
+    [_P] * 6 + [_I] * 4 + [ctypes.c_float] + [_I] * 5 + [_P])
 
 
 class LaunchShape(NamedTuple):
@@ -45,6 +49,7 @@ class LaunchShape(NamedTuple):
     grid: tuple      # (cluster, row blocks, column blocks)
     threads: int
     smem: int        # dynamic shared memory of a block, bytes
+    panel: bool      # the normalised rows held in shared memory
 
     @property
     def blocks(self) -> int:
@@ -55,29 +60,38 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> int:
-    """Dynamic shared memory of one block: the normalised rows, the ring
-    and the h tile in the operand's type, or the rank's float32 partial
-    output if larger."""
+def smem_bytes(d: int, dtype: torch.dtype = torch.float32,
+               panel: bool = False) -> int:
+    """Dynamic shared memory of one block: the normalised rows (``panel``:
+    D rounded up to a chunk), the ring (a stage holds W and V chunks and,
+    streamed, an X chunk and gamma's DC float32 values; or a U chunk) and
+    the h tile in the operand's type and the rows' 1/rms; or the rank's
+    float32 partial output if larger.  Streamed, it does not depend on
+    D."""
     dc, ku = CHUNKS.get(dtype, CHUNKS[torch.float32])
     pad, esize = (8, 2) if dtype == torch.bfloat16 else (4, 4)
-    stage = max(2 * dc * (BKF + 8), ku * (BN + 8))
-    body = (BM * (_cdiv(d, dc) * dc + pad) + NSTAGE * stage
-            + BM * (BKF + pad)) * esize
+    wv = 2 * dc * (BKF + 8)
+    if not panel:
+        wv += BM * (dc + pad) + dc * 4 // esize
+    rows = BM * (_cdiv(d, dc) * dc + pad) if panel else 0
+    body = (rows + NSTAGE * max(wv, ku * (BN + 8)) + BM * (BKF + pad)
+            ) * esize + BM * 4
     return max(body, BM * (BN + 4) * 4)
 
 
 def launch_shape(m: int, d: int, k: int, n: int,
                  dtype: torch.dtype) -> LaunchShape:
     """The kernel's launch: as many d_ff ranks (up to 8, each at least one
-    64-column step) as keep the blocks within the 132 SMs."""
+    64-column step) as keep the blocks within the 132 SMs; the normalised
+    rows held in shared memory where they fit."""
     base = _cdiv(m, BM) * _cdiv(n, BN)
     steps = _cdiv(k, BKF)
     cluster = max(1, min(MAX_CLUSTER, steps, SMS // base))
     kslice = _cdiv(steps, cluster) * BKF
     cluster = _cdiv(k, kslice)           # no rank without columns
+    panel = smem_bytes(d, dtype, panel=True) <= SMEM_LIMIT
     return LaunchShape(cluster, kslice, (cluster, _cdiv(m, BM), _cdiv(n, BN)),
-                       THREADS, smem_bytes(d, dtype))
+                       THREADS, smem_bytes(d, dtype, panel), panel)
 
 
 def plain(x, w, v, u, gamma, *, eps: float = 1e-6, cluster: int = 1,
@@ -133,11 +147,12 @@ def rmsnorm_swiglu_cuda(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     g = gamma.float().contiguous()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     per16 = 16 // x.element_size()
-    vec = all(t.data_ptr() % 16 == 0 for t in (x, w, v, u)) and all(
+    vec = all(t.data_ptr() % 16 == 0 for t in (x, w, v, u, g)) and all(
         s % per16 == 0 for s in (d, k, n))
     with torch.cuda.device(x.device):
         KERNEL.launch(x.data_ptr(), w.data_ptr(), v.data_ptr(),
                       u.data_ptr(), g.data_ptr(), out.data_ptr(), m, d, k, n,
                       float(eps), DTYPE_CODES[x.dtype], shape.cluster,
-                      shape.kslice, int(vec), current_stream(x.device))
+                      shape.kslice, int(vec), int(shape.panel),
+                      current_stream(x.device))
     return out

@@ -32,6 +32,11 @@ import numpy as np
 import torch
 
 
+#: the families continuous batching serves: attention models, whose padded
+#: prefill is exact under causal masking (the reference's engine.py:42)
+SUPPORTED_FAMILIES = ("dense", "moe")
+
+
 # ---------------------------------------------------------------------------
 # trace
 # ---------------------------------------------------------------------------
@@ -150,7 +155,7 @@ class Engine:
                  seed: int = 0, record_logits: bool = False):
         from repro_torch.models import build_model
 
-        if cfg.family != "dense":
+        if cfg.family not in SUPPORTED_FAMILIES:
             raise ValueError(f"family {cfg.family!r} is not served by the "
                              "port yet")
         if sampling not in ("greedy", "categorical"):

@@ -15,9 +15,11 @@ Variants (the outputs of all but ``kernel`` are wrong by design):
 * ``one TF32 pass`` (float32): ``ah bh`` alone instead of 3xTF32, which
   reads the rate of one pass of TF32 products.
 
-RMSNorm+SwiGLU is also timed as one cluster of its M = 2048 launch (the
-first 32 rows, 2 blocks): if that takes as long as all 128 blocks, each
-SM's own chain of chunks, not a resource the SMs share, sets the time.
+RMSNorm+SwiGLU is also timed with X streamed instead of its normalised
+rows held in shared memory (the layout of every D wider than the panel
+fits), and as one cluster of its M = 2048 launch (the first 32 rows, 2
+blocks): if that takes as long as all 128 blocks, each SM's own chain of
+chunks, not a resource the SMs share, sets the time.
 LayerNorm+matmul is timed at path B's encoder and decoder shapes, with
 its own variants besides (``LN_VARIANTS``: no register cap, no output
 stores, no split pass over gamma * Y, deeper K steps, other ring depths),
@@ -140,13 +142,19 @@ def main() -> None:
             ms = time_ms(lambda: kern.launch(
                 x.data_ptr(), w.data_ptr(), v.data_ptr(), u.data_ptr(),
                 g.data_ptr(), out.data_ptr(), m, d, k, n, 1e-6, bf16,
-                shape.cluster, shape.kslice, 1, stream))
+                shape.cluster, shape.kslice, 1, 1, stream))
             print(f"rmsnorm_swiglu {dtype} (2048,576,1536,576) {name}: "
                   f"{ms:.4f} ms", flush=True)
         ms = time_ms(lambda: SW.KERNEL.launch(
             x.data_ptr(), w.data_ptr(), v.data_ptr(), u.data_ptr(),
+            g.data_ptr(), out.data_ptr(), m, d, k, n, 1e-6, bf16,
+            shape.cluster, shape.kslice, 1, 0, stream))
+        print(f"rmsnorm_swiglu {dtype} (2048,576,1536,576) X streamed, not "
+              f"held in shared memory: {ms:.4f} ms", flush=True)
+        ms = time_ms(lambda: SW.KERNEL.launch(
+            x.data_ptr(), w.data_ptr(), v.data_ptr(), u.data_ptr(),
             g.data_ptr(), out.data_ptr(), SW.BM, d, k, n, 1e-6, bf16,
-            shape.cluster, shape.kslice, 1, stream))
+            shape.cluster, shape.kslice, 1, 1, stream))
         print(f"rmsnorm_swiglu {dtype} one cluster of that launch "
               f"({shape.cluster} blocks, {SW.BM} rows): {ms:.4f} ms",
               flush=True)

@@ -1,16 +1,19 @@
 """Where a serving decode step spends its time on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
-        --steps 5 --json chiprun_out/profile_decode.json
+        --arch llama3.2-1b --steps 5 --json profile_decode.json
 
-Builds the serving engine at the full width of smollm-135m (seeded random
-weights, the ``cuda`` backend), fills every slot with a prefilled prompt,
+Builds the serving engine at the full width of ``--arch`` (smollm-135m by
+default; ``--n-layers`` cuts the depth; seeded random weights, the
+``cuda`` backend), fills every slot with a prefilled prompt,
 then runs ``--steps`` ragged decode steps:
 
 * each step on the host clock, ending in ``torch.cuda.synchronize()``;
-* the same steps under ``torch.profiler``: device time by kernel name
-  (the emitted kernels are named ``emit_region_<gid>`` and
-  ``emit_group_<gid>``), and the device's busy share of the window's
+* the same steps under ``torch.profiler``, after a lead-in step and a
+  pause (the profiler can miss the first kernels of a session on the
+  card; :func:`bursts` keeps the timed steps' kernels): device time by
+  kernel name (the emitted kernels are named ``emit_region_<gid>`` and
+  ``emit_group_<gid>``), and the device's busy share of the timed steps'
   wall time (its idle share is the rest);
 * the step's bound: the larger of its bytes (every weight, the attended
   cache rows and the logits, once) over 3.35 TB/s and its operations over
@@ -49,6 +52,19 @@ def _tensors(tree):
     else:
         for v in tree:
             yield from _tensors(v)
+
+
+def bursts(events, gap_us: float):
+    """The device events of a profile (``(start, end, name)``, in
+    microseconds on the card's clock) split into bursts wherever the card
+    sat idle for more than ``gap_us``, in time order."""
+    out, last_end = [], float("-inf")
+    for start, end, name in sorted(events):
+        if start - last_end > gap_us:
+            out.append([])
+        out[-1].append((start, end, name))
+        last_end = max(last_end, end)
+    return out
 
 
 def _busy_us(intervals) -> float:
@@ -94,25 +110,29 @@ def profile_decode(engine, steps: int = 5, prompt_len: int = 20) -> dict:
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    pause_s = 0.2            # far longer than any idle gap inside a step
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(0)              # the lead-in, told apart by the pause
+        torch.cuda.synchronize()
+        time.sleep(pause_s)
         t0 = time.perf_counter()
         for i in range(steps):
             step(i)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
+    timed = bursts([(ev.time_range.start, ev.time_range.end, ev.name)
+                    for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA],
+                   pause_s * 1e6 / 2)[-1]
     by_name, intervals = {}, []
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+    for start, end, name in timed:
+        if end <= start:
             continue
-        dur = ev.time_range.end - ev.time_range.start
-        if dur <= 0:
-            continue
-        name = ev.name if len(ev.name) <= 96 else ev.name[:93] + "..."
-        by_name[name] = by_name.get(name, 0.0) + dur
-        intervals.append((ev.time_range.start, ev.time_range.end))
+        name = name if len(name) <= 96 else name[:93] + "..."
+        by_name[name] = by_name.get(name, 0.0) + end - start
+        intervals.append((start, end))
     busy = _busy_us(intervals)
     per_step = {k: v / steps / 1e3 for k, v in
                 sorted(by_name.items(), key=lambda kv: -kv[1])}
@@ -145,6 +165,7 @@ def main(argv=None) -> dict:
     from repro_torch.launch import serve as S
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--n-layers", type=int, default=None)
     ap.add_argument("--prompt-len", type=int, default=20)
@@ -154,7 +175,8 @@ def main(argv=None) -> dict:
         print("profile_decode: needs a CUDA card", file=sys.stderr)
         sys.exit(1)
 
-    engine = S.build_engine(S.ServeConfig(n_layers=args.n_layers, seed=0))
+    engine = S.build_engine(S.ServeConfig(arch=args.arch,
+                                          n_layers=args.n_layers, seed=0))
     engine.warmup()
     out = profile_decode(engine, args.steps, args.prompt_len)
     print(json.dumps(out, indent=1))

@@ -7,10 +7,15 @@ Programmatic API::
     report = run(ServeConfig(arch="smollm-135m", n_requests=8))
 
 On the card the defaults serve the full-width model through the emitted
-CUDA kernels (``backend="cuda"``, ``device="cuda"``).  The CLI::
+CUDA kernels (``backend="cuda"``, ``device="cuda"``).  ``arch`` is any
+dense or MoE architecture of ``repro_torch.configs`` (smollm-135m,
+llama3.2-1b, qwen2-7b, qwen3-32b, qwen3-moe-30b-a3b); ``n_layers`` cuts
+the depth, never a width.  The CLI::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --n-requests 8 \\
-        --json report.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+        --n-requests 8 --json report.json
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-moe-30b-a3b --reduced --n-layers 2 --device cpu
 """
 
 from __future__ import annotations
@@ -23,7 +28,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.launch.engine import Engine, ServeReport, synth_trace
+from repro_torch import configs
+from repro_torch.launch.engine import (SUPPORTED_FAMILIES, Engine,
+                                       ServeReport, synth_trace)
 
 
 @dataclass(frozen=True)
@@ -55,8 +62,6 @@ class ServeConfig:
 
 def model_config(cfg: ServeConfig):
     """The model configuration a serving run uses."""
-    from repro_torch import configs
-
     mc = (configs.get_reduced_config(cfg.arch) if cfg.reduced
           else configs.get_config(cfg.arch))
     mc = dataclasses.replace(mc, dtype=getattr(torch, cfg.dtype))
@@ -94,7 +99,9 @@ def run(cfg: ServeConfig, params=None) -> ServeReport:
 def main(argv=None) -> ServeReport:
     ap = argparse.ArgumentParser(
         description="continuous-batching serving on emitted CUDA kernels")
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m",
+                    choices=sorted(n for n, c in configs.ARCHS.items()
+                                   if c.family in SUPPORTED_FAMILIES))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--n-layers", type=int, default=None)
     ap.add_argument("--backend", default="cuda",

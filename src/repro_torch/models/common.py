@@ -22,7 +22,7 @@ import torch
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"       # dense | encdec (the families ported)
+    family: str = "dense"       # dense | moe | encdec (the families ported)
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -32,8 +32,17 @@ class ModelConfig:
     vocab: int = 1024
     max_seq: int = 8192
     rope_theta: float = 10000.0
+    qkv_bias: bool = False       # qwen2
+    qk_norm: bool = False        # qwen3
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    n_dense_layers: int = 0      # leading dense (SwiGLU) layers
+    capacity_factor: float = 1.25
     # --- enc-dec (whisper) ---
     n_enc_layers: int = 0
     enc_seq: int = 1500
@@ -42,6 +51,11 @@ class ModelConfig:
     attn_impl: str = "ref"       # ref | chunked | cuda | pipeline
     mlp_impl: str = "unfused"    # unfused | fused_ref | cuda | pipeline
     pipeline_backend: str = "torch"  # py | torch | cuda (the pipeline impls)
+
+    def is_moe_layer(self, i: int) -> bool:
+        """Layer ``i``'s MLP is the MoE (the reference's ``moe_period`` is
+        1 for every ported config)."""
+        return self.n_experts > 0 and i >= self.n_dense_layers
 
 
 def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
@@ -57,6 +71,12 @@ def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
         d_ff=256,
         vocab=512,
         max_seq=256,
+        n_experts=min(cfg.n_experts, 4),
+        top_k=min(cfg.top_k, 2),
+        capacity_factor=8.0,  # no drops at smoke-test scale (exactness)
+        moe_d_ff=64 if cfg.n_experts else 0,
+        n_shared_experts=min(cfg.n_shared_experts, 1),
+        n_dense_layers=min(cfg.n_dense_layers, 1),
         n_enc_layers=min(cfg.n_enc_layers, 2),
         enc_seq=64 if cfg.n_enc_layers else 0,
         dtype=torch.float32,
@@ -126,27 +146,55 @@ class ParamBuilder:
 
 
 def init_attention(pb: ParamBuilder, cfg: ModelConfig):
-    """The q/k/v/o projections."""
+    """The q/k/v/o projections, with qwen2's q/k/v biases (zeros) and
+    qwen3's per-head q/k RMSNorm gains (ones) where the config has them."""
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    return {"wq": pb.dense((d, h * dh)), "wk": pb.dense((d, hkv * dh)),
-            "wv": pb.dense((d, hkv * dh)), "wo": pb.dense((h * dh, d))}
+    p = {"wq": pb.dense((d, h * dh)), "wk": pb.dense((d, hkv * dh)),
+         "wv": pb.dense((d, hkv * dh)), "wo": pb.dense((h * dh, d))}
+    if cfg.qkv_bias:
+        p.update(bq=pb.zeros((h * dh,)), bk=pb.zeros((hkv * dh,)),
+                 bv=pb.zeros((hkv * dh,)))
+    if cfg.qk_norm:
+        p.update(q_norm=pb.ones((dh,)), k_norm=pb.ones((dh,)))
+    return p
+
+
+def init_swiglu(pb: ParamBuilder, cfg: ModelConfig, d_ff: int,
+                prefix: str = ""):
+    d = cfg.d_model
+    return {prefix + "w_gate": pb.dense((d, d_ff)),
+            prefix + "w_up": pb.dense((d, d_ff)),
+            prefix + "w_down": pb.dense((d_ff, d))}
+
+
+def init_moe(pb: ParamBuilder, cfg: ModelConfig):
+    """The router (scale 0.02), the experts' stacked SwiGLU weights
+    (``we_gate``/``we_up`` (E, d, f), ``we_down`` (E, f, d)) and the
+    shared experts' ``shared_*`` SwiGLU, as the reference's ``init_moe``
+    draws them (fan-in is the leading dim, as there)."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    p = {"router": pb.dense((d, e), scale=0.02),
+         "we_gate": pb.dense((e, d, f)), "we_up": pb.dense((e, d, f)),
+         "we_down": pb.dense((e, f, d))}
+    if cfg.n_shared_experts:
+        p.update(init_swiglu(pb, cfg, f * cfg.n_shared_experts, "shared_"))
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
-    """Random dense-LM weights from a seeded numpy generator, with the
+    """Random LM weights from a seeded numpy generator, with the
     reference's shapes and scales, in the layout ``models/lm.py``
-    describes."""
+    describes: a SwiGLU MLP, or the MoE where ``cfg.is_moe_layer``."""
     pb = ParamBuilder(np.random.default_rng(seed), cfg.dtype, device)
     d = cfg.d_model
     params = {"embed": pb.dense((cfg.vocab, d), scale=0.02), "layers": []}
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         params["layers"].append({
             "ln1": pb.ones((d,)),
             "mixer": init_attention(pb, cfg),
             "ln2": pb.ones((d,)),
-            "mlp": {"w_gate": pb.dense((d, cfg.d_ff)),
-                    "w_up": pb.dense((d, cfg.d_ff)),
-                    "w_down": pb.dense((cfg.d_ff, d))},
+            "mlp": (init_moe(pb, cfg) if cfg.is_moe_layer(i)
+                    else init_swiglu(pb, cfg, cfg.d_ff)),
         })
     params["ln_f"] = pb.ones((d,))
     if not cfg.tie_embeddings:

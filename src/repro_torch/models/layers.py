@@ -1,5 +1,5 @@
-"""Attention and RMSNorm+SwiGLU layers of the torch port: the port of the
-dense-model part of ``repro.models.layers``.
+"""Attention, RMSNorm+SwiGLU and MoE layers of the torch port: the port of
+the dense and MoE parts of ``repro.models.layers``.
 
 ``cfg.attn_impl`` / ``cfg.mlp_impl`` pick the implementation:
 
@@ -13,18 +13,23 @@ dense-model part of ``repro.models.layers``.
   and ``"fused_ref"`` (MLP) run their plain versions there, ``"ref"`` the
   plain attention oracle, ``"unfused"`` the MLP op by op.
 
-The projections, ``wo`` and the head stay ``torch.matmul``: none of them
-is inside a Pallas kernel in the reference either.
+The projections, ``wo``, the head and the MoE experts stay
+``torch.matmul``: none of them is inside a Pallas kernel in the reference
+either (its unsharded ``moe_apply`` runs ``einsum`` outside any kernel).
 """
 
 from __future__ import annotations
 
 import functools
+import math
+import weakref
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as K
+from repro_torch.kernels import ref as R
 from repro_torch.models.common import ModelConfig, apply_rope, rms_norm
 
 
@@ -120,21 +125,50 @@ def _attention_pipeline(q, k, v, scale: float, cfg: ModelConfig, *,
     return o.reshape(b, hq, sq, dv).to(q.dtype)
 
 
+def fold_swiglu_weights(wg, wu, wd, gamma):
+    """The SwiGLU program's weight inputs: ``(diag(g) Wg)^T``, ``(diag(g)
+    Wu)^T`` and ``Wd^T``, float32 and contiguous."""
+    f32 = torch.float32
+    gf = gamma.to(f32)[:, None]
+    return ((gf * wg.to(f32)).T.contiguous(),
+            (gf * wu.to(f32)).T.contiguous(), wd.to(f32).T.contiguous())
+
+
+#: folded SwiGLU weights by the ids of (wg, wu, wd, gamma): weak references
+#: to the four (an entry leaves when one of them is freed), their
+#: ``_version``s (a weight changed in place is folded again), the folds
+_FOLDED: Dict[tuple, tuple] = {}
+
+
+def folded_swiglu_weights(wg, wu, wd, gamma):
+    """:func:`fold_swiglu_weights`, computed once per weight set."""
+    src = (wg, wu, wd, gamma)
+    key = tuple(id(t) for t in src)
+    versions = tuple(t._version for t in src)
+    hit = _FOLDED.get(key)
+    if hit is not None and hit[1] == versions and all(
+            r() is t for r, t in zip(hit[0], src)):
+        return hit[2]
+    folded = fold_swiglu_weights(*src)
+    refs = tuple(weakref.ref(t, lambda _, k=key: _FOLDED.pop(k, None))
+                 for t in src)
+    _FOLDED[key] = (refs, versions, folded)
+    return folded
+
+
 def _swiglu_pipeline(x2, wg, wu, wd, gamma, cfg: ModelConfig
                      ) -> torch.Tensor:
     """RMSNorm+FFN-SwiGLU through the fused pipeline.  The norm gain is
     folded into W/V columns (RMS(x)*g @ W == RMS(x) @ diag(g)W), so the
-    paper's gain-free Example-3 program applies unchanged."""
+    paper's gain-free Example-3 program applies unchanged; the folded
+    weights are made once per weight set (:func:`folded_swiglu_weights`)."""
     t, d = x2.shape
     d_ff = wg.shape[1]
     kern = swiglu_kernel(t, d, d_ff, float(cfg.norm_eps),
                          _pipeline_options(cfg))
-    f32 = torch.float32
-    gf = gamma.to(f32)[:, None]
-    out = kern({"X": x2.to(f32).contiguous(),
-                "WT": (gf * wg.to(f32)).T.contiguous(),
-                "VT": (gf * wu.to(f32)).T.contiguous(),
-                "UT": wd.to(f32).T.contiguous()})["O"]
+    wt, vt, ut = folded_swiglu_weights(wg, wu, wd, gamma)
+    out = kern({"X": x2.to(torch.float32).contiguous(), "WT": wt, "VT": vt,
+                "UT": ut})["O"]
     return out.to(x2.dtype)
 
 
@@ -151,12 +185,20 @@ def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset=0):
 
 
 def qkv(p, x, cfg: ModelConfig, positions):
+    """q, k, v of shape (b, heads, s, d_head): the projections, qwen2's
+    biases, qwen3's per-head RMSNorm of q and k, then RoPE (the
+    reference's ``_qkv`` order)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, h, dh).transpose(1, 2)
     k = k.reshape(b, s, hkv, dh).transpose(1, 2)
     v = v.reshape(b, s, hkv, dh).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -248,6 +290,92 @@ def rmsnorm_swiglu_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
     return out.reshape(b, s, d)
 
 
+# ---------------------------------------------------------------------------
+# MoE (qwen3-moe): top-k routing with capacity, scatter dispatch into
+# per-expert buffers, the experts' SwiGLU as batched products
+# ---------------------------------------------------------------------------
+
+def _route(xn, p, cfg: ModelConfig):
+    """Router softmax in float32, top-k, renormalised weights."""
+    probs = torch.softmax(xn.float() @ p["router"].float(), -1)
+    top_w, top_ids = torch.topk(probs, cfg.top_k)     # sorted, descending
+    return top_w / top_w.sum(-1, keepdim=True), top_ids
+
+
+def _shared_experts(p, xn):
+    return (R.swish(xn @ p["shared_w_gate"]) * (xn @ p["shared_w_up"])
+            ) @ p["shared_w_down"]
+
+
+def moe_capacity(t: int, cfg: ModelConfig) -> int:
+    """Slots an expert has for ``t`` tokens."""
+    return int(min(t, max(1, math.ceil(t * cfg.top_k * cfg.capacity_factor
+                                       / cfg.n_experts))))
+
+
+def moe_dispatch(top_ids, capacity: int, n_experts: int):
+    """``(keep, slot)`` of each (token, k) assignment: its position among
+    the expert's earlier assignments in the flattened (token, k) order
+    (a prefix count) is its slot, kept while below ``capacity``; a dropped
+    one points at the expert's last slot."""
+    t, k = top_ids.shape
+    flat = F.one_hot(top_ids.reshape(-1), n_experts)      # (T k, E)
+    pos = ((flat.cumsum(0) - flat) * flat).sum(-1).reshape(t, k)
+    return pos < capacity, top_ids * capacity + pos.clamp(max=capacity - 1)
+
+
+def moe_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d).  RMSNorm -> router -> top-k experts (+ shared): the
+    reference's unsharded ``moe_apply``.  Each expert takes at most
+    :func:`moe_capacity` of the T = B S tokens (:func:`moe_dispatch`); a
+    dropped assignment scatters zeros and gets weight 0.  Padding tokens
+    and free decode slots route like any other, as in the reference."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    xn = rms_norm(x, gamma, cfg.norm_eps).reshape(t, d)
+    top_w, top_ids = _route(xn, p, cfg)
+    capacity = moe_capacity(t, cfg)
+    keep, slot = moe_dispatch(top_ids, capacity, e)
+    slot = slot.reshape(-1)
+    updates = xn.repeat_interleave(k, 0) * keep.reshape(-1, 1).to(xn.dtype)
+    buf = torch.zeros(e * capacity, d, dtype=xn.dtype, device=x.device)
+    buf.index_add_(0, slot, updates)   # kept slots are distinct: exact
+    eb = buf.reshape(e, capacity, d)
+    h = R.swish(torch.bmm(eb, p["we_gate"])) * torch.bmm(eb, p["we_up"])
+    eo = torch.bmm(h, p["we_down"]).reshape(e * capacity, d)
+    routed = eo[slot].reshape(t, k, d)
+    w = (top_w * keep).to(routed.dtype)
+    out = torch.einsum("tkd,tk->td", routed, w)
+    if cfg.n_shared_experts:
+        out = out + _shared_experts(p, xn)
+    return out.reshape(b, s, d).to(x.dtype)
+
+
+def moe_ref(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
+    """Dense per-expert loop oracle (tests only; no capacity drops)."""
+    b, s, d = x.shape
+    xn = rms_norm(x, gamma, cfg.norm_eps).reshape(b * s, d)
+    top_w, top_ids = _route(xn, p, cfg)
+    out = torch.zeros_like(xn)
+    for e_i in range(cfg.n_experts):
+        he = R.swish(xn @ p["we_gate"][e_i]) * (xn @ p["we_up"][e_i])
+        oe = he @ p["we_down"][e_i]
+        wsel = torch.where(top_ids == e_i, top_w, 0.0).sum(-1)
+        out = out + oe * wsel[:, None].to(oe.dtype)
+    if cfg.n_shared_experts:
+        out = out + _shared_experts(p, xn)
+    return out.reshape(b, s, d).to(x.dtype)
+
+
+def mlp_apply(p, x, gamma, cfg: ModelConfig, layer: int) -> torch.Tensor:
+    """Layer ``layer``'s MLP on the residual stream ``x``: the MoE where
+    ``cfg.is_moe_layer(layer)``, else RMSNorm+SwiGLU."""
+    if cfg.is_moe_layer(layer):
+        return moe_apply(p, x, gamma, cfg)
+    return rmsnorm_swiglu_apply(p, x, gamma, cfg)
+
+
 def pipeline_kernels(cfg: ModelConfig, *, prefill_lens=(),
                      decode_batch: Optional[int] = None,
                      max_len: Optional[int] = None) -> Dict[str, object]:
@@ -260,7 +388,8 @@ def pipeline_kernels(cfg: ModelConfig, *, prefill_lens=(),
     group = cfg.n_heads // cfg.n_kv_heads
     dh, d, eps = cfg.d_head, cfg.d_model, float(cfg.norm_eps)
     attn = cfg.attn_impl == "pipeline"
-    mlp = cfg.mlp_impl == "pipeline"
+    mlp = cfg.mlp_impl == "pipeline" and not all(
+        cfg.is_moe_layer(i) for i in range(cfg.n_layers))
     out: Dict[str, object] = {}
     for s in prefill_lens:
         if attn:

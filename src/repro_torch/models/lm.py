@@ -1,13 +1,18 @@
-"""Decoder-only LM of the torch port (``family="dense"``): the port of
-``repro.models.lm``.
+"""Decoder-only LM of the torch port (``family`` ``"dense"`` or ``"moe"``):
+the port of ``repro.models.lm``.
 
 Parameters are a dict: ``embed`` (vocab, d), ``ln_f`` (d,), ``head``
 (d, vocab) when embeddings are untied, and ``layers``, one dict per layer
-with ``ln1``, ``mixer`` (``wq``/``wk``/``wv``/``wo``), ``ln2`` and ``mlp``
-(``w_gate``/``w_up``/``w_down``).  The reference stacks layers on a
-leading axis and scans them; the port loops over the list.  The KV cache
-is ``{"k", "v"}`` of shape (n_layers, batch, kv heads, max_len, d_head),
-updated in place by :meth:`LM.decode_step`.
+with ``ln1``, ``mixer`` (``wq``/``wk``/``wv``/``wo``, plus ``bq``/``bk``/
+``bv`` with ``qkv_bias`` and ``q_norm``/``k_norm`` with ``qk_norm``),
+``ln2`` and ``mlp``: ``w_gate``/``w_up``/``w_down`` for a SwiGLU layer,
+``router``/``we_gate``/``we_up``/``we_down`` (and ``shared_*``) for an MoE
+layer.  As in the reference's ``plan_stages``, an MoE model has
+``n_dense_layers`` SwiGLU layers, then MoE layers
+(``ModelConfig.is_moe_layer``).  The reference stacks each stage's
+layers on a leading axis and scans them; the port loops over the list.
+The KV cache is ``{"k", "v"}`` of shape (n_layers, batch, kv heads,
+max_len, d_head), updated in place by :meth:`LM.decode_step`.
 
 With ``attn_impl="cuda"`` and ``mlp_impl="cuda"`` the forward pass and
 prefill run the paper's hand-written kernels (``kernels/ops.py``), as the
@@ -29,7 +34,7 @@ from repro_torch.models.common import ModelConfig, init_params, rms_norm
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise ValueError(f"family {cfg.family!r} is not ported yet")
         self.cfg = cfg
 
@@ -41,27 +46,28 @@ class LM:
 
     def from_jax_params(self, tree, device="cuda") -> Dict[str, Any]:
         """The port's parameters from the reference's ``LM.init_params``
-        tree (arrays converted to numpy; ``stage0/sub0/...`` stacked on a
-        leading layer axis, reference lm.py:166-186)."""
+        tree (arrays converted to numpy; each ``stageN/sub0/...`` stacked
+        on a leading layer axis, the stages in layer order, reference
+        lm.py:166-186)."""
         dtype = self.cfg.dtype
 
         def t(a):
             return torch.from_numpy(np.array(a, dtype=np.float32)).to(
                 device=device, dtype=dtype)
 
-        stack = tree["stage0"]["sub0"]
+        def layer(stack, i):
+            return {name: ({k: t(a[i]) for k, a in sub.items()}
+                           if isinstance(sub, dict) else t(sub[i]))
+                    for name, sub in stack.items()}
 
-        def layer(i):
-            return {
-                "ln1": t(stack["ln1"][i]),
-                "mixer": {k: t(a[i]) for k, a in stack["mixer"].items()},
-                "ln2": t(stack["ln2"][i]),
-                "mlp": {k: t(stack["mlp"][k][i])
-                        for k in ("w_gate", "w_up", "w_down")},
-            }
-
-        params = {"embed": t(tree["embed"]),
-                  "layers": [layer(i) for i in range(self.cfg.n_layers)],
+        layers = []
+        for si in sorted(int(k[5:]) for k in tree if k.startswith("stage")):
+            stack = tree[f"stage{si}"]["sub0"]
+            layers += [layer(stack, i) for i in range(len(stack["ln1"]))]
+        if len(layers) != self.cfg.n_layers:
+            raise ValueError(f"the tree holds {len(layers)} layers, the "
+                             f"config {self.cfg.n_layers}")
+        params = {"embed": t(tree["embed"]), "layers": layers,
                   "ln_f": t(tree["ln_f"])}
         if "head" in tree:
             params["head"] = t(tree["head"])
@@ -80,11 +86,11 @@ class LM:
     def forward(self, params, tokens) -> torch.Tensor:
         cfg = self.cfg
         x = self._embed(params, tokens)
-        for p in params["layers"]:
+        for i, p in enumerate(params["layers"]):
             x = x + L.attention_apply(p["mixer"],
                                       rms_norm(x, p["ln1"], cfg.norm_eps),
                                       cfg, causal=True)
-            x = x + L.rmsnorm_swiglu_apply(p["mlp"], x, p["ln2"], cfg)
+            x = x + L.mlp_apply(p["mlp"], x, p["ln2"], cfg, i)
         return self._logits(params, x)
 
     # -- caches ---------------------------------------------------------------
@@ -105,7 +111,7 @@ class LM:
         pos = (torch.arange(s, device=x.device) if cfg.rope_theta > 0
                else None)
         ks, vs = [], []
-        for p in params["layers"]:
+        for i, p in enumerate(params["layers"]):
             xn = rms_norm(x, p["ln1"], cfg.norm_eps)
             q, k, v = L.qkv(p["mixer"], xn, cfg, pos)
             y = L._attend(q, k, v, cfg, causal=True)
@@ -114,7 +120,7 @@ class LM:
             pad = (0, 0, 0, max_len - s)
             ks.append(torch.nn.functional.pad(k, pad).to(cfg.dtype))
             vs.append(torch.nn.functional.pad(v, pad).to(cfg.dtype))
-            x = x + L.rmsnorm_swiglu_apply(p["mlp"], x, p["ln2"], cfg)
+            x = x + L.mlp_apply(p["mlp"], x, p["ln2"], cfg, i)
         return self._logits(params, x), {"k": torch.stack(ks),
                                          "v": torch.stack(vs)}
 
@@ -130,7 +136,7 @@ class LM:
                 p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps), cache, pos,
                 cfg)
             x = x + y
-            x = x + L.rmsnorm_swiglu_apply(p["mlp"], x, p["ln2"], cfg)
+            x = x + L.mlp_apply(p["mlp"], x, p["ln2"], cfg, i)
         return self._logits(params, x), caches
 
 

@@ -67,3 +67,16 @@ def test_boundary_covers_the_hand_kernel_path():
               "repro_torch.kernels.layernorm_matmul",
               "repro_torch.models.encdec", "repro_torch.configs.whisper_tiny"):
         assert m in mods, m
+
+
+def test_boundary_covers_the_dense_and_moe_zoo():
+    """The new configurations and the MoE layer are among the modules
+    whose import must leave JAX out, and they import nothing of it."""
+    mods = _modules()
+    for m in ("repro_torch.configs.llama3_2_1b", "repro_torch.configs.qwen2_7b",
+              "repro_torch.configs.qwen3_32b",
+              "repro_torch.configs.qwen3_moe_30b_a3b",
+              "repro_torch.models.layers", "repro_torch.models.lm"):
+        assert m in mods, m
+    from repro_torch.models import layers
+    assert callable(layers.moe_apply) and callable(layers.moe_ref)

@@ -110,7 +110,17 @@ def test_layernorm_matmul_on_card(card, m, k, n, dtype):
                                      # M not a multiple of 32, D of 16, K
                                      # of 64; N > 1024 at path width
                                      (100, 200, 300, 96),
-                                     (33, 576, 1536, 1300)])
+                                     (33, 576, 1536, 1300),
+                                     # the widths of llama3.2-1b, qwen2-7b
+                                     # and qwen3-32b (X streamed, not held
+                                     # whole); D 2050 not a multiple of 16
+                                     # bytes at width
+                                     (256, 2048, 8192, 2048),
+                                     (256, 3584, 18944, 3584),
+                                     (33, 5120, 300, 1300),
+                                     (40, 2050, 130, 600),
+                                     # float32 streamed, bfloat16 the panel
+                                     (64, 1536, 256, 600)])
 def test_rmsnorm_swiglu_on_card(card, m, d, k, n, dtype):
     gen = torch.Generator(device=card).manual_seed(2)
     x = _randn(gen, card, m, d, dtype=dtype)
@@ -155,8 +165,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         FA.flash_attention_cuda(odd, odd, odd)
     with pytest.raises(ValueError, match="inputs on"):
         FA.flash_attention_cuda(q, q.cpu(), q)
+    # any D fits in shared memory now; mixed operand types do not launch
     x = torch.zeros(4, 4000, device=card)
     w = torch.zeros(4000, 8, device=card)
-    with pytest.raises(ValueError, match="shared"):
-        SW.rmsnorm_swiglu_cuda(x, w, w, torch.zeros(8, 4, device=card),
+    with pytest.raises(ValueError, match="dtypes"):
+        SW.rmsnorm_swiglu_cuda(x, w.bfloat16(), w,
+                               torch.zeros(8, 4, device=card),
                                torch.ones(4000, device=card))

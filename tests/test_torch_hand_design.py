@@ -117,6 +117,38 @@ def test_split_swiglu_plain_matches_reference(cluster, kslice):
                                rtol=SWIGLU_TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [576, 864, 2048, 3584, 5120])
+def test_swiglu_shared_memory_fits_at_every_model_width(d, dtype):
+    """The normalised rows stay on chip where they fit (smollm-135m, the
+    float32 cap); wider, X is streamed and a block's shared memory does
+    not grow with D (llama3.2-1b, qwen2-7b, qwen3-32b)."""
+    shape = SW.launch_shape(2048, d, 4 * d, d, dtype)
+    assert shape.smem <= SW.SMEM_LIMIT
+    assert shape.panel == (d <= (864 if dtype == torch.float32 else 1728))
+    if not shape.panel:
+        assert shape.smem == SW.smem_bytes(10 ** 6, dtype)
+
+
+def test_swiglu_plain_with_the_kernel_split_matches_reference_at_d2048():
+    """llama3.2-1b's widths (D 2048, d_ff 8192, N 2048) on 64 rows: the
+    launch splits d_ff over 8 ranks, and the split plain version is the
+    reference's ``rmsnorm_swiglu(impl="ref")``."""
+    m, d, k, n = 64, 2048, 8192, 2048
+    x, w, v, u, g = _normal(13, (m, d), (d, k), (d, k), (k, n), (d,),
+                            scales=[1.0, d ** -0.5, d ** -0.5, k ** -0.5,
+                                    0.1])
+    g = g + 1.0
+    shape = SW.launch_shape(m, d, k, n, torch.float32)
+    assert shape.cluster == 8
+    want = JK.rmsnorm_swiglu(*(jnp.asarray(a) for a in (x, w, v, u, g)),
+                             impl="ref")
+    got = SW.plain(*(torch.from_numpy(a) for a in (x, w, v, u, g)),
+                   cluster=shape.cluster, kslice=shape.kslice)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=SWIGLU_TOL, rtol=SWIGLU_TOL)
+
+
 @functools.lru_cache(maxsize=None)
 def _ln_case():
     m, k, n = 40, 256, 48

@@ -226,3 +226,44 @@ def test_chunked_impls_match_reference(ref_model):
     want = np.asarray(jm.forward(jp, jnp.asarray(toks, jnp.int32)))
     got = tm.forward(tp, torch.from_numpy(toks)).numpy()
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def test_swiglu_weights_fold_once_per_weight_set():
+    """``_swiglu_pipeline`` folds the gain into W/V and transposes W/V/U
+    once per weight set: a second call reuses the folds, its output equals
+    the output on freshly folded weights, and a weight changed in place
+    (its ``_version``) or a new gain is folded again."""
+    cfg = TC.with_pipeline(TC.get_reduced_config("smollm-135m"),
+                           backend="torch")
+    pb = TCM.ParamBuilder(np.random.default_rng(2), torch.float32, "cpu")
+    d, f = cfg.d_model, cfg.d_ff
+    wg, wu, wd = pb.dense((d, f)), pb.dense((d, f)), pb.dense((f, d))
+    gamma = 1.0 + 0.1 * pb.dense((d,), scale=1.0)
+    x = pb.dense((6, d), scale=1.0)
+
+    def fresh():
+        kern = TL.swiglu_kernel(6, d, f, float(cfg.norm_eps),
+                                TL._pipeline_options(cfg))
+        wt, vt, ut = TL.fold_swiglu_weights(wg, wu, wd, gamma)
+        return kern({"X": x, "WT": wt, "VT": vt, "UT": ut})["O"]
+
+    first = TL._swiglu_pipeline(x, wg, wu, wd, gamma, cfg)
+    folds = TL.folded_swiglu_weights(wg, wu, wd, gamma)
+    assert all(a is b for a, b in zip(
+        folds, TL.folded_swiglu_weights(wg, wu, wd, gamma)))
+    torch.testing.assert_close(TL._swiglu_pipeline(x, wg, wu, wd, gamma,
+                                                   cfg), first)
+    torch.testing.assert_close(first, fresh(), rtol=0, atol=0)
+    wg.mul_(2.0)                       # in place: a new _version
+    again = TL._swiglu_pipeline(x, wg, wu, wd, gamma, cfg)
+    assert TL.folded_swiglu_weights(wg, wu, wd, gamma)[0] is not folds[0]
+    torch.testing.assert_close(again, fresh(), rtol=0, atol=0)
+    assert not torch.allclose(again, first)
+    gamma = gamma * 0.5                # a new gain tensor
+    torch.testing.assert_close(
+        TL._swiglu_pipeline(x, wg, wu, wd, gamma, cfg), fresh(), rtol=0,
+        atol=0)
+    key = (id(wg), id(wu), id(wd), id(gamma))
+    assert key in TL._FOLDED
+    del gamma                          # a freed weight leaves the cache
+    assert key not in TL._FOLDED
