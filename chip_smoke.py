@@ -5,16 +5,22 @@
 Phases (any failure exits nonzero; nothing falls back to the CPU):
 
 1. the card: its name and power limit, as ``nvidia-smi`` reports them;
+   a fresh kernel-cache root for the run (``$REPRO_TORCH_KERNEL_CACHE``
+   under ``build/``);
 2. build, one nvcc per source, all started together: every kernel the
    serving paths emit (for each architecture of ``SERVED``: the attention
    kernel of each prompt bucket and of the ragged decode step, and the
    SwiGLU kernels of each, 2 at smollm-135m's widths and 3 at the wider
-   dense models'), generated by ``repro_torch.core.codegen_cuda``, and
+   dense models'), generated by ``repro_torch.core.codegen_cuda``, the
+   kernels of phases 8 and 9 (each analytic finalist of the measured
+   sweeps at its timed blocks and at the base blocks a winner lowers at,
+   each unfused program), and
    the three hand-written kernels of ``repro_torch/csrc/`` (flash
    attention, RMSNorm+SwiGLU, LayerNorm+matmul), all for sm_90a; then the
    HMMA (tensor-core) instructions and the registers and stack of each
    hand kernel's instantiations (``cuobjdump``): every hand kernel must
-   have HMMA instructions;
+   have HMMA instructions, and every served program must emit one kernel
+   for each group its plan made;
 3. each emitted kernel against its plain PyTorch version on the card, on
    inputs of the shapes its serving path gives it (``rtol = atol =
    2e-4``), timed with CUDA events (back to back, so a short kernel is
@@ -33,9 +39,15 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    on the plain ``torch`` backend; then ``launch.profile_decode`` breaks
    3 decode steps of the same engine down by kernel (each decode kernel,
    torch ops, the device's busy share, the step's host time), beside
-   ``torch.cuda.max_memory_allocated``.  The architectures after the
-   first each run in a child process (this script with ``--serve``), so
-   their weights and profiler sessions end with it;
+   ``torch.cuda.max_memory_allocated``.  Each architecture runs in a
+   child process (this script with ``--serve``), so its weights and
+   profiler session end with it; smollm-135m's on a fresh cache
+   directory and a fresh nvcc build directory, where it must miss every
+   program, hit none on disk and build its kernels;
+4a. a warm start: a second child serves smollm-135m's trace on the same
+   two directories and must load every plan from disk, with no miss, no
+   fusion or selection run, no nvcc build, and the cold serve's greedy
+   tokens; no temporary file may be left in the cache directory;
 5. each hand-written kernel against its plain version (which follows the
    kernel's split of the key or d_ff axis) at every shape of paths A, B
    and C below, plus one bfloat16 case each, and SwiGLU at llama3.2-1b's
@@ -64,8 +76,33 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    just after (exact counts), its logits finite and within 1e-3 of the
    same call on the plain impls, then timed over ``PATH_REPEATS`` calls
    (median and spread);
-8. the serving records, the paths' times, each phase's seconds, a
-   ``kernels`` JSON line, the card line, and the result line.
+8. measured autotune on the card: ``pipeline.compile(...,
+   dim_candidates=..., autotune="measured", top_k=3)`` of the programs of
+   ``TUNED`` (smollm-135m's SwiGLU at t = 4 and 32, llama3.2-1b's at t =
+   4, smollm-135m's GQA decode attention), every candidate timed at the
+   published width; per finalist its dims and predicted cost, the
+   callable's fenced wall time (what the selector ranks by), its kernels'
+   CUDA-event time, or why it was skipped.  Fails if every measurement
+   failed, if the winner is slower than the analytic winner (the first
+   finalist timed), or if a timed finalist or the winner (lowered at the
+   base blocks, as the reference lowers it) is not within ``2e-4`` of
+   its plain version;
+9. fusion on the card: the same programs at the serving path's dims,
+   fused against ``fused=False`` (regions grouped by the planner, a group
+   the emitter cannot fit in shared memory split into one kernel a
+   member, and one kernel a region): launches, the groups split, the
+   predicted traffic reduction, CUDA-event times, outputs within ``2e-4``
+   of the fused program's.  A fused program whose planned group the
+   emitter had to split fails here, as a served one fails phase 2;
+10. the first H100 ``CalibrationProfile``: ``calibrate.fit_profile`` over
+   the features and phase 3 device times of every emitted serving
+   kernel, saved under the run's cache root and loaded back; its
+   coefficients and the Spearman rank agreement of predicted cost and
+   measured time under the default and the fitted profile (a finding,
+   printed, not gated);
+11. the serving records, the paths' times, the compile driver's record,
+   each phase's seconds, a ``kernels`` JSON line, the card line, and the
+   result line.
 """
 
 from __future__ import annotations
@@ -74,10 +111,13 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -770,44 +810,58 @@ def check_emitted(served, gen):
     return rows
 
 
-def serve_phase(arch, n_layers):
+def serve_phase(arch, n_layers, warm=False):
     """Phase 4 for one architecture: ``launch.serve`` at full width
     (``n_layers`` cuts the depth; None: the config's), with every launch
     counter of its emitted kernels set to 0 just before and read just
     after; its greedy tokens held against the same engine on the plain
     ``torch`` backend (or its logits within 1e-3 up to the first
     differing token); then 3 decode steps of the same engine broken down
-    by kernel (``launch.profile_decode``).  Returns the phase's record."""
+    by kernel (``launch.profile_decode``).  The engine's kernel-cache
+    counters (``ServeReport.cache_*``), this process's fusion and
+    selection runs and its nvcc builds go into the record, with
+    ``compile_s`` (compiling its programs and building or loading their
+    kernels) and ``serve_s`` (the engine's construction, warmup and the
+    trace, weights included).  ``warm`` (phase 4a) serves only: no plain
+    run, no profile.  Returns the phase's record."""
     import torch
+    from repro_torch import pipeline as PL
     from repro_torch.core import codegen_cuda as CC
+    from repro_torch.core import cuda_build as CB
     from repro_torch.launch import profile_decode as PD
     from repro_torch.launch import serve as S
     from repro_torch.models import layers as L
 
     cfg = S.ServeConfig(arch=arch, n_layers=n_layers, **SERVE)
     mc = S.model_config(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the engine first: its cache counters start here, and the programs
+    # compiled next are the ones its warmup finds
+    engine = S.build_engine(cfg)
+    t1 = time.perf_counter()
     programs = L.pipeline_kernels(mc, prefill_lens=cfg.prompt_buckets,
                                   decode_batch=cfg.max_batch,
                                   max_len=cfg.max_len)
     kernels = {f"{arch}/{prog}/{k.gid}": k for prog, ck in programs.items()
                for k in ck.kernels}
-    CC.build(list(kernels.values()))      # built by phase 2: loads only
-    torch.cuda.reset_peak_memory_stats()
+    CC.build(list(kernels.values()))
+    t2 = time.perf_counter()
+    compile_s = t2 - t1
     for k in kernels.values():
         k.launches = 0
-    t0 = time.perf_counter()
-    engine = S.build_engine(cfg)
     engine.warmup()
     report = engine.run(S.trace_for(cfg, engine.cfg.vocab))
     torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
+    serve_s = (t1 - t0) + (time.perf_counter() - t2)
     launches = {name: k.launches for name, k in kernels.items()}
     label = f"serve {arch} ({mc.n_layers} layers, cuda)"
     print(f"{label}: {report.n_completed}/{report.n_requests} requests, "
           f"{report.steps} steps, {report.tokens_per_s:.2f} tok/s, p50 "
           f"{report.p50_token_ms:.2f} ms, p99 {report.p99_token_ms:.2f} ms, "
           f"recompiles {report.decode_recompiles}, {serve_s:.1f} s with "
-          "weights and warmup", flush=True)
+          f"weights and warmup, {compile_s:.1f} s compiling and building",
+          flush=True)
     if report.n_completed != cfg.n_requests:
         fail(f"{label}: only {report.n_completed}/{cfg.n_requests} "
              "requests completed")
@@ -819,6 +873,21 @@ def serve_phase(arch, n_layers):
     for rid, rows_l in report.logits.items():
         if not all(torch.isfinite(r).all() for r in rows_l):
             fail(f"{label}: request {rid}: non-finite logits")
+    rec = {"arch": arch, "n_layers": mc.n_layers, "programs": len(programs),
+           "cache": {"memory_hits": report.cache_memory_hits,
+                     "disk_hits": report.cache_disk_hits,
+                     "misses": report.cache_misses,
+                     "hit_rate": report.cache_hit_rate,
+                     "quarantined": report.quarantined,
+                     "fusions": PL.STATS["fusions"],
+                     "selections": PL.STATS["selections"],
+                     "nvcc_builds": CB.STATS["builds"]},
+           "compile_s": compile_s,
+           "tokens": {str(r): t for r, t in report.tokens.items()}}
+    print(f"{label}: kernel cache {json.dumps(rec['cache'])} for "
+          f"{len(programs)} programs", flush=True)
+    if warm:
+        return dict(rec, serve_s=serve_s, tokens_per_s=report.tokens_per_s)
 
     plain = S.run(dataclasses.replace(cfg, backend="torch"),
                   params=engine.params)
@@ -860,8 +929,8 @@ def serve_phase(arch, n_layers):
     print(f"{label}: decode step (ms per step, torch.profiler over 3 "
           f"steps): {json.dumps(step)}; max_memory_allocated {peak} B",
           flush=True)
-    return {"arch": arch, "n_layers": mc.n_layers,
-            "completed": report.n_completed, "requests": report.n_requests,
+    return {**rec, "completed": report.n_completed,
+            "requests": report.n_requests,
             "steps": report.steps, "tokens_per_s": report.tokens_per_s,
             "p50_token_ms": report.p50_token_ms,
             "p99_token_ms": report.p99_token_ms,
@@ -870,15 +939,24 @@ def serve_phase(arch, n_layers):
             "max_memory_allocated": peak, "launches": launches}
 
 
-def serve_in_child(arch, n_layers):
+def serve_in_child(arch, n_layers, cache_dir=None, build_dir=None,
+                   warm=False):
     """:func:`serve_phase` in a process of its own (this script with
     ``--serve``), so that the architecture's weights, caches and profiler
-    session end with it; the kernels it loads were built by phase 2."""
+    session end with it.  ``cache_dir`` is its kernel-cache directory
+    (``$REPRO_TORCH_KERNEL_CACHE``) and ``build_dir`` its nvcc build
+    directory (``$REPRO_TORCH_BUILD_DIR``); None: this process's, where
+    phase 2 built its kernels, so it only loads them."""
     t0 = time.perf_counter()
+    env = dict(os.environ)
+    if cache_dir is not None:
+        env["REPRO_TORCH_KERNEL_CACHE"] = str(cache_dir)
+    if build_dir is not None:
+        env["REPRO_TORCH_BUILD_DIR"] = str(build_dir)
     out = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--serve", arch,
-         "--n-layers", str(n_layers or 0)], capture_output=True, text=True,
-        timeout=600, cwd=ROOT)
+         "--n-layers", str(n_layers or 0)] + (["--warm"] if warm else []),
+        capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
     lines = out.stdout.splitlines()
     for line in lines[:-1]:
         print(line, flush=True)
@@ -890,6 +968,304 @@ def serve_in_child(arch, n_layers):
     return rec
 
 
+# -- the compile driver on the card (phases 4a, 8-10) -----------------------
+
+#: phases 8 and 9: (label, architecture, program, tokens or max_len, the
+#: candidate block counts of each dim).  A dim's base block is its width
+#: over the lcm of its counts, so every candidate runs the published
+#: width, and the serving path's own counts
+#: (``layers._pipeline_dims_blocks``) are among them; GQA's head-group
+#: dim ``H`` is a stack axis (block 1), so it has one count
+TUNED = (
+    ("smollm-135m SwiGLU t=4", "smollm-135m", "swiglu", 4,
+     {"M": (1, 2), "D": (3, 6), "K": (6, 12), "N": (3, 6)}),
+    ("smollm-135m SwiGLU t=32", "smollm-135m", "swiglu", 32,
+     {"M": (1, 2), "D": (3, 6), "K": (6, 12), "N": (3, 6)}),
+    ("llama3.2-1b SwiGLU t=4", "llama3.2-1b", "swiglu", 4,
+     {"M": (1, 2), "D": (8, 16), "K": (32, 64), "N": (8, 16)}),
+    ("smollm-135m GQA decode attention", "smollm-135m", "attention", 96,
+     {"H": (3,), "M": (1,), "D": (1, 2), "N": (1, 2, 3), "L": (1, 2)}),
+)
+TOP_K = 3
+
+
+def tuned_programs(served):
+    """The programs of ``TUNED``: each with its graph (the one the
+    serving path compiles), the serving path's dims and blocks, its
+    candidate counts and base blocks, and the measured-autotune options."""
+    from repro_torch import pipeline as PL
+    from repro_torch.core import array_program as AP
+    from repro_torch.models import layers as L
+    out = []
+    for label, arch, prog, n, cands in TUNED:
+        mc = served[arch][0]
+        if prog == "swiglu":
+            g = AP.rmsnorm_ffn_swiglu_program(float(mc.d_model),
+                                              eps=float(mc.norm_eps))
+            sizes = {"M": n, "D": mc.d_model, "K": mc.d_ff, "N": mc.d_model}
+        else:
+            g = AP.gqa_attention_program(1.0 / mc.d_head ** 0.5, causal=True)
+            sizes = {"M": 1, "D": mc.d_head, "N": n, "L": mc.d_head}
+        dims, blocks = L._pipeline_dims_blocks(sizes)
+        base = {d: sizes[d] // math.lcm(*cands[d]) for d in sizes}
+        if prog != "swiglu":
+            dims["H"] = mc.n_heads // mc.n_kv_heads
+            blocks["H"] = base["H"] = 1
+        for d, c in cands.items():
+            if base[d] * math.lcm(*c) != sizes.get(d, dims[d]) \
+                    or dims[d] not in c:
+                fail(f"{label}: candidates {c} of {d} miss the width or "
+                     f"the serving path's count {dims[d]}")
+        out.append(dict(label=label, graph=g, dims=dims, blocks=blocks,
+                        cands=cands, options=PL.CompileOptions(
+                            backend="cuda", blocks=base,
+                            autotune="measured", top_k=TOP_K)))
+    return out
+
+
+def tuned_kernels(tuned):
+    """Phase 2's share of phases 8 and 9: the kernels of every analytic
+    finalist a measured sweep will time (``pipeline.autotune_candidates``),
+    at its timed blocks and at the base blocks the winner lowers at, and
+    of each program's unfused version, its regions grouped into
+    megakernels as the fused program's are (``unfused``) and one kernel a
+    region (``per_region``), compiled (not run) so that they build with
+    the rest.  A finalist that does not compile is left for its sweep to
+    skip."""
+    from repro_torch import pipeline as PL
+    kernels = []
+    for tp in tuned:
+        g = tp["graph"]
+        at_base = tp["options"].replace(autotune="analytic")
+        for rec in PL.autotune_candidates(g, tp["cands"],
+                                          options=tp["options"]):
+            for opts in ([rec["options"]] if "options" in rec else []) + [
+                    at_base]:
+                try:
+                    kernels += PL.compile(g, rec["dims"],
+                                          options=opts).kernels
+                except Exception as err:
+                    print(f"{tp['label']}: finalist {rec['dims']} does not "
+                          f"compile ({type(err).__name__}: {err})",
+                          flush=True)
+        for name, group in (("unfused", True), ("per_region", False)):
+            tp[name] = PL.compile(g, tp["dims"], options=PL.CompileOptions(
+                backend="cuda", blocks=tp["blocks"], fused=False,
+                group=group))
+            kernels += tp[name].kernels
+    return kernels
+
+
+def check_warm_start(cold, warm, cache_dir):
+    """Phase 4a's checks: the cold serve on a fresh cache directory and a
+    fresh nvcc build directory missed every program, hit none on disk and
+    built its kernels; the warm serve, a new process on the same two
+    directories, loaded every plan from disk with no miss, no fusion, no
+    selection and no nvcc build, and sampled the same greedy tokens; no
+    temporary file is left in the cache directory."""
+    n, c, w = cold["programs"], cold["cache"], warm["cache"]
+    if (c["misses"], c["disk_hits"]) != (n, 0) or c["nvcc_builds"] <= 0:
+        fail(f"cold serve: {c['misses']} misses, {c['disk_hits']} disk "
+             f"hits and {c['nvcc_builds']} nvcc builds for {n} programs on "
+             "fresh cache and build directories")
+    if (w["misses"], w["disk_hits"], w["nvcc_builds"], w["fusions"],
+            w["selections"]) != (0, n, 0, 0, 0):
+        fail(f"warm serve: {json.dumps(w)} for {n} programs; expected 0 "
+             f"misses, {n} disk hits, 0 nvcc builds, fusions, selections")
+    if warm["tokens"] != cold["tokens"]:
+        fail("warm serve: greedy tokens differ from the cold serve's")
+    left = sorted(str(p) for p in Path(cache_dir).rglob("*.tmp"))
+    if left:
+        fail(f"temporary files left in the kernel cache: {left}")
+    print(f"warm start: {n} programs loaded from disk, tokens equal to the "
+          f"cold serve's for {len(warm['tokens'])} requests; compiling and "
+          f"building {warm['compile_s']:.2f} s against the cold "
+          f"{cold['compile_s']:.2f} s ({c['nvcc_builds']} nvcc builds); "
+          f"serving {warm['serve_s']:.1f} s against {cold['serve_s']:.1f} s "
+          "(each with weights and warmup)", flush=True)
+
+
+def plain_outputs(kern, inputs):
+    """The merged outputs of a cuda-backend ``CompiledKernel`` through
+    its kernels' plain versions, chained as its kernels chain."""
+    raw = kern._fn.raw_program
+    env = {ref: inputs[n] for ref, n in zip(raw.input_refs, kern.in_names)}
+    for kr, k in raw.region_runners:
+        env.update(zip(kr.out_refs, k.plain(*[env[r] for r in kr.in_refs])))
+    return dict(zip(kern.out_names, (env[r] for r in raw.output_refs)))
+
+
+def event_ms(kern, inputs):
+    """The sum of a compiled program's kernels' CUDA-event times (ms),
+    each over back-to-back launches (``timing.region_times``)."""
+    from repro_torch.core import timing as T
+    return sum(r.median_s for r in T.region_times(kern, inputs)) * 1e3
+
+
+def check_close(label, got, want):
+    """Every output finite and within ``rtol = atol = TOL``; returns the
+    max abs error."""
+    import torch
+    err = 0.0
+    for name in want:
+        if not torch.isfinite(got[name]).all():
+            fail(f"{label}: non-finite output {name}")
+        if not torch.allclose(got[name], want[name], rtol=TOL, atol=TOL):
+            fail(f"{label}: {name} differs by "
+                 f"{(got[name] - want[name]).abs().max().item():.3e}")
+        err = max(err, (got[name] - want[name]).abs().max().item())
+    return err
+
+
+def autotune_phase(tuned):
+    """Phase 8: ``pipeline.compile(..., dim_candidates=...,
+    autotune="measured", top_k=3)`` of each program of ``TUNED`` on the
+    card.  Per finalist: its dims, blocks and predicted cost, the
+    callable's fenced wall time (what the selector ranks by), the sum of
+    its kernels' CUDA-event times and its outputs' distance from their
+    plain versions, or why it was skipped.  Fails if every measurement
+    failed, if the winner is slower than the analytic winner's measured
+    time (the analytic winner is the first finalist timed), or if a
+    timed finalist's or the winner's outputs are not within ``2e-4`` of
+    their plain version.  The winner lowers at the base blocks, as the
+    reference's does: a smaller problem than the one it was timed at."""
+    import warnings
+    from repro_torch import pipeline as PL
+    from repro_torch.core import timing as T
+    out = []
+    for tp in tuned:
+        g, label = tp["graph"], tp["label"]
+        skips = PL.STATS["measure_skips"]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            kern = PL.compile(g, dim_candidates=tp["cands"],
+                              options=tp["options"])
+        for w in caught:
+            print(f"{label}: warning: {w.message}", flush=True)
+        if kern.measured_s is None:
+            fail(f"{label}: every measurement failed")
+        analytic = kern.autotune_report[0]["dims"]
+        times = dict(kern.autotune_timings)
+        akey = tuple(sorted(analytic.items()))
+        if akey not in times:
+            fail(f"{label}: the analytic winner {analytic} was not timed")
+        if kern.measured_s > times[akey]:
+            fail(f"{label}: the measured winner ({kern.measured_s} s) is "
+                 f"slower than the analytic winner ({times[akey]} s)")
+        rows = []
+        for rec in kern.autotune_report:
+            ev = cerr = None
+            if rec["skipped"] is None:
+                ck = PL.compile(g, rec["dims"], options=rec["options"])
+                feed = T.synth_inputs(g, rec["dims"], rec["blocks"],
+                                      device="cuda")
+                ev = event_ms(ck, feed)
+                cerr = check_close(f"{label} finalist {rec['dims']}",
+                                   ck(feed), plain_outputs(ck, feed))
+            row = {"dims": rec["dims"], "blocks": rec["blocks"],
+                   "predicted_cost": rec["cost"],
+                   "wall_ms": (rec["seconds"] * 1e3
+                               if rec["seconds"] is not None else None),
+                   "kernel_event_ms": ev, "max_abs_err": cerr,
+                   "skipped": rec["skipped"],
+                   "serving": rec["dims"] == tp["dims"]}
+            rows.append(row)
+            print(f"{label}: candidate {json.dumps(row)}", flush=True)
+        inputs = T.synth_inputs(g, kern.dims, kern.blocks, device="cuda")
+        err = check_close(f"{label} winner", kern(inputs),
+                          plain_outputs(kern, inputs))
+        res = {"label": label, "winner": kern.dims,
+               "winner_blocks": kern.blocks,
+               "winner_wall_ms": kern.measured_s * 1e3,
+               "analytic_winner": analytic,
+               "analytic_wall_ms": times[akey] * 1e3,
+               "serving_dims": tp["dims"], "max_abs_err": err,
+               "skipped": PL.STATS["measure_skips"] - skips,
+               "candidates": rows}
+        print(f"{label}: measured winner {kern.dims} at "
+              f"{res['winner_wall_ms']:.4f} ms against the analytic "
+              f"winner {analytic} at {res['analytic_wall_ms']:.4f} ms; "
+              f"{res['skipped']} skipped; outputs within {err:.3e} of the "
+              "plain version", flush=True)
+        out.append(res)
+    return out
+
+
+def fusion_phase(tuned):
+    """Phase 9: each program of ``TUNED`` at the serving path's dims and
+    blocks, fused (the served kernels) against ``fused=False`` on the
+    cuda backend, its regions grouped by the planner (``unfused``; a group
+    past the card's shared memory split into one kernel a member, listed
+    under ``unfused_split``) and one kernel a region (``per_region``):
+    launches, the predicted traffic reduction, the whole callable and the
+    kernels' sum in CUDA-event time, and the outputs within ``2e-4`` of
+    the fused program's.  Fails if the fused program split a group."""
+    from repro_torch import pipeline as PL
+    from repro_torch.core import timing as T
+    out = []
+    for tp in tuned:
+        g, label = tp["graph"], tp["label"]
+        fused = PL.compile(g, tp["dims"], options=PL.CompileOptions(
+            backend="cuda", blocks=tp["blocks"]))
+        if fused.lowering_report.degraded:
+            fail(f"{label}: the fused program split planned groups: "
+                 f"{fused.lowering_report.degraded}")
+        inputs = T.synth_inputs(g, tp["dims"], tp["blocks"], device="cuda")
+        want = fused(inputs)
+        res = {"label": label, "dims": tp["dims"],
+               "predicted_traffic_reduction":
+                   fused.initial_cost / max(fused.cost, 1e-30),
+               "unfused_split": [d.split(": ")[0] for d in
+                                 tp["unfused"].lowering_report.degraded],
+               "max_abs_diff": max(
+                   check_close(f"{label} {name} vs fused", tp[name](inputs),
+                               want) for name in ("unfused", "per_region"))}
+        for name, k in (("fused", fused), ("unfused", tp["unfused"]),
+                        ("per_region", tp["per_region"])):
+            res[f"{name}_launches"] = k.launches
+            res[f"{name}_call_ms"] = time_ms(lambda k=k: k(inputs))
+            res[f"{name}_kernel_event_ms"] = event_ms(k, inputs)
+        print(f"{label}: fusion {json.dumps(res)}", flush=True)
+        out.append(res)
+    return out
+
+
+def calibration_phase(served, rows, root):
+    """Phase 10: the first H100 ``CalibrationProfile``: ``fit_profile``
+    over ``(group_features, seconds)`` of every emitted serving kernel
+    phase 3 timed (its profiler device time), saved under the run's
+    cache root, loaded back and compared; then the Spearman rank
+    agreement of predicted cost and measured time under the default and
+    the fitted profile.  A finding: printed, not gated."""
+    import torch
+    from repro_torch.core import calibrate as CAL
+    from repro_torch.core import timing as T
+    feats, secs = [], []
+    for arch, (_, programs) in served.items():
+        for prog, ck in programs.items():
+            rows_f = CAL.group_features(ck.graph, ck.dims, ck.blocks)
+            for gid, f in rows_f or []:
+                row = rows.get(f"{arch}/{prog}/{gid}")
+                if row is None:
+                    fail(f"{arch}/{prog}/{gid}: no phase 3 time to fit")
+                feats.append(f)
+                secs.append(row["device_ms"] / 1e3)
+    kind = torch.cuda.get_device_name(0)
+    prof = CAL.fit_profile(feats, secs, backend="cuda", device_kind=kind)
+    path = CAL.save_profile(prof, root)
+    back = CAL.load_profile(root, backend="cuda", device_kind=kind)
+    if back is None or back.to_json() != prof.to_json():
+        fail(f"the profile saved at {path} does not load back equal")
+    res = {"samples": len(secs), "path": str(path.relative_to(root)),
+           "profile": prof.to_json(),
+           "spearman_default": T.spearman(
+               [CAL.DEFAULT_PROFILE.predict(f) for f in feats], secs),
+           "spearman_fitted": T.spearman([prof.predict(f) for f in feats],
+                                         secs)}
+    print(f"calibration: {json.dumps(res)}", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -898,7 +1274,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if sys.argv[1:2] == ["--serve"]:        # a serving phase's child
         torch.backends.cuda.matmul.allow_tf32 = False
-        rec = serve_phase(sys.argv[2], int(sys.argv[4]) or None)
+        rec = serve_phase(sys.argv[2], int(sys.argv[4]) or None,
+                          warm="--warm" in sys.argv[5:])
         print(json.dumps(rec))
         return 0
     from repro_torch.core import codegen_cuda as CC
@@ -911,6 +1288,14 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     phase_s = {}
+    # a fresh kernel-cache root for this run: the plans this process
+    # compiles go to <root>/main, phase 4's cold and warm smollm-135m
+    # serves share <root>/serve and the nvcc build directory
+    # <root>/serve-nvcc
+    (ROOT / "build").mkdir(exist_ok=True)
+    cache_root = Path(tempfile.mkdtemp(prefix="chip_smoke-cache-",
+                                       dir=ROOT / "build"))
+    os.environ["REPRO_TORCH_KERNEL_CACHE"] = str(cache_root / "main")
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -924,18 +1309,25 @@ def main() -> int:
         for prog, ck in served[arch][1].items():
             print(f"{arch}/{prog}: {ck.lowering_report.summary()}",
                   flush=True)
+            if ck.lowering_report.degraded:
+                fail(f"{arch}/{prog}: planned groups split into per-region "
+                     f"kernels: {ck.lowering_report.degraded}")
     emitted = {k.key: k for _, programs in served.values()
                for ck in programs.values() for k in ck.kernels}
+    tuned = tuned_programs(served)
+    more = {k.key: k for k in tuned_kernels(tuned) if k.key not in emitted}
     hand = {name: mod.KERNEL for name, mod in hand_modules().items()}
     CB.build_many([(k.key, k.source) for k in emitted.values()]
+                  + [(k.key, k.source) for k in more.values()]
                   + [(k.key, k.source) for k in hand.values()])
-    CC.build(list(emitted.values()))
+    CC.build(list(emitted.values()) + list(more.values()))
     for k in hand.values():
         k.build()
     build_s = time.perf_counter() - t0
-    print(f"built {len(emitted)} emitted and {len(hand)} hand-written "
-          f"kernels ({', '.join(hand)}) with nvcc (sm_90a), one process "
-          f"each, in {build_s:.2f} s", flush=True)
+    print(f"built {len(emitted)} emitted, {len(more)} more for phases 8 "
+          f"and 9, and {len(hand)} hand-written kernels "
+          f"({', '.join(hand)}) with nvcc (sm_90a), one process each, in "
+          f"{build_s:.2f} s", flush=True)
     tensor_core_report(hand)
     phase_s["2 build"] = time.perf_counter() - t0
 
@@ -946,12 +1338,19 @@ def main() -> int:
     phase_s["3 emitted kernels"] = time.perf_counter() - t0
 
     # -- 4. the serving paths -------------------------------------------------
-    serving = {}
+    serving, warm = {}, None
     for arch, n_layers in SERVED:
         t0 = time.perf_counter()
-        serving[arch] = (serve_phase(arch, n_layers) if arch == SERVED[0][0]
-                         else serve_in_child(arch, n_layers))
+        first = arch == SERVED[0][0]
+        dirs = (dict(cache_dir=cache_root / "serve",
+                     build_dir=cache_root / "serve-nvcc") if first else {})
+        serving[arch] = serve_in_child(arch, n_layers, **dirs)
         phase_s[f"4 serve {arch}"] = time.perf_counter() - t0
+        if first:
+            t0 = time.perf_counter()
+            warm = serve_in_child(arch, n_layers, warm=True, **dirs)
+            check_warm_start(serving[arch], warm, cache_root / "serve")
+            phase_s[f"4a warm serve {arch}"] = time.perf_counter() - t0
 
     # -- 5-7. the hand-written kernels and their paths ---------------------
     t0 = time.perf_counter()
@@ -961,6 +1360,17 @@ def main() -> int:
     check_backward(gen)
     phase_s["6 backward"] = time.perf_counter() - t0
     paths = run_paths(hand, phase_s)
+
+    # -- 8-10. the compile driver: measured autotune, fusion, calibration --
+    t0 = time.perf_counter()
+    tuned_res = autotune_phase(tuned)
+    phase_s["8 measured autotune"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fusion_res = fusion_phase(tuned)
+    phase_s["9 fused vs unfused"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    calib = calibration_phase(served, rows, cache_root / "main")
+    phase_s["10 calibration"] = time.perf_counter() - t0
 
     for arch, rec in serving.items():
         for name, n in rec["launches"].items():
@@ -974,9 +1384,14 @@ def main() -> int:
                                     for a, r in serving.items()}))
     print("paths: " + json.dumps({p: {**timing, "max_abs_diff_vs_plain": d}
                                   for p, (_, timing, d) in paths.items()}))
+    print("compile driver: " + json.dumps({
+        "warm_serve": {k: v for k, v in warm.items() if k != "tokens"},
+        "measured_autotune": tuned_res, "fusion": fusion_res,
+        "calibration": calib}))
     print("phase seconds: " + json.dumps(phase_s))
     print(json.dumps({"kernels": list(rows.values())
                       + list(hand_rows.values())}))
+    shutil.rmtree(cache_root, ignore_errors=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

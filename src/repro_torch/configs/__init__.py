@@ -28,11 +28,15 @@ def get_reduced_config(arch: str, **overrides) -> ModelConfig:
 
 
 def with_pipeline(cfg: ModelConfig, backend: str = "torch",
-                  attn: bool = True, mlp: bool = True) -> ModelConfig:
+                  attn: bool = True, mlp: bool = True,
+                  options=None) -> ModelConfig:
     """Route attention and the gated MLP through the port's fusion
-    pipeline (``repro_torch.pipeline``) on codegen backend ``backend``."""
+    pipeline (``repro_torch.pipeline``) on codegen backend ``backend``.
+    ``options`` (a ``pipeline.CompileOptions``) sets the whole compile
+    configuration; its ``backend`` wins over ``backend``."""
     return dataclasses.replace(
         cfg,
         attn_impl="pipeline" if attn else cfg.attn_impl,
         mlp_impl="pipeline" if mlp else cfg.mlp_impl,
-        pipeline_backend=backend)
+        pipeline_backend=options.backend if options is not None else backend,
+        pipeline_options=options)

@@ -82,6 +82,7 @@ import hashlib
 import math
 import re
 import time
+import warnings
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -136,13 +137,15 @@ class KernelRun:
 @dataclass
 class LoweringReport:
     """Provenance of one ``emit_program`` call: the regions emitted, the
-    kernels launched (grouped regions share one) and the cross-region
-    values kept on chip.  Its ``summary()`` is the reference's; the port
-    has no fallbacks to report."""
+    kernels launched (grouped regions share one), the cross-region
+    values kept on chip, and each planned group the emitter could not
+    express and split into per-region kernels (``degraded``: ``"<gid>:
+    <reason>"``).  Its ``summary()`` is the reference's."""
 
     regions: List[RegionReport] = field(default_factory=list)
     launches: int = 0
     resident_edges: int = 0
+    degraded: List[str] = field(default_factory=list)
 
     @property
     def n_regions(self) -> int:
@@ -1392,10 +1395,16 @@ def emit_program(g: Graph, dims: Dict[str, int], blocks: Dict[str, int],
     group.  Returns ``(fn, report)``: ``fn(*merged, instances=0)`` takes
     one merged array per program input and returns the merged outputs.
 
-    There is no fallback: a program the partitioner cannot split, or a
-    region or group the emitter cannot express, raises ``RegionError``
-    here (the reference would run it as a jax region or per-region
-    kernels, codegen_pallas.py:786-804, 851-880)."""
+    A group the emitter cannot express (its shared memory past
+    :data:`SMEM_LIMIT`, say) degrades to one kernel per member region,
+    with a warning, the ids ``<gid>.<node>`` and a line in
+    ``report.degraded``, as the reference's does (codegen_pallas.py:
+    866-880); ``fn.emitted_kernels`` lists what each
+    kernel serves (a ``RegionGroup`` or a ``RegionSpec``), from which the
+    driver re-derives the per-kernel costs.  There is no plain fallback:
+    a program the partitioner cannot split, or a region the emitter
+    cannot express, raises ``RegionError`` here (the reference would run
+    it as a jax region, codegen_pallas.py:786-804, 851-853)."""
     pp = program_plan if program_plan is not None else plan(g)
     gp = grouped_plan
     if gp is None:
@@ -1416,29 +1425,46 @@ def emit_program(g: Graph, dims: Dict[str, int], blocks: Dict[str, int],
                                       for d in vt.dims[vt.lead_dims:])
 
     lowered: List[Tuple[KernelRun, CudaKernel]] = []
+    emitted: List[Tuple[str, Any]] = []
+
+    def lower_one(spec: RegionSpec, gid: str) -> None:
+        kern, out_items, rep = emit_region(
+            spec, dims, [item_shapes[r] for r in spec.in_refs], gid)
+        item_shapes.update(zip(spec.out_refs, out_items))
+        lowered.append((KernelRun(gid, rep.label, tuple(spec.in_refs),
+                                  tuple(spec.out_refs)), kern))
+        emitted.append((gid, spec))
+        report.regions.append(replace(rep, group=gid))
+
     for grp in gp.groups:
         if len(grp.members) == 1:
-            spec = grp.members[0]
-            in_refs, out_refs = spec.in_refs, spec.out_refs
-            kern, out_items, rep = emit_region(
-                spec, dims, [item_shapes[r] for r in in_refs], grp.gid)
-            reps, label = [replace(rep, group=grp.gid)], rep.label
-        else:
-            in_refs, out_refs = grp.in_refs, grp.out_refs
+            lower_one(grp.members[0], grp.gid)
+            continue
+        try:
             kern, out_items, reps = emit_group(
-                grp, types, dims, [item_shapes[r] for r in in_refs])
-            label = grp.label
-            report.resident_edges += len(grp.resident)
-        item_shapes.update(zip(out_refs, out_items))
-        lowered.append((KernelRun(grp.gid, label, tuple(in_refs),
-                                  tuple(out_refs)), kern))
+                grp, types, dims, [item_shapes[r] for r in grp.in_refs])
+        except RegionError as err:
+            warnings.warn(f"grouped lowering of {grp.gid} fell back to "
+                          f"per-region kernels ({err})", RuntimeWarning,
+                          stacklevel=2)
+            report.degraded.append(f"{grp.gid}: {err}")
+            for spec in grp.members:
+                lower_one(spec, f"{grp.gid}.{spec.node}")
+            continue
+        item_shapes.update(zip(grp.out_refs, out_items))
+        lowered.append((KernelRun(grp.gid, grp.label, tuple(grp.in_refs),
+                                  tuple(grp.out_refs)), kern))
+        emitted.append((grp.gid, grp))
         report.regions.extend(reps)
+        report.resident_edges += len(grp.resident)
     report.launches = len(lowered)
 
     out_refs = [(e.src, e.sp) for oid in pp.graph.output_ids
                 for e in [pp.graph.in_edge(oid, 0)]]
-    return _chain(lowered, [(iid, 0) for iid in pp.graph.input_ids],
-                  out_refs), report
+    run = _chain(lowered, [(iid, 0) for iid in pp.graph.input_ids],
+                 out_refs)
+    run.emitted_kernels = emitted
+    return run, report
 
 
 def _chain(lowered, input_refs, out_refs) -> Callable:
@@ -1452,4 +1478,5 @@ def _chain(lowered, input_refs, out_refs) -> Callable:
 
     run.region_runners = lowered
     run.input_refs = list(input_refs)
+    run.output_refs = list(out_refs)
     return run

@@ -83,8 +83,25 @@ def _reduce(node: ReduceNode, x: torch.Tensor, nb: int) -> torch.Tensor:
     return xf.sum(nb).to(x.dtype)
 
 
+def _step(node, ins: Sequence[torch.Tensor], kinds: Sequence[str],
+          dims: Dict[str, int], nb: int) -> List[torch.Tensor]:
+    """One operator node on its evaluated inputs: its output ports."""
+    if isinstance(node, FuncNode):
+        return [apply_op(node.op, ins, kinds, nb)]
+    if isinstance(node, ReduceNode):
+        return [_reduce(node, ins[0], nb)]
+    if isinstance(node, MiscNode):
+        res = node.fn(torch, *ins)
+        return [res] if node.n_out() == 1 else list(res)
+    if isinstance(node, MapNode):
+        return _lower_map(node, ins, dims, nb)
+    raise TypeError(node)
+
+
 def _eval(g: Graph, inputs: Sequence[torch.Tensor], dims: Dict[str, int],
-          nb: int) -> List[torch.Tensor]:
+          nb: int, per_op: bool = False) -> List[torch.Tensor]:
+    """Evaluate ``g``; ``per_op`` materializes every top-level operator's
+    outputs (``contiguous``) before the next one runs."""
     types = g.infer_types()
     env: Dict = {(nid, 0): v for nid, v in zip(g.input_ids, inputs)}
     outs: Dict[int, Any] = {}
@@ -96,21 +113,10 @@ def _eval(g: Graph, inputs: Sequence[torch.Tensor], dims: Dict[str, int],
         ins = [env[(e.src, e.sp)] for e in edges]
         if isinstance(node, OutputNode):
             outs[nid] = ins[0]
-        elif isinstance(node, FuncNode):
-            kinds = [types[(e.src, e.sp)].item for e in edges]
-            env[(nid, 0)] = apply_op(node.op, ins, kinds, nb)
-        elif isinstance(node, ReduceNode):
-            env[(nid, 0)] = _reduce(node, ins[0], nb)
-        elif isinstance(node, MiscNode):
-            res = node.fn(torch, *ins)
-            res = [res] if node.n_out() == 1 else list(res)
-            for p, r in enumerate(res):
-                env[(nid, p)] = r
-        elif isinstance(node, MapNode):
-            for p, r in enumerate(_lower_map(node, ins, dims, nb)):
-                env[(nid, p)] = r
-        else:
-            raise TypeError(node)
+            continue
+        kinds = [types[(e.src, e.sp)].item for e in edges]
+        for p, r in enumerate(_step(node, ins, kinds, dims, nb)):
+            env[(nid, p)] = r.contiguous() if per_op else r
     return [outs[oid] for oid in g.output_ids]
 
 
@@ -172,13 +178,18 @@ def _lower_map(node: MapNode, ins: Sequence[torch.Tensor],
     return out
 
 
-def compile_program(g: Graph, dims: Dict[str, int]
+def compile_program(g: Graph, dims: Dict[str, int], per_op: bool = False
                     ) -> Callable[..., List[torch.Tensor]]:
     """``f(*stacked_inputs, batch=0) -> [stacked_outputs]``; ``batch``
-    leading axes of every input are instance axes (size 1 broadcasts)."""
+    leading axes of every input are instance axes (size 1 broadcasts).
+
+    With ``per_op`` each top-level operator runs on its own, dispatched
+    from Python, with every intermediate materialized between operators:
+    the launch-per-operator unfused baseline of the reference's
+    ``jit="per-op"`` (codegen_jax.py:150-212)."""
 
     def fn(*inputs, batch: int = 0):
-        return _eval(g, inputs, dims, batch)
+        return _eval(g, inputs, dims, batch, per_op)
 
     return fn
 
@@ -188,11 +199,12 @@ def _io_types(g: Graph):
     return in_types, P.output_types(g)
 
 
-def merged_runner(g: Graph, dims: Dict[str, int]) -> Callable:
+def merged_runner(g: Graph, dims: Dict[str, int], per_op: bool = False
+                  ) -> Callable:
     """Merged arrays in, merged arrays out, through the stacked
     lowering: ``f(*merged, instances=0) -> tuple``."""
     in_types, out_types = _io_types(g)
-    prog = compile_program(g, dims)
+    prog = compile_program(g, dims, per_op)
 
     def run(*merged, instances: int = 0):
         stacked = [P.to_stacked(a, vt, dims, instances)

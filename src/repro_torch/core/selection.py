@@ -211,6 +211,33 @@ def sweep_assignments(dim_candidates: Dict[str, Sequence[int]]
         yield dims
 
 
+def finalists(g: Graph, dim_candidates: Dict[str, Sequence[int]],
+              item_bytes: Optional[Dict[str, int]] = None,
+              snapshots: Optional[List[Graph]] = None, *,
+              profile: Optional[CAL.CalibrationProfile] = None,
+              top_k: int = 1,
+              group: bool = False,
+              blocks: Optional[Dict[str, int]] = None,
+              vmem_budget: Optional[int] = None) -> List[Selected]:
+    """The ``top_k`` cheapest distinct assignments of the sweep under the
+    analytic objective, cheapest first (a stable sort: equal costs keep
+    sweep order, so the analytic winner is always ``[0]``).  What
+    :func:`autotune` ranks and times; a caller may build the finalists'
+    kernels ahead of a measured sweep from the same list."""
+    snaps = snapshots if snapshots is not None else fuse(g)
+    cands: List[Selected] = []
+    shared_plans: List = []  # per-snapshot region plans, computed once
+    for dims in sweep_assignments(dim_candidates):
+        cands.append(select(g, dims, item_bytes, snapshots=snaps,
+                            profile=profile, group=group, blocks=blocks,
+                            vmem_budget=vmem_budget,
+                            _plans=shared_plans if group else None))
+    if not cands:
+        raise ValueError("empty dim_candidates sweep")
+    cands.sort(key=lambda s: s.cost)
+    return cands[:max(1, top_k)]
+
+
 def autotune(g: Graph, dim_candidates: Dict[str, Sequence[int]],
              item_bytes: Optional[Dict[str, int]] = None,
              snapshots: Optional[List[Graph]] = None, *,
@@ -245,25 +272,15 @@ def autotune(g: Graph, dim_candidates: Dict[str, Sequence[int]],
         raise ValueError(
             "objective='measured' needs a measure callback; call through "
             "pipeline.compile(..., autotune='measured'), which builds it")
-    snaps = snapshots if snapshots is not None else fuse(g)
-    cands: List[Selected] = []
-    shared_plans: List = []  # per-snapshot region plans, computed once
-    for dims in sweep_assignments(dim_candidates):
-        cands.append(select(g, dims, item_bytes, snapshots=snaps,
-                            profile=profile, group=group, blocks=blocks,
-                            vmem_budget=vmem_budget,
-                            _plans=shared_plans if group else None))
-    if not cands:
-        raise ValueError("empty dim_candidates sweep")
-    # stable: equal analytic costs keep sweep order, so the analytic
-    # winner is always finalists[0]
-    cands.sort(key=lambda s: s.cost)
+    ranked = finalists(g, dim_candidates, item_bytes, snapshots,
+                       profile=profile,
+                       top_k=top_k if objective == "measured" else 1,
+                       group=group, blocks=blocks, vmem_budget=vmem_budget)
     if objective == "analytic":
-        return cands[0]
+        return ranked[0]
 
-    finalists = cands[:max(1, top_k)]
     timed: List[Tuple[float, Selected]] = []
-    for sel in finalists:
+    for sel in ranked:
         try:
             t = float(measure(sel))
         except Exception as err:  # a candidate that cannot run is skipped
@@ -278,7 +295,7 @@ def autotune(g: Graph, dim_candidates: Dict[str, Sequence[int]],
         warnings.warn("measured autotune: every measurement failed; "
                       "returning the analytic choice", RuntimeWarning,
                       stacklevel=2)
-        return cands[0]
+        return ranked[0]
     timings = tuple((_dims_key(sel.dims), t) for t, sel in timed)
     t_best, best = min(timed, key=lambda p: p[0])
     return replace(best, measured_s=t_best, timings=timings)

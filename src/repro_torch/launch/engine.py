@@ -16,9 +16,13 @@ An open-loop arrival trace feeds a slot scheduler that
 ``warmup()`` compiles every kernel the loop can touch (one attention and
 one SwiGLU kernel per prompt bucket plus the decode pair), builds the CUDA
 ones together, and runs each once; ``run()`` then pins zero pipeline
-compiles and zero nvcc builds.  The reference's watchdog demotion and
-re-promotion, deadlines and bounded queue wait for the resilience slice:
-on the card they would be a fallback away from the kernels.
+compiles (``CacheStats.delta`` of ``pipeline.default_cache()``: plans
+compiled or loaded from disk) and zero nvcc builds.  A warmup in a fresh
+process over a cache directory another process filled loads every plan
+from disk (``ServeReport.cache_disk_hits``) and builds nothing.  The
+reference's watchdog demotion and re-promotion, deadlines and bounded
+queue wait for the resilience slice: on the card they would be a
+fallback away from the kernels.
 """
 
 from __future__ import annotations
@@ -105,6 +109,15 @@ class ServeReport:
     p99_token_ms: float = 0.0
     mean_occupancy: float = 0.0
     max_queue_depth: int = 0
+    # the kernel cache (pipeline.default_cache()) from the engine's
+    # construction on: in-process hits, plans loaded from disk (another
+    # process compiled them), fresh compiles, the hit rate, and corrupt
+    # entries quarantined
+    cache_memory_hits: int = 0
+    cache_disk_hits: int = 0
+    cache_misses: int = 0
+    cache_hit_rate: float = 0.0
+    quarantined: int = 0
     warmup_compiles: int = 0
     warmup_builds: int = 0
     decode_recompiles: int = 0   # pipeline compiles + nvcc builds after
@@ -137,12 +150,6 @@ class _Slot:
     remaining: int
     last_token: int
     generated: List[int]
-
-
-def _compile_count() -> Tuple[int, int]:
-    from repro_torch import pipeline
-    from repro_torch.core import cuda_build
-    return pipeline.STATS["compiles"], cuda_build.STATS["builds"]
 
 
 class Engine:
@@ -185,7 +192,12 @@ class Engine:
         self.slots: List[Optional[_Slot]] = [None] * self.max_batch
         self.queue: deque = deque()
         self.kernels: Dict[str, object] = {}
-        self._warm = None
+        from repro_torch import pipeline
+        # the kernel cache the engine compiles in, and its counters when
+        # the engine was made (the report's cache fields count from here)
+        self._cache = pipeline.default_cache()
+        self._base = self._cache.stats.snapshot()
+        self._warm = None        # the counters after warmup
         self.warmup_compiles = 0
         self.warmup_builds = 0
 
@@ -227,11 +239,11 @@ class Engine:
         """Compile every pipeline kernel the run loop can touch, build the
         CUDA ones together, and run each once.  ``run()`` pins the
         steady state against the counters taken here.  Returns the number
-        of pipeline compiles."""
-        from repro_torch.core import codegen_cuda
+        of pipeline compiles (plans compiled or loaded from disk)."""
+        from repro_torch.core import codegen_cuda, cuda_build
         from repro_torch.models import layers as L
 
-        c0, b0 = _compile_count()
+        c0, b0 = self._cache.stats.snapshot(), cuda_build.STATS["builds"]
         cfg = self.cfg
         programs = L.pipeline_kernels(cfg, prefill_lens=self.prompt_buckets,
                                       decode_batch=self.max_batch,
@@ -250,9 +262,10 @@ class Engine:
             torch.cuda.synchronize(self.device)
         # the warm-up decode wrote garbage at position 0 of every slot;
         # real prefills overwrite it before any slot activates
-        c1, b1 = _compile_count()
-        self.warmup_compiles, self.warmup_builds = c1 - c0, b1 - b0
-        self._warm = (c1, b1)
+        self.warmup_compiles = self._cache.stats.delta(c0).compiles
+        self.warmup_builds = cuda_build.STATS["builds"] - b0
+        self._warm = (self._cache.stats.snapshot(),
+                      cuda_build.STATS["builds"])
         return self.warmup_compiles
 
     def _admit(self, req: Request, slot: int, report: ServeReport) -> str:
@@ -376,10 +389,18 @@ class Engine:
             report.p50_token_ms = float(np.percentile(token_lat_ms, 50))
             report.p99_token_ms = float(np.percentile(token_lat_ms, 99))
         report.mean_occupancy = occupancy_sum / max(step, 1)
+        from repro_torch.core import cuda_build
+        life = self._cache.stats.delta(self._base)
+        report.cache_memory_hits = life.memory_hits
+        report.cache_disk_hits = life.disk_hits
+        report.cache_misses = life.misses
+        report.cache_hit_rate = life.hit_rate
+        report.quarantined = life.quarantined
         report.warmup_compiles = self.warmup_compiles
         report.warmup_builds = self.warmup_builds
-        c, b = _compile_count()
-        report.decode_recompiles = (c - self._warm[0]) + (b - self._warm[1])
+        report.decode_recompiles = (
+            self._cache.stats.delta(self._warm[0]).compiles
+            + cuda_build.STATS["builds"] - self._warm[1])
         report.kernel_launches = {name: k.launches - start[name]
                                   for name, k in self.kernels.items()}
         if report.decode_recompiles:

@@ -7,10 +7,14 @@ Programmatic API::
     report = run(ServeConfig(arch="smollm-135m", n_requests=8))
 
 On the card the defaults serve the full-width model through the emitted
-CUDA kernels (``backend="cuda"``, ``device="cuda"``).  ``arch`` is any
-dense or MoE architecture of ``repro_torch.configs`` (smollm-135m,
-llama3.2-1b, qwen2-7b, qwen3-32b, qwen3-moe-30b-a3b); ``n_layers`` cuts
-the depth, never a width.  The CLI::
+CUDA kernels (``backend="cuda"``, ``device="cuda"``).  Compiled plans
+persist in the kernel cache directory (``$REPRO_TORCH_KERNEL_CACHE``,
+default ``build/repro_torch/cache``): a later process serving the same
+model loads them from disk (``ServeReport.cache_disk_hits``) without
+fusion, selection or nvcc.  ``arch`` is any dense or MoE architecture
+of ``repro_torch.configs`` (smollm-135m, llama3.2-1b, qwen2-7b,
+qwen3-32b, qwen3-moe-30b-a3b); ``n_layers`` cuts the depth, never a
+width.  The CLI::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --n-requests 8 --json report.json
@@ -139,6 +143,12 @@ def main(argv=None) -> ServeReport:
           f"({report.tokens_per_s:.1f} tok/s incl. prefill) "
           f"p50={report.p50_token_ms:.2f}ms p99={report.p99_token_ms:.2f}ms "
           f"recompiles={report.decode_recompiles}")
+    print(f"kernel cache: memory_hits={report.cache_memory_hits} "
+          f"disk_hits={report.cache_disk_hits} "
+          f"misses={report.cache_misses} "
+          f"hit_rate={report.cache_hit_rate:.3f} "
+          f"quarantined={report.quarantined} "
+          f"nvcc_builds={report.warmup_builds}")
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(report.to_json(), f, indent=1)

@@ -51,6 +51,11 @@ class ModelConfig:
     attn_impl: str = "ref"       # ref | chunked | cuda | pipeline
     mlp_impl: str = "unfused"    # unfused | fused_ref | cuda | pipeline
     pipeline_backend: str = "torch"  # py | torch | cuda (the pipeline impls)
+    pipeline_options: Any = None  # Optional[pipeline.CompileOptions]: the
+                                 # full compile options of the pipeline
+                                 # impls; when set, its backend wins over
+                                 # pipeline_backend.  Hashable, so the
+                                 # config stays usable as a cache key.
 
     def is_moe_layer(self, i: int) -> bool:
         """Layer ``i``'s MLP is the MoE (the reference's ``moe_period`` is

@@ -55,9 +55,17 @@ def _pipeline_dims_blocks(sizes):
     return dims, blocks
 
 
-def _pipeline_options(cfg: ModelConfig):
+def _pipeline_options(src):
+    """The :class:`pipeline.CompileOptions` of a ModelConfig, a bare
+    backend string, or an options instance."""
     from repro_torch import pipeline as PL
-    return PL.CompileOptions(backend=cfg.pipeline_backend)
+    if isinstance(src, PL.CompileOptions):
+        return src
+    if isinstance(src, str):
+        return PL.CompileOptions(backend=src)
+    if src.pipeline_options is not None:
+        return src.pipeline_options
+    return PL.CompileOptions(backend=src.pipeline_backend)
 
 
 @functools.lru_cache(maxsize=256)

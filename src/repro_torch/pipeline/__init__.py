@@ -1,11 +1,20 @@
 """``repro_torch.pipeline`` — the port's fusion pipeline:
 ``compile(graph, dims, options=CompileOptions(...))`` fuses, stabilizes,
-selects and lowers a block program to the ``py``, ``torch`` or ``cuda``
-backend (see ``driver.py``)."""
+selects (or autotunes, analytic or measured) and lowers a block program
+to the ``py``, ``torch`` or ``cuda`` backend (see ``driver.py``), and
+caches the result in a two-level :class:`KernelCache`: in-process
+callables and on-disk plans under ``$REPRO_TORCH_KERNEL_CACHE``
+(``cache.py``)."""
 
-from repro_torch.pipeline.driver import (BACKENDS, STATS, CompiledKernel,
-                                         compile)
+from repro_torch.pipeline.cache import (CODEGEN_VERSION, CacheKey, CachePlan,
+                                        CacheStats, KernelCache,
+                                        default_cache, reset_default_cache)
+from repro_torch.pipeline.driver import (AUTOTUNE_OBJECTIVES, BACKENDS,
+                                         STATS, CompiledKernel,
+                                         autotune_candidates, compile)
 from repro_torch.pipeline.options import DEFAULT_OPTIONS, CompileOptions
 
-__all__ = ["BACKENDS", "STATS", "CompileOptions", "CompiledKernel",
-           "DEFAULT_OPTIONS", "compile"]
+__all__ = ["AUTOTUNE_OBJECTIVES", "BACKENDS", "CODEGEN_VERSION", "CacheKey",
+           "CachePlan", "CacheStats", "CompileOptions", "CompiledKernel",
+           "DEFAULT_OPTIONS", "KernelCache", "STATS", "autotune_candidates",
+           "compile", "default_cache", "reset_default_cache"]

@@ -80,3 +80,17 @@ def test_boundary_covers_the_dense_and_moe_zoo():
         assert m in mods, m
     from repro_torch.models import layers
     assert callable(layers.moe_apply) and callable(layers.moe_ref)
+
+
+def test_boundary_covers_the_compile_driver():
+    """The compile driver's modules (options, the on-disk cache, timing)
+    are among the modules whose import must leave JAX out."""
+    mods = _modules()
+    for m in ("repro_torch.pipeline.options", "repro_torch.pipeline.cache",
+              "repro_torch.pipeline.driver", "repro_torch.core.timing"):
+        assert m in mods, m
+    from repro_torch import pipeline
+    for name in ("KernelCache", "CacheStats", "default_cache",
+                 "reset_default_cache", "CODEGEN_VERSION",
+                 "AUTOTUNE_OBJECTIVES"):
+        assert hasattr(pipeline, name), name

@@ -11,8 +11,9 @@ ungrouped (the card side of ``tests/test_torch_coverage.py``), for every
 kernel of the serving path at its serving shape (full-width smollm-135m:
 decode batch 4, prompt buckets 8/16/32, max_len 96), and for a reduction
 whose trip count gives a cluster of 13 ranks or, having no divisor up to
-16, none.  This module imports no JAX: the machine with the card has
-none.
+16, none.  The compile driver on the card: a measured autotune and a
+disk-hit re-lowering that loads its libraries without nvcc.  This module
+imports no JAX: the machine with the card has none.
 """
 
 import numpy as np
@@ -199,3 +200,52 @@ def test_cluster_size_follows_the_trip_count_on_card(k_trips, ranks, card):
     torch.cuda.synchronize()
     for n in kern.out_names:
         torch.testing.assert_close(got[n].cpu(), want[n], rtol=TOL, atol=TOL)
+
+
+def test_measured_autotune_on_card(card, tmp_path):
+    """``autotune="measured"`` on the card: every finalist compiles and is
+    timed at one total problem; the winner is no slower than the analytic
+    winner (the first finalist timed), lowers at the caller's blocks, and
+    agrees with its kernels' plain versions."""
+    from repro_torch.core import timing as T
+    g = TAP.rmsnorm_ffn_swiglu_program(16.0)
+    cands = {"M": [1, 2], "D": [2], "K": [2, 3], "N": [2]}
+    opts = TP.CompileOptions(backend="cuda", blocks={"M": 4, "D": 8,
+                                                     "K": 4, "N": 4},
+                             autotune="measured", top_k=3)
+    cache = TP.KernelCache(tmp_path)
+    T.clear_measurements()
+    kern = TP.compile(g, dim_candidates=cands, options=opts, cache=cache)
+    times = dict(kern.autotune_timings)
+    analytic = kern.autotune_report[0]["dims"]
+    assert kern.measured_s <= times[tuple(sorted(analytic.items()))]
+    assert all(r["skipped"] is None for r in kern.autotune_report)
+    assert kern.blocks == opts.blocks_dict
+    feed = T.synth_inputs(g, kern.dims, kern.blocks, device=card)
+    got = kern(feed)
+    want = kern({n: v.cpu() for n, v in feed.items()})
+    for n in kern.out_names:
+        torch.testing.assert_close(got[n].cpu(), want[n], rtol=TOL, atol=TOL)
+
+
+def test_disk_hit_relowers_without_nvcc(card, tmp_path):
+    """A fresh cache object over the same directory (a new process) loads
+    the plan from disk, and its kernels load their libraries without a
+    build, then launch and agree with the first compile's."""
+    from repro_torch.core import cuda_build as CB
+    build, dims, blocks = PROGRAMS["gqa"]
+    opts = TP.CompileOptions(backend="cuda", blocks=blocks)
+    first = TP.compile(build(TAP), dims, options=opts,
+                       cache=TP.KernelCache(tmp_path))
+    feed = {n: torch.from_numpy(v).to(card) for n, v in
+            merged_inputs(first.graph, dims, blocks).items()}
+    want = first(feed)
+    builds = CB.STATS["builds"]
+    again = TP.compile(build(TAP), dims, options=opts,
+                       cache=TP.KernelCache(tmp_path))
+    assert again.cache_hit == "disk"
+    got = again(feed)
+    torch.cuda.synchronize()
+    assert CB.STATS["builds"] == builds
+    for n in again.out_names:
+        torch.testing.assert_close(got[n], want[n], rtol=0, atol=0)
