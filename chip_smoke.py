@@ -36,9 +36,13 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    weights; 8 requests, prompts of 4-24 tokens, 4-12 new tokens) through
    the CUDA kernels, with every launch counter set to 0 just before and
    read just after; its greedy tokens are held against the same engine
-   on the plain ``torch`` backend; then ``launch.profile_decode`` breaks
-   3 decode steps of the same engine down by kernel (each decode kernel,
-   torch ops, the device's busy share, the step's host time), beside
+   on the plain ``torch`` backend; the resilience layer's clean path is
+   gated (here and in 4a): no demotion, probe, re-promotion, quarantine
+   or emitter split, decode on ``pipeline-cuda``, every program on its
+   requested rung, no file in the run's ``<cache>/health/``; then
+   ``launch.profile_decode`` breaks 3 decode steps of the same engine
+   down by kernel (each decode kernel, torch ops, the device's busy
+   share, the step's host time), beside
    ``torch.cuda.max_memory_allocated``.  Each architecture runs in a
    child process (this script with ``--serve``), so its weights and
    profiler session end with it; smollm-135m's on a fresh cache
@@ -100,9 +104,31 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    coefficients and the Spearman rank agreement of predicted cost and
    measured time under the default and the fitted profile (a finding,
    printed, not gated);
-11. the serving records, the paths' times, the compile driver's record,
-   each phase's seconds, a ``kernels`` JSON line, the card line, and the
-   result line.
+11. resilience on the card: smollm-135m at full width and depth, three
+   runs on phase 4's trace, each in a child process (``--resilience``) on
+   its own copy of phase 4's filled cache directory and on phase 2's nvcc
+   directory, all started together.  On the card nothing demotes to a
+   plain version (a compile stops at the ``ungrouped`` rung, decode never
+   leaves ``pipeline-cuda``), so the reference's plans are cut to what
+   the card may do: **chaos** (the grouped rung of the first compile, the
+   first plan read corrupted, a NaN logits row) must land exactly one
+   program on the ``ungrouped`` rung, poison exactly one request and
+   match every counter to the plan by the reference's rule
+   (``resilience_expected``), the other requests' tokens equal to phase
+   4's and every kernel launched; **refuse** (the heal plan's decode
+   fault) must raise out of ``run`` with no demotion, probe or breaker,
+   after exact decode-kernel launches (a layer each for every tick before
+   the fault), and a serving program compiled with both cuda rungs
+   faulted must raise ``LadderError`` without trying the ``torch`` rung;
+   **deadline** (``deadline_trace``, ``max_queue=2``) must give the
+   ``queue_full``, ``deadline_queued`` and ``deadline`` records the CPU
+   engines give (``DEADLINE_RECORDS``).  Every run: zero nvcc builds,
+   zero unexplained compiles, no breaker left open (refuse: no file in
+   ``<cache>/health/``);
+12. the serving records, the paths' times, the compile driver's record,
+   the ``resilience`` record (the three runs' counters and seconds, and
+   the card), each phase's seconds, a ``kernels`` JSON line, the card
+   line, and the result line.
 """
 
 from __future__ import annotations
@@ -135,6 +161,37 @@ SERVED = (("smollm-135m", None), ("llama3.2-1b", None),
 SERVE = dict(n_requests=8, prompt_lens=(4, 24), gen_lens=(4, 12), seed=0,
              record_logits=True, max_batch=4, max_len=96,
              prompt_buckets=(8, 16, 32))
+#: phase 11, resilience on the card: the served architecture (full width,
+#: the config's depth), the reference's seeded chaos plan
+#: (benchmarks/serve_bench.py:75-84) and heal plan (:90-100) with its
+#: probe window, which the CPU engines run against the reference's
+#: (tests/test_torch_resilience_engine.py), the card's cuts of them, and
+#: the deadline run's queue bound
+RESILIENCE_ARCH = "smollm-135m"
+CHAOS_FAULTS = (
+    {"site": "compile:grouped", "indices": [0], "kind": "raise",
+     "message": "chaos: grouped lowering down"},
+    {"site": "compile:ungrouped", "indices": [0], "kind": "raise",
+     "message": "chaos: ungrouped lowering down"},
+    {"site": "cache:get_plan", "indices": [0], "kind": "corrupt"},
+    {"site": "serve:logits", "indices": [2], "kind": "nan"})
+HEAL_FAULTS = (
+    {"site": "serve:decode", "indices": [2], "kind": "raise",
+     "message": "heal: transient decode fault"},
+    {"site": "serve:probe", "indices": [0], "kind": "raise",
+     "message": "heal: probe still cold"})
+HEAL_REPROMOTE_AFTER = 3
+#: on the card a compile demotes no further than ``ungrouped`` and decode
+#: not at all: the chaos run faults the grouped rung only, and the refuse
+#: run holds the card to raising on the heal plan's decode fault
+CARD_CHAOS_FAULTS = tuple(f for f in CHAOS_FAULTS
+                          if f["site"] != "compile:ungrouped")
+REFUSE_FAULTS = HEAL_FAULTS[:1]
+DEADLINE_MAX_QUEUE = 2
+#: the deadline run's failure records by reason: what the port's and the
+#: reference's engines give for its trace on the CPU
+#: (tests/test_torch_resilience_engine.py holds both to these)
+DEADLINE_RECORDS = {"queue_full": 2, "deadline_queued": 1, "deadline": 2}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # float32 work within the float32 tolerance: 3xTF32 on the tensor cores,
 # the data sheet's dense 495 TFLOP/s TF32 over the three products
@@ -148,6 +205,17 @@ HAND_TC = ("flash_attention", "rmsnorm_swiglu",   # hand kernels on HMMA
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def on_requested_rung(label, kern):
+    """``kern``, failing unless it was compiled on the ladder rung its
+    options asked for: a demoted program would change what a phase
+    measures."""
+    rr = kern.resilience_report
+    if kern.rung != rr.requested:
+        fail(f"{label}: compiled on the {kern.rung!r} rung, not the "
+             f"{rr.requested!r} one it asked for ({rr.summary()})")
+    return kern
 
 
 def card_line() -> str:
@@ -842,7 +910,8 @@ def serve_phase(arch, n_layers, warm=False):
     t1 = time.perf_counter()
     programs = L.pipeline_kernels(mc, prefill_lens=cfg.prompt_buckets,
                                   decode_batch=cfg.max_batch,
-                                  max_len=cfg.max_len)
+                                  max_len=cfg.max_len,
+                                  device=engine.device.type)
     kernels = {f"{arch}/{prog}/{k.gid}": k for prog, ck in programs.items()
                for k in ck.kernels}
     CC.build(list(kernels.values()))
@@ -873,7 +942,9 @@ def serve_phase(arch, n_layers, warm=False):
     for rid, rows_l in report.logits.items():
         if not all(torch.isfinite(r).all() for r in rows_l):
             fail(f"{label}: request {rid}: non-finite logits")
+    clean = check_clean_path(label, report, programs)
     rec = {"arch": arch, "n_layers": mc.n_layers, "programs": len(programs),
+           "resilience": clean,
            "cache": {"memory_hits": report.cache_memory_hits,
                      "disk_hits": report.cache_disk_hits,
                      "misses": report.cache_misses,
@@ -937,6 +1008,34 @@ def serve_phase(arch, n_layers, warm=False):
             "recompiles": report.decode_recompiles, "serve_s": serve_s,
             "same_tokens": same, "decode_step": step,
             "max_memory_allocated": peak, "launches": launches}
+
+
+def check_clean_path(label, report, programs):
+    """The resilience layer's clean-path gates of a serving phase: no
+    demotion, probe, re-promotion, quarantine or emitter split, decode on
+    ``pipeline-cuda``, every served program on the rung it asked for, and
+    nothing in the run's health ledger.  Returns the counters."""
+    from repro_torch import pipeline as PL
+    clean = {"degradations": report.degradations,
+             "probes": report.probes,
+             "repromotions": report.repromotions,
+             "quarantined": report.quarantined,
+             "cuda_degraded": report.cuda_degraded,
+             "decode_backend": report.decode_backend}
+    if any(v for k, v in clean.items() if k != "decode_backend") \
+            or report.decode_backend != "pipeline-cuda":
+        fail(f"{label}: the clean path degraded: {json.dumps(clean)}")
+    off = {prog: (ck.resilience_report.requested, ck.rung)
+           for prog, ck in programs.items()
+           if ck.rung != ck.resilience_report.requested}
+    if off:
+        fail(f"{label}: programs off their requested rung: {off}")
+    health = sorted(str(p) for p in
+                    (PL.default_cache().root / "health").rglob("*")
+                    if p.is_file())
+    if health:
+        fail(f"{label}: files in the health ledger: {health}")
+    return clean
 
 
 def serve_in_child(arch, n_layers, cache_dir=None, build_dir=None,
@@ -1042,16 +1141,19 @@ def tuned_kernels(tuned):
             for opts in ([rec["options"]] if "options" in rec else []) + [
                     at_base]:
                 try:
-                    kernels += PL.compile(g, rec["dims"],
-                                          options=opts).kernels
+                    ck = PL.compile(g, rec["dims"], options=opts)
                 except Exception as err:
                     print(f"{tp['label']}: finalist {rec['dims']} does not "
                           f"compile ({type(err).__name__}: {err})",
                           flush=True)
+                    continue
+                kernels += on_requested_rung(
+                    f"{tp['label']} finalist {rec['dims']}", ck).kernels
         for name, group in (("unfused", True), ("per_region", False)):
-            tp[name] = PL.compile(g, tp["dims"], options=PL.CompileOptions(
-                backend="cuda", blocks=tp["blocks"], fused=False,
-                group=group))
+            tp[name] = on_requested_rung(f"{tp['label']} {name}", PL.compile(
+                g, tp["dims"], options=PL.CompileOptions(
+                    backend="cuda", blocks=tp["blocks"], fused=False,
+                    group=group)))
             kernels += tp[name].kernels
     return kernels
 
@@ -1138,8 +1240,8 @@ def autotune_phase(tuned):
         skips = PL.STATS["measure_skips"]
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            kern = PL.compile(g, dim_candidates=tp["cands"],
-                              options=tp["options"])
+            kern = on_requested_rung(f"{label} winner", PL.compile(
+                g, dim_candidates=tp["cands"], options=tp["options"]))
         for w in caught:
             print(f"{label}: warning: {w.message}", flush=True)
         if kern.measured_s is None:
@@ -1156,7 +1258,9 @@ def autotune_phase(tuned):
         for rec in kern.autotune_report:
             ev = cerr = None
             if rec["skipped"] is None:
-                ck = PL.compile(g, rec["dims"], options=rec["options"])
+                ck = on_requested_rung(
+                    f"{label} finalist {rec['dims']}",
+                    PL.compile(g, rec["dims"], options=rec["options"]))
                 feed = T.synth_inputs(g, rec["dims"], rec["blocks"],
                                       device="cuda")
                 ev = event_ms(ck, feed)
@@ -1205,8 +1309,9 @@ def fusion_phase(tuned):
     out = []
     for tp in tuned:
         g, label = tp["graph"], tp["label"]
-        fused = PL.compile(g, tp["dims"], options=PL.CompileOptions(
-            backend="cuda", blocks=tp["blocks"]))
+        fused = on_requested_rung(f"{label} fused", PL.compile(
+            g, tp["dims"], options=PL.CompileOptions(
+                backend="cuda", blocks=tp["blocks"])))
         if fused.lowering_report.degraded:
             fail(f"{label}: the fused program split planned groups: "
                  f"{fused.lowering_report.degraded}")
@@ -1266,6 +1371,325 @@ def calibration_phase(served, rows, root):
     return res
 
 
+# -- resilience on the card (phase 11) --------------------------------------
+
+def resilience_faults(run):
+    return {"chaos": CARD_CHAOS_FAULTS, "refuse": REFUSE_FAULTS,
+            "deadline": ()}[run]
+
+
+def deadline_trace(trace):
+    """Phase 4's requests for phase 11's deadline run: two arriving a
+    step, and a deadline on every odd one, 4 steps after its arrival in
+    the trace's first half and 1 step in its second."""
+    half = len(trace) // 2
+    return [dataclasses.replace(
+        r, arrival_step=r.rid // 2,
+        deadline_step=(r.rid // 2 + (4 if r.rid < half else 1)
+                       if r.rid % 2 else None)) for r in trace]
+
+
+def resilience_expected(run, n_programs):
+    """The counters a phase 11 chaos or deadline run must end with, by the
+    reference's counting rule (benchmarks/serve_bench.py:184-285): a
+    demotion per grouped-rung compile fault, which lands its program on
+    the ``ungrouped`` rung (its kernel's source is the grouped one's:
+    nothing to build), one plan miss and two quarantined files (the plan
+    and its graph) per corrupted plan read, a poisoned request per NaN
+    fault; no probe and no plain rung.  The deadline run degrades
+    nothing."""
+    from repro_torch import resilience as RZ
+    n = RZ.FaultPlan.from_json({"faults": list(resilience_faults(run))
+                                }).expected_count
+    return {"degradations": n("compile:"),
+            "cache_misses": n("cache:"),
+            "cache_disk_hits": n_programs - n("cache:"),
+            "quarantined": 2 * n("cache:"),
+            "n_poisoned": n("serve:logits"),
+            "repromotions": 0, "probes": 0, "probe_failures": 0,
+            "ungrouped_programs": n("compile:grouped"),
+            "torch_programs": 0,
+            "cuda_degraded": 0, "decode_recompiles": 0, "nvcc_builds": 0}
+
+
+def refuse_run(engine, trace, plan, mc):
+    """The refuse run's serve and compile under their faults: what a
+    cuda engine does where a CPU one would demote.  Returns the run's
+    record: the error ``run`` raised, the watchdog's counters, the decode
+    rung, the engine's launch counts, and the ladder attempts and torch
+    rung calls of a serving program compiled with both cuda rungs
+    faulted."""
+    from repro_torch import resilience as RZ
+    from repro_torch.launch.engine import _backend_label
+    from repro_torch.models import layers as L
+    rec = {"error": None}
+    with RZ.faults(plan):
+        try:
+            engine.run(trace)
+        except Exception as err:
+            rec["error"] = f"{type(err).__name__}: {err}"
+    rec.update(
+        watchdog_demotions=engine.watchdog_demotions, probes=engine.probes,
+        ledger=engine._ledger is not None,
+        decode_backend=_backend_label(engine.cfg),
+        n_layers=mc.n_layers, ticks_before_fault=plan.specs[0].indices[0],
+        kernel_launches={n: k.launches - engine._launch_base[n]
+                         for n, k in engine.kernels.items()})
+    # the decode SwiGLU program, under a policy that keys it apart from
+    # the served one (so it compiles anew) and keeps no breaker
+    opts = L._pipeline_options(mc).replace(
+        resilience=RZ.ResiliencePolicy(breaker_threshold=0))
+    both = RZ.FaultPlan([RZ.FaultSpec(site="compile:grouped"),
+                         RZ.FaultSpec(site="compile:ungrouped")])
+    rec["ladder"] = None
+    with RZ.faults(both):
+        try:
+            L.swiglu_kernel(engine.max_batch, mc.d_model, mc.d_ff,
+                            float(mc.norm_eps), opts, "cuda")
+        except RZ.LadderError as err:
+            rec["ladder"] = [a.rung for a in err.report.attempts]
+    rec["torch_calls"] = both.calls("compile:torch")
+    return rec
+
+
+def resilience_run(run, n_layers):
+    """One run of phase 11 in this (child) process: smollm-135m served
+    on phase 4's trace (``deadline``: :func:`deadline_trace`, with
+    ``max_queue``) under the run's fault plan, on the kernel-cache
+    directory and nvcc build directory its parent gave it.  Returns its
+    record: the report's counters and failure records, each served
+    program's rung, the engine's launch counts, nvcc builds, the
+    quarantine and health-ledger files, and seconds (the refuse run:
+    :func:`refuse_run`'s record)."""
+    import warnings
+
+    import torch
+    from repro_torch import pipeline as PL
+    from repro_torch import resilience as RZ
+    from repro_torch.core import cuda_build as CB
+    from repro_torch.launch import serve as S
+    from repro_torch.models import layers as L
+
+    plan = RZ.FaultPlan.from_json({"faults": list(resilience_faults(run))})
+    cfg = S.ServeConfig(
+        arch=RESILIENCE_ARCH, n_layers=n_layers, **SERVE,
+        max_queue=DEADLINE_MAX_QUEUE if run == "deadline" else None)
+    t0 = time.perf_counter()
+    engine = S.build_engine(cfg)
+    trace = S.trace_for(cfg, engine.cfg.vocab)
+    if run == "deadline":
+        trace = deadline_trace(trace)
+    t1 = time.perf_counter()
+    mc = S.model_config(cfg)
+    root = PL.default_cache().root
+
+    def health_files():
+        return sorted(p.name for p in (root / "health").rglob("*")
+                      if p.is_file())
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if run == "refuse":
+            engine.warmup()
+            t2 = time.perf_counter()
+            programs = L.pipeline_kernels(
+                mc, prefill_lens=cfg.prompt_buckets,
+                decode_batch=cfg.max_batch, max_len=cfg.max_len,
+                device=engine.device.type)
+            rec = refuse_run(engine, trace, plan, mc)
+            torch.cuda.synchronize()
+            return {"run": run, **rec,
+                    "rungs": {p: ck.rung for p, ck in programs.items()},
+                    "nvcc_builds": CB.STATS["builds"],
+                    "health_files": health_files(),
+                    "warnings": [str(w.message)[:160] for w in caught
+                                 if issubclass(w.category,
+                                               RuntimeWarning)],
+                    "build_s": t1 - t0, "warmup_s": t2 - t1,
+                    "run_s": time.perf_counter() - t2}
+        with RZ.faults(plan):
+            engine.warmup()
+            t2 = time.perf_counter()
+            report = engine.run(trace)
+            torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    programs = L.pipeline_kernels(mc, prefill_lens=cfg.prompt_buckets,
+                                  decode_batch=cfg.max_batch,
+                                  max_len=cfg.max_len,
+                                  device=engine.device.type)
+    finite = all(bool(torch.isfinite(r).all())
+                 for rows in report.logits.values() for r in rows)
+    return {"run": run, "n_layers": mc.n_layers, "programs": len(programs),
+            "fired": [list(f) for f in plan.fired],
+            "planned": plan.expected_count(),
+            **{k: getattr(report, k) for k in (
+                "degradations", "quarantined", "cache_misses",
+                "cache_disk_hits", "n_poisoned", "repromotions", "probes",
+                "probe_failures", "decode_backend", "cuda_degraded",
+                "decode_recompiles", "n_completed", "n_rejected",
+                "n_deadline_evicted", "steps", "tokens_per_s",
+                "p50_token_ms", "p99_token_ms", "kernel_launches")},
+            "failures": [{k: (v[:160] if isinstance(v, str) else v)
+                          for k, v in f.items()} for f in report.failures],
+            "decode_ticks": [r.step for r in report.per_step
+                             if r.n_decode > 0],
+            "tokens": {str(r): t for r, t in report.tokens.items()},
+            "finite": finite,
+            "rungs": {prog: ck.rung for prog, ck in programs.items()},
+            "nvcc_builds": CB.STATS["builds"],
+            "quarantine_files": len([p for p in (root / "quarantine").glob(
+                "*") if p.is_file()]),
+            # the breakers on disk: (rung, state, consecutive failures)
+            "breakers": sorted([e.rung, e.state, e.failures] for e in
+                               RZ.HealthLedger(root / "health").entries()),
+            "warnings": len([w for w in caught
+                             if issubclass(w.category, RuntimeWarning)]),
+            "build_s": t1 - t0, "warmup_s": t2 - t1, "run_s": t3 - t2}
+
+
+def resilience_phase(cache_root, n_layers):
+    """Phase 11: the chaos, refuse and deadline runs, each in a child
+    process (this script with ``--resilience``) on its own copy of phase
+    4's filled cache directory (so the chaos run's first plan read is a
+    real plan) and on phase 2's nvcc build directory, all started
+    together.  Returns their records, with each child's wall seconds."""
+    procs = {}
+    t0 = time.perf_counter()
+    for run in ("chaos", "refuse", "deadline"):
+        cache_dir = cache_root / run
+        shutil.copytree(cache_root / "serve", cache_dir)
+        env = dict(os.environ, REPRO_TORCH_KERNEL_CACHE=str(cache_dir))
+        env.pop("REPRO_TORCH_BUILD_DIR", None)
+        procs[run] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--resilience",
+             run, "--n-layers", str(n_layers or 0)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=ROOT, env=env)
+    recs = {}
+    for run, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for other in procs.values():
+                other.kill()
+            fail(f"phase 11 {run}: the child did not end within 600 s")
+        lines = out.splitlines()
+        if proc.returncode != 0 or not lines or not lines[-1].startswith(
+                "{"):
+            fail(f"phase 11 {run} (child process, rc {proc.returncode}): "
+                 f"{err.strip()[-3000:]}")
+        recs[run] = json.loads(lines[-1])
+        recs[run]["process_s"] = time.perf_counter() - t0
+    return recs
+
+
+def check_refuse(rec, label):
+    """The refuse run's checks: the decode fault raised out of ``run`` as
+    it was, nothing demoted, probed or kept in a ledger, each decode
+    kernel launched once a layer for every tick before the fault, and the
+    compile with both cuda rungs faulted raised ``LadderError`` after the
+    two cuda rungs, never trying ``torch``."""
+    want_err = f"InjectedFault: serve:decode[{REFUSE_FAULTS[0]['message']}]"
+    got = {k: rec[k] for k in ("error", "watchdog_demotions", "probes",
+                               "ledger", "decode_backend", "ladder",
+                               "torch_calls", "nvcc_builds",
+                               "health_files")}
+    want = {"error": want_err, "watchdog_demotions": 0, "probes": 0,
+            "ledger": False, "decode_backend": "pipeline-cuda",
+            "ladder": ["grouped", "ungrouped"], "torch_calls": 0,
+            "nvcc_builds": 0, "health_files": []}
+    if got != want:
+        fail(f"{label}: {json.dumps(got)} != {json.dumps(want)}")
+    off = {p: r for p, r in rec["rungs"].items() if r != "grouped"}
+    if off:
+        fail(f"{label}: programs off the grouped rung: {off}")
+    n = rec["ticks_before_fault"] * rec["n_layers"]
+    decode = {k: v for k, v in rec["kernel_launches"].items()
+              if k.split("/")[0] in ("attention_decode", "swiglu_decode")}
+    if not decode or any(v != n for v in decode.values()):
+        fail(f"{label}: decode launches {decode}, expected {n} each "
+             f"({rec['ticks_before_fault']} ticks x {rec['n_layers']} "
+             "layers)")
+    return got
+
+
+def check_resilience(recs, phase4):
+    """Phase 11's checks against the plans, phase 4's record (tokens,
+    launched kernels) and the CPU-computed deadline records."""
+    base_tokens = phase4["tokens"]
+    n_prog = phase4["programs"]
+    for run, rec in recs.items():
+        label = f"phase 11 {run}"
+        if run == "refuse":
+            got = check_refuse(rec, label)
+            print(f"{label}: {json.dumps(got)}; child "
+                  f"{rec['process_s']:.1f} s (engine {rec['build_s']:.1f}, "
+                  f"warmup {rec['warmup_s']:.1f}, run {rec['run_s']:.1f})",
+                  flush=True)
+            continue
+        want = resilience_expected(run, n_prog)
+        if len(rec["fired"]) != rec["planned"]:
+            fail(f"{label}: {len(rec['fired'])} of {rec['planned']} "
+                 f"planned faults fired: {rec['fired']}")
+        by_rung = {r: sorted(p for p, pr in rec["rungs"].items() if pr == r)
+                   for r in ("ungrouped", "torch")}
+        got = {k: (len(by_rung[k.split("_")[0]])
+                   if k in ("ungrouped_programs", "torch_programs")
+                   else rec[k]) for k in want}
+        if got != want:
+            fail(f"{label}: counters {json.dumps(got)} != the plan's "
+                 f"{json.dumps(want)}")
+        off = {p: r for p, r in rec["rungs"].items()
+               if r not in ("grouped", "ungrouped")}
+        if off:
+            fail(f"{label}: programs on a plain rung: {off}")
+        if rec["quarantine_files"] != rec["quarantined"]:
+            fail(f"{label}: {rec['quarantine_files']} quarantine files for "
+                 f"{rec['quarantined']} quarantined")
+        # a compile fault leaves its rung's failure count below the
+        # threshold (closed, until a success of the same program resets
+        # it); no breaker may be left open
+        if any(state != "closed" for _, state, _ in rec["breakers"]) or (
+                rec["breakers"] and run != "chaos"):
+            fail(f"{label}: breakers left on disk: {rec['breakers']}")
+        if not rec["finite"]:
+            fail(f"{label}: a served logits row is not finite")
+        idle = [k for k, n in rec["kernel_launches"].items() if n <= 0]
+        if idle:
+            fail(f"{label}: kernels never launched: {idle}")
+        reasons = [f["reason"] for f in rec["failures"]]
+        if run == "chaos":
+            bad = [f for f in rec["failures"]
+                   if f["reason"] == "nonfinite_logits"]
+            if reasons != ["nonfinite_logits"] or "rid" not in bad[0]:
+                fail(f"{label}: failure records {rec['failures']}")
+            poisoned = str(bad[0]["rid"])
+            served = {k.split("/")[1] for k in phase4["launches"]}
+            if {k.split("/")[0] for k in rec["kernel_launches"]} != served:
+                fail(f"{label}: launched programs "
+                     f"{sorted(rec['kernel_launches'])} != {sorted(served)}")
+            same = {r: t for r, t in rec["tokens"].items()
+                    if r != poisoned}
+            if rec["n_completed"] != len(base_tokens) - 1 or any(
+                    t != base_tokens[r] for r, t in same.items()):
+                fail(f"{label}: tokens of unpoisoned requests differ from "
+                     "phase 4's")
+        else:
+            counts = {k: reasons.count(k) for k in DEADLINE_RECORDS}
+            if counts != DEADLINE_RECORDS or len(reasons) != sum(
+                    DEADLINE_RECORDS.values()):
+                fail(f"{label}: failure records {rec['failures']} != "
+                     f"{DEADLINE_RECORDS}")
+            if rec["n_completed"] + rec["n_rejected"] \
+                    + rec["n_deadline_evicted"] != len(base_tokens):
+                fail(f"{label}: requests unaccounted for")
+        print(f"{label}: {json.dumps(got)}; failure records "
+              f"{json.dumps(reasons)}; child "
+              f"{rec['process_s']:.1f} s (engine {rec['build_s']:.1f}, "
+              f"warmup {rec['warmup_s']:.1f}, run {rec['run_s']:.1f})",
+              flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1277,6 +1701,11 @@ def main() -> int:
         rec = serve_phase(sys.argv[2], int(sys.argv[4]) or None,
                           warm="--warm" in sys.argv[5:])
         print(json.dumps(rec))
+        return 0
+    if sys.argv[1:2] == ["--resilience"]:   # a phase 11 child
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(resilience_run(sys.argv[2],
+                                        int(sys.argv[4]) or None)))
         return 0
     from repro_torch.core import codegen_cuda as CC
     from repro_torch.core import cuda_build as CB
@@ -1307,6 +1736,7 @@ def main() -> int:
             mc, prefill_lens=SERVE["prompt_buckets"],
             decode_batch=SERVE["max_batch"], max_len=SERVE["max_len"]))
         for prog, ck in served[arch][1].items():
+            on_requested_rung(f"{arch}/{prog}", ck)
             print(f"{arch}/{prog}: {ck.lowering_report.summary()}",
                   flush=True)
             if ck.lowering_report.degraded:
@@ -1372,6 +1802,12 @@ def main() -> int:
     calib = calibration_phase(served, rows, cache_root / "main")
     phase_s["10 calibration"] = time.perf_counter() - t0
 
+    # -- 11. resilience on the card -----------------------------------------
+    t0 = time.perf_counter()
+    res = resilience_phase(cache_root, dict(SERVED)[RESILIENCE_ARCH])
+    check_resilience(res, serving[RESILIENCE_ARCH])
+    phase_s["11 resilience"] = time.perf_counter() - t0
+
     for arch, rec in serving.items():
         for name, n in rec["launches"].items():
             rows[name]["launches"] = n
@@ -1388,6 +1824,11 @@ def main() -> int:
         "warm_serve": {k: v for k, v in warm.items() if k != "tokens"},
         "measured_autotune": tuned_res, "fusion": fusion_res,
         "calibration": calib}))
+    print("resilience: " + json.dumps({
+        "card": card, "seconds": phase_s["11 resilience"],
+        **{run: {k: v for k, v in rec.items()
+                 if k not in ("tokens", "kernel_launches", "rungs")}
+           for run, rec in res.items()}}))
     print("phase seconds: " + json.dumps(phase_s))
     print(json.dumps({"kernels": list(rows.values())
                       + list(hand_rows.values())}))

@@ -5,13 +5,17 @@ An open-loop arrival trace feeds a slot scheduler that
 
 * admits requests into free KV-cache slots, prefilling each prompt padded
   to a *shape bucket* (exact under causal masking: pad keys sit only at
-  future positions, and later decode steps overwrite them);
+  future positions, and later decode steps overwrite them); admission is
+  bounded by ``max_queue`` (an arrival past it is rejected with a
+  ``queue_full`` record) and a request whose ``deadline_step`` passed
+  while it queued is dropped (``deadline_queued``);
 * runs ONE ragged decode step per tick across every active slot, each
   sequence at its own cache position.  Positions are kernel data (the
   causal mask's QP/KP inputs), so the same compiled kernels serve every
   step;
-* evicts finished sequences, stalled ones (cache slot exhausted) and
-  sequences whose logits turn non-finite.
+* evicts finished sequences, stalled ones (cache slot exhausted),
+  sequences past their deadline (``deadline``) and sequences whose logits
+  turn non-finite (``nonfinite_logits``), each with a failure record.
 
 ``warmup()`` compiles every kernel the loop can touch (one attention and
 one SwiGLU kernel per prompt bucket plus the decode pair), builds the CUDA
@@ -19,21 +23,47 @@ ones together, and runs each once; ``run()`` then pins zero pipeline
 compiles (``CacheStats.delta`` of ``pipeline.default_cache()``: plans
 compiled or loaded from disk) and zero nvcc builds.  A warmup in a fresh
 process over a cache directory another process filled loads every plan
-from disk (``ServeReport.cache_disk_hits``) and builds nothing.  The
-reference's watchdog demotion and re-promotion, deadlines and bounded
-queue wait for the resilience slice: on the card they would be a
-fallback away from the kernels.
+from disk (``ServeReport.cache_disk_hits``) and builds nothing.
+
+Resilience (``repro_torch.resilience``), and every step of it is loud: a
+``RuntimeWarning``, a failure record and a ``ServeReport`` counter.
+
+* **The watchdog**: a decode step that raises demotes decode one rung of
+  the serving ladder, ``pipeline-cuda`` -> ``pipeline-torch`` ->
+  ``chunked`` (``attn_impl="chunked"``, ``mlp_impl="fused_ref"``, the
+  reference's ``xla``/``fused_ref``), and retries the tick once; prefill
+  stays on the rung it started on.  When the retry fails too the
+  original error is raised.  **The serving ladder runs on CPU tensors
+  only**: the lower rungs are the kernels' plain versions, and on the
+  card a kernel launches or raises, so a cuda engine's watchdog re-raises
+  the decode error and the engine never probes or adopts a demoted
+  start (a sticky CUDA error poisons the context besides).
+* **Re-promotion** (CPU engines): the failed rung's breaker, in a
+  :class:`~repro_torch.resilience.HealthLedger` under
+  ``<cache>/health/`` whose clock is the engine tick, admits a half-open
+  probe after ``repromote_after`` clean ticks; a probe whose decode step
+  gives finite logits swaps the rung back in, a failed one re-opens the
+  breaker at doubled cool-down.  The probe decodes on a copy of the KV
+  cache: the port's decode writes the cache in place, and a probe must
+  never reach a live sequence.  An engine built over a ledger with an
+  open breaker starts demoted.
+* Demotion and probe compiles are explained and kept out of
+  ``decode_recompiles``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
+import warnings
 from collections import deque
 from dataclasses import asdict, dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import resilience as RZ
 
 
 #: the families continuous batching serves: attention models, whose padded
@@ -52,6 +82,10 @@ class Request:
     prompt: Tuple[int, ...]
     max_new_tokens: int
     arrival_step: int
+    # the last engine step this request may still run at: past it a
+    # queued request is dropped and an active one evicted (its partial
+    # tokens recorded), each with a failure record.  None = no deadline
+    deadline_step: Optional[int] = None
 
 
 def synth_trace(n_requests: int, *, seed: int = 0,
@@ -121,10 +155,26 @@ class ServeReport:
     warmup_compiles: int = 0
     warmup_builds: int = 0
     decode_recompiles: int = 0   # pipeline compiles + nvcc builds after
-                                 # warmup; MUST be 0
+                                 # warmup that no demotion or probe
+                                 # explains; MUST be 0
+    # -- resilience (all zero, and decode_backend "pipeline-cuda", on the
+    #    clean path of a cuda engine) ------------------------------------
+    n_deadline_evicted: int = 0  # requests dropped or evicted past deadline
+    degradations: int = 0        # compile-ladder demotions
+                                 # (resilience.METRICS) + watchdog ones
+    cuda_degraded: int = 0       # planned groups the emitter split into
+                                 # per-region kernels during warmup
+    repromotions: int = 0        # demoted decode rungs probed healthy and
+                                 # swapped back in
+    probes: int = 0              # half-open re-promotion probes
+    probe_failures: int = 0      # probes that failed (breaker re-opened)
+    decode_backend: str = ""     # the serving-ladder rung decode ended on
     # launches of every emitted kernel during the run, by
     # "<program>/<kernel id>"
     kernel_launches: Dict[str, int] = field(default_factory=dict)
+    # one record per bad shape, queue_full, deadline, poison eviction,
+    # watchdog demotion, probe and re-promotion: {"reason", "step", ...};
+    # a demotion's and a probe's carry their wall time ("ms")
     failures: List[dict] = field(default_factory=list)
     tokens: Dict[int, List[int]] = field(default_factory=dict)
     per_step: List[StepRecord] = field(default_factory=list)
@@ -150,16 +200,62 @@ class _Slot:
     remaining: int
     last_token: int
     generated: List[int]
+    deadline: Optional[int] = None
+
+
+def _demote_cfg(cfg):
+    """One watchdog rung down for the serving model: ``pipeline-cuda`` ->
+    ``pipeline-torch`` -> ``chunked`` (the plain ``chunked`` attention and
+    ``fused_ref`` MLP).  Returns ``(new_cfg, label)``, or ``(None, None)``
+    at the bottom.  The interpreter rung is not servable: it runs numpy on
+    the CPU."""
+    if cfg.attn_impl != "pipeline" and cfg.mlp_impl != "pipeline":
+        return None, None
+    opts = cfg.pipeline_options
+    backend = opts.backend if opts is not None else cfg.pipeline_backend
+    if backend == "cuda":
+        new_opts = opts.replace(backend="torch") if opts is not None else None
+        return dataclasses.replace(cfg, pipeline_backend="torch",
+                                   pipeline_options=new_opts), "pipeline-torch"
+    return dataclasses.replace(cfg, attn_impl="chunked",
+                               mlp_impl="fused_ref",
+                               pipeline_options=None), "chunked"
+
+
+def serving_ladder(device) -> bool:
+    """Whether an engine on ``device`` may demote decode down the serving
+    ladder: on CPU tensors only, since its lower rungs are the kernels'
+    plain versions and on a CUDA tensor a kernel launches or raises."""
+    return torch.device(device).type != "cuda"
+
+
+def _backend_label(cfg) -> str:
+    """The serving-ladder rung of a model config, in the labels
+    :func:`_demote_cfg` hands out."""
+    if cfg.attn_impl != "pipeline" and cfg.mlp_impl != "pipeline":
+        return "chunked"
+    opts = cfg.pipeline_options
+    backend = opts.backend if opts is not None else cfg.pipeline_backend
+    return f"pipeline-{backend}"
 
 
 class Engine:
-    """Slot-based continuous-batching scheduler over ``models.lm.LM``."""
+    """Slot-based continuous-batching scheduler over ``models.lm.LM``.
+
+    ``max_queue`` bounds the queue (None: unbounded); ``repromote_after``
+    is the clean decode ticks a demoted rung waits before a half-open
+    probe (None: demote for good).  ``run`` raises on a compile after
+    warmup that no demotion or probe explains.  On a CUDA device decode
+    never demotes (see the module docstring)."""
 
     def __init__(self, cfg, *, params=None, device="cuda",
                  max_batch: int = 4, max_len: int = 96,
                  prompt_buckets: Sequence[int] = (8, 16, 32),
                  sampling: str = "greedy", temperature: float = 1.0,
-                 seed: int = 0, record_logits: bool = False):
+                 seed: int = 0, record_logits: bool = False,
+                 max_queue: Optional[int] = None,
+                 repromote_after: Optional[int] = 8):
+        from repro_torch import pipeline
         from repro_torch.models import build_model
 
         if cfg.family not in SUPPORTED_FAMILIES:
@@ -183,8 +279,62 @@ class Engine:
         self.sampling = sampling
         self.temperature = float(temperature)
         self.record_logits = record_logits
+        self.max_queue = None if max_queue is None else int(max_queue)
         self._gen = torch.Generator().manual_seed(seed)
+        # the kernel cache the engine compiles in, and its counters when
+        # the engine was made (the report's cache fields count from here)
+        self._cache = pipeline.default_cache()
+        self._base = self._cache.stats.snapshot()
+
+        # -- re-promotion: the decode rung's breaker, on the tick clock --
+        self.repromote_after = (None if repromote_after is None
+                                else int(repromote_after))
+        self._tick = 0
+        self._clean_ticks = 0
+        self._demote_stack: List[Tuple[object, str]] = []  # (cfg, label)
+        self.repromotions = self.probes = self.probe_failures = 0
+        self.watchdog_demotions = 0
+        self.explained_compiles = 0  # demotion and probe compiles+builds
+        self._ledger = None
+        self._hkey = f"serve:{cfg.name}:decode"
+        if self.repromote_after is not None and self.repromote_after <= 0:
+            raise ValueError("repromote_after must be > 0 (or None to "
+                             "disable re-promotion)")
+        # a cuda engine never demotes, so it keeps no breaker to probe
+        # or adopt
+        self._ladder = serving_ladder(self.device)
+        if self._ladder and self.repromote_after is not None:
+            self._ledger = RZ.HealthLedger(
+                self._cache.root / "health" if self._cache.disk else None,
+                clock=lambda: float(self._tick))
+            self._breaker_policy = RZ.ResiliencePolicy(
+                breaker_threshold=1,  # one decode crash opens the breaker
+                breaker_cooldown_s=float(self.repromote_after),
+                breaker_cooldown_max_s=float(self.repromote_after) * 64)
+            # adopt a predecessor's open breaker: start demoted rather
+            # than crash the same rung again, the cool-down re-opened on
+            # this engine's tick clock
+            while True:
+                lbl = _backend_label(cfg)
+                new_cfg, _ = _demote_cfg(cfg)
+                if (new_cfg is None or self._ledger.state(
+                        self._hkey, lbl) == "closed"):
+                    break
+                self._demote_stack.append((cfg, lbl))
+                self._ledger.reopen(self._hkey, lbl,
+                                    float(self.repromote_after))
+                warnings.warn(
+                    f"serve: decode rung {lbl!r} breaker is open in the "
+                    f"health ledger; starting demoted to "
+                    f"{_backend_label(new_cfg)!r}", RuntimeWarning,
+                    stacklevel=2)
+                cfg = new_cfg
+            self.cfg = cfg
+
         self.model = build_model(cfg)
+        # prefill stays on the rung the engine started on; the watchdog
+        # and re-promotion swap the decode model only
+        self._prefill_model = self.model
         self.params = (params if params is not None
                        else self.model.init_params(seed, self.device))
         self.caches = self.model.init_cache(self.max_batch, self.max_len,
@@ -192,14 +342,12 @@ class Engine:
         self.slots: List[Optional[_Slot]] = [None] * self.max_batch
         self.queue: deque = deque()
         self.kernels: Dict[str, object] = {}
-        from repro_torch import pipeline
-        # the kernel cache the engine compiles in, and its counters when
-        # the engine was made (the report's cache fields count from here)
-        self._cache = pipeline.default_cache()
-        self._base = self._cache.stats.snapshot()
+        self._launch_base: Dict[str, int] = {}
         self._warm = None        # the counters after warmup
+        self._base_metrics = None  # resilience.METRICS at warmup start
         self.warmup_compiles = 0
         self.warmup_builds = 0
+        self.cuda_degraded = 0
 
     # -- helpers --------------------------------------------------------------
     def _bucket(self, plen: int) -> Optional[int]:
@@ -220,19 +368,50 @@ class Engine:
                                device=self.device)
 
     def _prefill(self, padded: np.ndarray):
-        return self.model.prefill(self.params, self._tensor(padded),
-                                  max_len=self.max_len)
+        return self._prefill_model.prefill(self.params, self._tensor(padded),
+                                           max_len=self.max_len)
 
-    def _decode(self):
+    def _decode_inputs(self):
         toks = [s.last_token if s else 0 for s in self.slots]
         pos = [s.pos if s else 0 for s in self.slots]
-        return self.model.decode_step(self.params, self.caches,
-                                      self._tensor(toks)[:, None],
-                                      self._tensor(pos))
+        return self._tensor(toks)[:, None], self._tensor(pos)
+
+    def _decode(self, model=None, caches=None):
+        return (model or self.model).decode_step(
+            self.params, self.caches if caches is None else caches,
+            *self._decode_inputs())
+
+    def _decode_once(self):
+        RZ.check("serve:decode")
+        return self._decode()
 
     def _insert(self, cache, slot: int) -> None:
         for name in ("k", "v"):
             self.caches[name][:, slot] = cache[name][:, 0]
+
+    def _compiles(self) -> Tuple:
+        """The counters a compile moves: the kernel cache's and nvcc's."""
+        from repro_torch.core import cuda_build
+        return self._cache.stats.snapshot(), cuda_build.STATS["builds"]
+
+    def _compiled_since(self, mark: Tuple) -> int:
+        from repro_torch.core import cuda_build
+        return (self._cache.stats.delta(mark[0]).compiles
+                + cuda_build.STATS["builds"] - mark[1])
+
+    def _track(self, cfg, **shapes) -> Dict[str, object]:
+        """Compile (or find) the pipeline programs of ``cfg`` and count
+        their emitted kernels' launches from now on."""
+        from repro_torch.models import layers as L
+        programs = L.pipeline_kernels(cfg, max_len=self.max_len,
+                                      device=self.device.type, **shapes)
+        for prog, kern in programs.items():
+            for k in kern.kernels:
+                name = f"{prog}/{k.gid}"
+                if name not in self.kernels:
+                    self.kernels[name] = k
+                    self._launch_base[name] = k.launches
+        return programs
 
     # -- lifecycle ------------------------------------------------------------
     def warmup(self) -> int:
@@ -240,40 +419,48 @@ class Engine:
         CUDA ones together, and run each once.  ``run()`` pins the
         steady state against the counters taken here.  Returns the number
         of pipeline compiles (plans compiled or loaded from disk)."""
-        from repro_torch.core import codegen_cuda, cuda_build
-        from repro_torch.models import layers as L
+        from repro_torch.core import codegen_cuda
 
-        c0, b0 = self._cache.stats.snapshot(), cuda_build.STATS["builds"]
-        cfg = self.cfg
-        programs = L.pipeline_kernels(cfg, prefill_lens=self.prompt_buckets,
-                                      decode_batch=self.max_batch,
-                                      max_len=self.max_len)
-        self.kernels = {}
-        for prog, kern in programs.items():
-            for k in kern.kernels:
-                self.kernels[f"{prog}/{k.gid}"] = k
+        mark = self._compiles()
+        self._base_metrics = RZ.METRICS.snapshot()
+        self.kernels, self._launch_base = {}, {}
+        programs = self._track(self.cfg, prefill_lens=self.prompt_buckets,
+                               decode_batch=self.max_batch)
+        self.cuda_degraded = sum(len(k.lowering_report.degraded)
+                                 for k in programs.values()
+                                 if k.lowering_report is not None)
         if self.device.type == "cuda":
             codegen_cuda.build(list(self.kernels.values()))
         for b in self.prompt_buckets:
             lg, cache = self._prefill(np.zeros((1, b), np.int64))
             self._insert(cache, 0)
-        lg, _ = self._decode()
+        self._decode()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         # the warm-up decode wrote garbage at position 0 of every slot;
         # real prefills overwrite it before any slot activates
-        self.warmup_compiles = self._cache.stats.delta(c0).compiles
-        self.warmup_builds = cuda_build.STATS["builds"] - b0
-        self._warm = (self._cache.stats.snapshot(),
-                      cuda_build.STATS["builds"])
+        self._warm = self._compiles()
+        self.warmup_compiles = self._cache.stats.delta(mark[0]).compiles
+        self.warmup_builds = self._warm[1] - mark[1]
         return self.warmup_compiles
 
-    def _admit(self, req: Request, slot: int, report: ServeReport) -> str:
+    def _admit(self, req: Request, slot: int, report: ServeReport,
+               step: int = 0) -> str:
+        """Prefill ``req`` into ``slot``.  Returns ``"ok"`` (admitted or
+        satisfied outright), ``"rejected"`` (bad shape: no bucket, or
+        prompt + generation past ``max_len``), ``"deadline"`` (its
+        deadline passed while it queued) or ``"poisoned"`` (its prefill
+        logits are not finite: the slot stays free)."""
         plen = len(req.prompt)
+        if req.deadline_step is not None and step > req.deadline_step:
+            report.failures.append({
+                "rid": req.rid, "reason": "deadline_queued", "step": step,
+                "deadline": req.deadline_step})
+            return "deadline"
         bucket = self._bucket(plen)
         if bucket is None or plen + req.max_new_tokens > self.max_len:
             report.failures.append({
-                "rid": req.rid, "reason": "bad_shape",
+                "rid": req.rid, "reason": "bad_shape", "step": step,
                 "prompt_len": plen, "max_new_tokens": req.max_new_tokens})
             return "rejected"
         padded = np.zeros((1, bucket), np.int64)
@@ -284,8 +471,9 @@ class Engine:
         row = logits[:, plen - 1:plen]
         if not bool(torch.isfinite(row).all()):
             report.n_poisoned += 1
-            report.failures.append({"rid": req.rid,
-                                    "reason": "nonfinite_prefill"})
+            report.failures.append({
+                "rid": req.rid, "reason": "nonfinite_prefill", "step": step,
+                "prompt_len": plen})
             return "poisoned"
         self._insert(cache, slot)
         tok = int(self._sample(row)[0])
@@ -297,15 +485,108 @@ class Engine:
             return "ok"
         self.slots[slot] = _Slot(rid=req.rid, pos=plen,
                                  remaining=req.max_new_tokens - 1,
-                                 last_token=tok, generated=[tok])
+                                 last_token=tok, generated=[tok],
+                                 deadline=req.deadline_step)
         return "ok"
+
+    def _watchdog_demote(self, err: BaseException, step: int,
+                         report: ServeReport) -> dict:
+        """The decode step raised: rebuild decode one rung down the
+        serving ladder and keep serving.  Params and the KV cache do not
+        depend on the rung, so active sequences continue in place;
+        prefill (which did not fail) stays as it is.  Returns the
+        demotion's failure record; raises ``err`` when there is no rung
+        left, and always on a CUDA device: on CUDA tensors a kernel
+        launches or raises, never giving way to its plain version."""
+        from repro_torch.models import build_model
+
+        new_cfg, label = (_demote_cfg(self.cfg) if self._ladder
+                          else (None, None))
+        if new_cfg is None:
+            raise err
+        if self._ledger is not None:
+            # open the failed rung's breaker (threshold 1: a decode crash
+            # is never cheap) so re-promotion waits out the cool-down
+            old_label = _backend_label(self.cfg)
+            self._demote_stack.append((self.cfg, old_label))
+            self._ledger.record_failure(self._hkey, old_label, err,
+                                        policy=self._breaker_policy)
+        self.cfg = new_cfg
+        self.model = build_model(new_cfg)
+        self.watchdog_demotions += 1
+        rec = {"reason": "decode_demotion", "step": step, "to": label,
+               "error": f"{type(err).__name__}: {err}"}
+        report.failures.append(rec)
+        warnings.warn(
+            f"serve watchdog: decode step failed ({type(err).__name__}: "
+            f"{err}); demoted decode to {label} and continuing",
+            RuntimeWarning, stacklevel=2)
+        return rec
+
+    def _probe_repromote(self, report: ServeReport, step: int) -> bool:
+        """Half-open probe of the rung decode was demoted off: one decode
+        step on it, on a **copy** of the KV cache (the decode step writes
+        the cache in place; a probe that writes NaN or garbage must never
+        reach a live sequence), its logits discarded.  Finite logits swap
+        the rung back in and close the breaker; a failure re-opens it at
+        doubled cool-down.  Its compiles and builds are explained, and its
+        record carries its wall time (``ms``)."""
+        from repro_torch.models import build_model
+
+        old_cfg, old_label = self._demote_stack[-1]
+        self.probes += 1
+        mark = self._compiles()
+        t0 = time.perf_counter()
+        try:
+            spec = RZ.fire("serve:probe")
+            if spec is not None and spec.kind == "raise":
+                raise RZ.InjectedFault(f"serve:probe[{spec.message}]")
+            model = build_model(old_cfg)
+            self._track(old_cfg, decode_batch=self.max_batch)
+            scratch = {name: t.clone() for name, t in self.caches.items()}
+            logits, _ = self._decode(model, scratch)
+            if spec is not None and spec.kind == "nan":
+                logits[:, -1] = float("nan")
+            if not bool(torch.isfinite(logits[:, -1]).all()):
+                raise RuntimeError("probe produced non-finite logits")
+        except Exception as e:
+            self.probe_failures += 1
+            self._ledger.record_failure(self._hkey, old_label, e,
+                                        policy=self._breaker_policy)
+            report.failures.append({
+                "reason": "probe_failed", "step": step, "rung": old_label,
+                "error": f"{type(e).__name__}: {e}",
+                "ms": (time.perf_counter() - t0) * 1e3})
+            warnings.warn(
+                f"serve: re-promotion probe of {old_label!r} failed "
+                f"({type(e).__name__}: {e}); breaker re-opened at doubled "
+                "cool-down", RuntimeWarning, stacklevel=2)
+            healed = False
+        else:
+            self.cfg, self.model = old_cfg, model
+            self._demote_stack.pop()
+            self.repromotions += 1
+            self._ledger.record_success(self._hkey, old_label)
+            report.failures.append({
+                "reason": "decode_repromotion", "step": step,
+                "to": old_label, "ms": (time.perf_counter() - t0) * 1e3})
+            warnings.warn(
+                f"serve: decode rung {old_label!r} probed healthy after "
+                f"{self._clean_ticks} clean ticks; re-promoted",
+                RuntimeWarning, stacklevel=2)
+            healed = True
+        self._clean_ticks = 0
+        self.explained_compiles += self._compiled_since(mark)
+        self._warm = self._compiles()
+        return healed
 
     def run(self, trace: Sequence[Request],
             max_steps: Optional[int] = None) -> ServeReport:
         """Drive the trace to completion (or ``max_steps``) and report."""
         if self._warm is None:
             self.warmup()
-        start = {name: k.launches for name, k in self.kernels.items()}
+        self._launch_base = {name: k.launches
+                             for name, k in self.kernels.items()}
         pending = deque(sorted(trace, key=lambda r: r.arrival_step))
         report = ServeReport(n_requests=len(trace), device=str(self.device))
         token_lat_ms: List[float] = []
@@ -317,33 +598,73 @@ class Engine:
         while pending or self.queue or any(self.slots):
             if max_steps is not None and step >= max_steps:
                 break
+            self._tick = step  # the health ledger's clock
             t0 = time.perf_counter()
             while pending and pending[0].arrival_step <= step:
-                self.queue.append(pending.popleft())
+                req = pending.popleft()
+                if (self.max_queue is not None
+                        and len(self.queue) >= self.max_queue):
+                    # bounded admission: reject loudly instead of
+                    # building an unbounded backlog
+                    report.n_rejected += 1
+                    report.failures.append({
+                        "rid": req.rid, "reason": "queue_full",
+                        "step": step, "queue_depth": len(self.queue)})
+                else:
+                    self.queue.append(req)
             n_prefill = 0
             for slot in [i for i, s in enumerate(self.slots) if s is None]:
                 if not self.queue:
                     break
                 req = self.queue.popleft()
-                status = self._admit(req, slot, report)
+                status = self._admit(req, slot, report, step)
                 if status == "ok":
                     n_prefill += 1
                     report.prefill_tokens += len(req.prompt)
                     report.decode_tokens += 1  # the prefill's first token
                 elif status == "rejected":
                     report.n_rejected += 1
+                elif status == "deadline":
+                    report.n_deadline_evicted += 1
             active = [i for i, s in enumerate(self.slots) if s is not None]
             n_decode = 0
             if active:
-                logits, self.caches = self._decode()
+                try:
+                    logits, _ = self._decode_once()
+                    self._clean_ticks += 1
+                except Exception as err:  # the watchdog: demote, retry
+                    mark, t_err = self._compiles(), time.perf_counter()
+                    rec = self._watchdog_demote(err, step, report)
+                    # the retry writes in place what the failed step may
+                    # have written: the same token at the same position,
+                    # each layer writing its k/v there before its
+                    # attention reads it; earlier positions are
+                    # untouched and later ones masked
+                    try:
+                        logits, _ = self._decode_once()
+                    except Exception as retry_err:
+                        # the demoted rung fails too: serve no further
+                        raise err from retry_err
+                    # what the demotion cost the tick: the demoted rung's
+                    # compiles and its first decode
+                    rec["ms"] = (time.perf_counter() - t_err) * 1e3
+                    self.explained_compiles += self._compiled_since(mark)
+                    self._warm = self._compiles()
+                    self._clean_ticks = 0
+                spec = RZ.fire("serve:logits")
+                if spec is not None and spec.kind == "nan":
+                    # poison exactly one co-batched row; the guard below
+                    # must contain it to that sequence
+                    logits[active[0], -1] = float("nan")
                 fin = torch.isfinite(logits[:, -1]).all(-1).cpu().numpy()
                 for i in active:
                     if fin[i]:
                         continue
                     s = self.slots[i]
                     report.n_poisoned += 1
-                    report.failures.append({"rid": s.rid, "step": step,
-                                            "reason": "nonfinite_logits"})
+                    report.failures.append({
+                        "rid": s.rid, "reason": "nonfinite_logits",
+                        "step": step, "pos": s.pos})
                     report.tokens[s.rid] = s.generated
                     self.slots[i] = None
                 active = [i for i in active if fin[i]]
@@ -366,6 +687,20 @@ class Engine:
                             report.n_completed += 1
                         report.tokens[s.rid] = s.generated
                         self.slots[i] = None
+                    elif s.deadline is not None and step >= s.deadline:
+                        report.n_deadline_evicted += 1
+                        report.failures.append({
+                            "rid": s.rid, "reason": "deadline",
+                            "step": step, "deadline": s.deadline})
+                        report.tokens[s.rid] = s.generated
+                        self.slots[i] = None
+            # re-promotion: after enough clean ticks on a demoted rung,
+            # the breaker admits one half-open probe of the rung above
+            if (self._demote_stack and self._ledger is not None
+                    and self._clean_ticks >= self.repromote_after
+                    and self._ledger.decision(
+                        self._hkey, self._demote_stack[-1][1]) == "probe"):
+                self._probe_repromote(report, step)
             sync()
             wall_ms = (time.perf_counter() - t0) * 1e3
             token_lat_ms.extend([wall_ms] * (n_decode + n_prefill))
@@ -389,7 +724,6 @@ class Engine:
             report.p50_token_ms = float(np.percentile(token_lat_ms, 50))
             report.p99_token_ms = float(np.percentile(token_lat_ms, 99))
         report.mean_occupancy = occupancy_sum / max(step, 1)
-        from repro_torch.core import cuda_build
         life = self._cache.stats.delta(self._base)
         report.cache_memory_hits = life.memory_hits
         report.cache_disk_hits = life.disk_hits
@@ -398,14 +732,19 @@ class Engine:
         report.quarantined = life.quarantined
         report.warmup_compiles = self.warmup_compiles
         report.warmup_builds = self.warmup_builds
-        report.decode_recompiles = (
-            self._cache.stats.delta(self._warm[0]).compiles
-            + cuda_build.STATS["builds"] - self._warm[1])
-        report.kernel_launches = {name: k.launches - start[name]
+        report.decode_recompiles = self._compiled_since(self._warm)
+        report.kernel_launches = {name: k.launches - self._launch_base[name]
                                   for name, k in self.kernels.items()}
+        report.degradations = (RZ.METRICS.delta(self._base_metrics).demotions
+                               + self.watchdog_demotions)
+        report.cuda_degraded = self.cuda_degraded
+        report.repromotions = self.repromotions
+        report.probes = self.probes
+        report.probe_failures = self.probe_failures
+        report.decode_backend = _backend_label(self.cfg)
         if report.decode_recompiles:
             raise RuntimeError(
                 f"{report.decode_recompiles} compiles or nvcc builds after "
-                "warmup: a steady-state step met a shape outside the "
-                "warmed set")
+                "warmup that no demotion or probe explains: a "
+                "steady-state step met a shape outside the warmed set")
         return report

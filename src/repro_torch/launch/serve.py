@@ -14,7 +14,11 @@ model loads them from disk (``ServeReport.cache_disk_hits``) without
 fusion, selection or nvcc.  ``arch`` is any dense or MoE architecture
 of ``repro_torch.configs`` (smollm-135m, llama3.2-1b, qwen2-7b,
 qwen3-32b, qwen3-moe-30b-a3b); ``n_layers`` cuts the depth, never a
-width.  The CLI::
+width.  ``max_queue`` bounds admission and ``repromote_after`` is the
+clean ticks before a demoted decode rung is probed (None, ``0`` on the
+CLI: never).  Decode demotes only on CPU tensors: on the card a failed
+decode step raises.  The CLI prints the rung decode ended on and the
+resilience counters beside the cache's.  The CLI::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --n-requests 8 --json report.json
@@ -50,6 +54,7 @@ class ServeConfig:
     max_batch: int = 4
     max_len: int = 96
     prompt_buckets: Tuple[int, ...] = (8, 16, 32)
+    max_queue: Optional[int] = None  # bounded admission; None = unbounded
     # -- synthetic open-loop trace -------------------------------------------
     n_requests: int = 16
     arrival_rate: float = 1.0
@@ -62,6 +67,11 @@ class ServeConfig:
     # -- run ----------------------------------------------------------------
     max_steps: Optional[int] = None
     record_logits: bool = False      # keep each sampled logits row
+    # -- self-healing -------------------------------------------------------
+    # clean decode ticks on a demoted rung before a half-open probe may
+    # re-promote the rung above; None disables re-promotion (decode
+    # demotes on the CPU only)
+    repromote_after: Optional[int] = 8
 
 
 def model_config(cfg: ServeConfig):
@@ -82,7 +92,9 @@ def build_engine(cfg: ServeConfig, params=None) -> Engine:
                   max_batch=cfg.max_batch, max_len=cfg.max_len,
                   prompt_buckets=cfg.prompt_buckets,
                   sampling=cfg.sampling, temperature=cfg.temperature,
-                  seed=cfg.seed, record_logits=cfg.record_logits)
+                  seed=cfg.seed, record_logits=cfg.record_logits,
+                  max_queue=cfg.max_queue,
+                  repromote_after=cfg.repromote_after)
 
 
 def trace_for(cfg: ServeConfig, vocab: int):
@@ -114,6 +126,9 @@ def main(argv=None) -> ServeReport:
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=96)
     ap.add_argument("--buckets", type=int, nargs="+", default=[8, 16, 32])
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bounded admission: reject arrivals past this "
+                         "queue depth (default: unbounded)")
     ap.add_argument("--n-requests", type=int, default=16)
     ap.add_argument("--arrival-rate", type=float, default=1.0)
     ap.add_argument("--prompt-lens", type=int, nargs=2, default=[4, 24])
@@ -123,6 +138,11 @@ def main(argv=None) -> ServeReport:
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-steps", type=int, default=None)
+    ap.add_argument("--repromote-after", type=int, default=8,
+                    help="clean decode ticks on a demoted rung before a "
+                         "half-open probe may re-promote the rung above "
+                         "(0 disables re-promotion; decode demotes only "
+                         "with --device cpu)")
     ap.add_argument("--json", dest="json_out", default=None)
     args = ap.parse_args(argv)
     cfg = ServeConfig(arch=args.arch, reduced=args.reduced,
@@ -130,12 +150,16 @@ def main(argv=None) -> ServeReport:
                       device=args.device, max_batch=args.max_batch,
                       max_len=args.max_len,
                       prompt_buckets=tuple(args.buckets),
+                      max_queue=args.max_queue,
                       n_requests=args.n_requests,
                       arrival_rate=args.arrival_rate,
                       prompt_lens=tuple(args.prompt_lens),
                       gen_lens=tuple(args.gen_lens), sampling=args.sampling,
                       temperature=args.temperature, seed=args.seed,
-                      max_steps=args.max_steps)
+                      max_steps=args.max_steps,
+                      repromote_after=(args.repromote_after
+                                       if args.repromote_after > 0
+                                       else None))
     report = run(cfg)
     print(f"arch={args.arch} backend={args.backend} device={report.device} "
           f"requests={report.n_completed}/{report.n_requests} "
@@ -149,6 +173,14 @@ def main(argv=None) -> ServeReport:
           f"hit_rate={report.cache_hit_rate:.3f} "
           f"quarantined={report.quarantined} "
           f"nvcc_builds={report.warmup_builds}")
+    print(f"resilience: decode_backend={report.decode_backend} "
+          f"degradations={report.degradations} "
+          f"quarantined={report.quarantined} "
+          f"repromotions={report.repromotions} probes={report.probes} "
+          f"probe_failures={report.probe_failures} "
+          f"cuda_degraded={report.cuda_degraded} "
+          f"deadline_evicted={report.n_deadline_evicted} "
+          f"rejected={report.n_rejected}")
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(report.to_json(), f, indent=1)

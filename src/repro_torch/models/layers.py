@@ -70,10 +70,13 @@ def _pipeline_options(src):
 
 @functools.lru_cache(maxsize=256)
 def attention_kernel(s: int, dh: int, sk: int, dv: int, group: int,
-                     causal: bool, scale: float, options):
-    """One compiled kernel per (shape, group, causal, scale, options).
-    Query positions are kernel data (the QP/KP inputs), so a decode step
-    at any cache position, scalar or ragged, reuses the same kernel."""
+                     causal: bool, scale: float, options,
+                     device: str = "cuda"):
+    """One compiled kernel per (shape, group, causal, scale, options,
+    device type).  Query positions are kernel data (the QP/KP inputs), so
+    a decode step at any cache position, scalar or ragged, reuses the
+    same kernel.  ``device`` is where it will run: on ``"cuda"`` its
+    compile never demotes to a plain version."""
     from repro_torch import pipeline as PL
     from repro_torch.core import array_program as AP
     dims, blocks = _pipeline_dims_blocks(
@@ -86,18 +89,20 @@ def attention_kernel(s: int, dh: int, sk: int, dv: int, group: int,
         g = AP.causal_attention_program(scale)
     else:
         g = AP.attention_program(scale)
-    return PL.compile(g, dims, options=options.replace(blocks=blocks))
+    return PL.compile(g, dims, options=options.replace(blocks=blocks),
+                      device=device)
 
 
 @functools.lru_cache(maxsize=256)
-def swiglu_kernel(t: int, d: int, d_ff: int, eps: float, options):
+def swiglu_kernel(t: int, d: int, d_ff: int, eps: float, options,
+                  device: str = "cuda"):
     from repro_torch import pipeline as PL
     from repro_torch.core import array_program as AP
     dims, blocks = _pipeline_dims_blocks(
         {"M": t, "D": d, "K": d_ff, "N": d})
     return PL.compile(
         AP.rmsnorm_ffn_swiglu_program(float(d), eps=eps), dims,
-        options=options.replace(blocks=blocks))
+        options=options.replace(blocks=blocks), device=device)
 
 
 def _attention_pipeline(q, k, v, scale: float, cfg: ModelConfig, *,
@@ -115,7 +120,8 @@ def _attention_pipeline(q, k, v, scale: float, cfg: ModelConfig, *,
     _, hkv, skv, _ = k.shape
     dv = v.shape[3]
     group = hq // hkv
-    kern = attention_kernel(sq, dh, skv, dv, group, causal, scale, opts)
+    kern = attention_kernel(sq, dh, skv, dv, group, causal, scale, opts,
+                            q.device.type)
     dev = q.device
     f32 = torch.float32
     qf = q.to(f32)
@@ -173,7 +179,7 @@ def _swiglu_pipeline(x2, wg, wu, wd, gamma, cfg: ModelConfig
     t, d = x2.shape
     d_ff = wg.shape[1]
     kern = swiglu_kernel(t, d, d_ff, float(cfg.norm_eps),
-                         _pipeline_options(cfg))
+                         _pipeline_options(cfg), x2.device.type)
     wt, vt, ut = folded_swiglu_weights(wg, wu, wd, gamma)
     out = kern({"X": x2.to(torch.float32).contiguous(), "WT": wt, "VT": vt,
                 "UT": ut})["O"]
@@ -386,11 +392,12 @@ def mlp_apply(p, x, gamma, cfg: ModelConfig, layer: int) -> torch.Tensor:
 
 def pipeline_kernels(cfg: ModelConfig, *, prefill_lens=(),
                      decode_batch: Optional[int] = None,
-                     max_len: Optional[int] = None) -> Dict[str, object]:
-    """Compile (without running) the pipeline kernels a serving run
-    touches, by name: one attention and one SwiGLU kernel per prefill
-    length (``attention_prefill8``...), plus the ragged decode pair
-    (``attention_decode``, ``swiglu_decode``)."""
+                     max_len: Optional[int] = None,
+                     device: str = "cuda") -> Dict[str, object]:
+    """Compile (without running) the pipeline kernels a serving run on
+    ``device`` (a device type) touches, by name: one attention and one
+    SwiGLU kernel per prefill length (``attention_prefill8``...), plus
+    the ragged decode pair (``attention_decode``, ``swiglu_decode``)."""
     opts = _pipeline_options(cfg)
     scale = 1.0 / cfg.d_head ** 0.5
     group = cfg.n_heads // cfg.n_kv_heads
@@ -402,15 +409,15 @@ def pipeline_kernels(cfg: ModelConfig, *, prefill_lens=(),
     for s in prefill_lens:
         if attn:
             out[f"attention_prefill{s}"] = attention_kernel(
-                s, dh, s, dh, group, True, scale, opts)
+                s, dh, s, dh, group, True, scale, opts, device)
         if mlp:
             out[f"swiglu_prefill{s}"] = swiglu_kernel(s, d, cfg.d_ff, eps,
-                                                      opts)
+                                                      opts, device)
     if decode_batch is not None:
         if attn:
             out["attention_decode"] = attention_kernel(
-                1, dh, max_len, dh, group, True, scale, opts)
+                1, dh, max_len, dh, group, True, scale, opts, device)
         if mlp:
             out["swiglu_decode"] = swiglu_kernel(decode_batch, d, cfg.d_ff,
-                                                 eps, opts)
+                                                 eps, opts, device)
     return out

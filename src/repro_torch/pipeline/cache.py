@@ -37,9 +37,12 @@ are crash-safe (unique temp file + fsync + atomic rename) and
 concurrent writers are serialized with a best-effort ``flock`` on
 ``<cache>/.lock`` where the platform provides one.
 
-The reference's ``KernelCache.health`` ledger and its ``cache:get_plan``
-fault site belong to the resilience layer, which the port does not have
-yet.
+Resilience (``repro_torch.resilience``): ``KernelCache.health`` is the
+compile ladder's :class:`~repro_torch.resilience.HealthLedger`, persisted
+under ``<cache>/health/`` in the same checksummed envelopes
+(:func:`envelope`), and ``get_plan`` is the ``cache:get_plan`` fault
+site, whose ``corrupt`` kind garbles the real on-disk plan so that the
+quarantine above detects it.
 """
 
 from __future__ import annotations
@@ -235,11 +238,34 @@ class CacheStats:
             for f in fields(self)})
 
 
-def _plan_envelope(plan: CachePlan) -> str:
-    payload = json.dumps(plan.to_json(), sort_keys=True)
+def envelope(field: str, body: Dict[str, Any],
+             schema: int = _SCHEMA_VERSION) -> str:
+    """A checksummed JSON envelope ``{"schema", "sha256", field}``: the
+    sha256 is over ``body`` serialized with sorted keys."""
+    payload = json.dumps(body, sort_keys=True)
     digest = hashlib.sha256(payload.encode()).hexdigest()
-    return json.dumps({"schema": _SCHEMA_VERSION, "sha256": digest,
-                       "plan": json.loads(payload)})
+    return json.dumps({"schema": schema, "sha256": digest,
+                       field: json.loads(payload)})
+
+
+def open_envelope(blob: bytes, field: str,
+                  schema: int = _SCHEMA_VERSION) -> Dict[str, Any]:
+    """The body of an :func:`envelope`; raises ``CacheIntegrityError`` on
+    unparseable JSON, a missing body, another schema or a checksum
+    mismatch."""
+    try:
+        env = json.loads(blob.decode("utf-8"))
+    except (ValueError, UnicodeDecodeError) as e:
+        raise CacheIntegrityError(f"unparseable JSON ({e})") from None
+    if not isinstance(env, dict) or field not in env:
+        raise CacheIntegrityError(f"not a {field} envelope")
+    if env.get("schema") != schema:
+        raise CacheIntegrityError(f"schema {env.get('schema')!r} != {schema}")
+    payload = json.dumps(env[field], sort_keys=True)
+    digest = hashlib.sha256(payload.encode()).hexdigest()
+    if digest != env.get("sha256"):
+        raise CacheIntegrityError("checksum mismatch (corrupt/truncated)")
+    return env[field]
 
 
 def _graph_blob(graph: Graph) -> bytes:
@@ -254,22 +280,9 @@ class CacheIntegrityError(ValueError):
 def _read_plan(path: Path) -> CachePlan:
     """Parse + verify a plan envelope; raises on any integrity failure
     (missing file raises FileNotFoundError, a plain miss)."""
-    blob = path.read_bytes()
+    body = open_envelope(path.read_bytes(), "plan")
     try:
-        env = json.loads(blob.decode("utf-8"))
-    except (ValueError, UnicodeDecodeError) as e:
-        raise CacheIntegrityError(f"unparseable JSON ({e})") from None
-    if not isinstance(env, dict) or "plan" not in env:
-        raise CacheIntegrityError("not a plan envelope")
-    if env.get("schema") != _SCHEMA_VERSION:
-        raise CacheIntegrityError(
-            f"schema {env.get('schema')!r} != {_SCHEMA_VERSION}")
-    payload = json.dumps(env["plan"], sort_keys=True)
-    digest = hashlib.sha256(payload.encode()).hexdigest()
-    if digest != env.get("sha256"):
-        raise CacheIntegrityError("checksum mismatch (corrupt/truncated)")
-    try:
-        return CachePlan.from_json(env["plan"])
+        return CachePlan.from_json(body)
     except (KeyError, TypeError, ValueError) as e:
         raise CacheIntegrityError(f"malformed plan ({e})") from None
 
@@ -303,13 +316,27 @@ class KernelCache:
         self.max_disk_bytes = max_disk_bytes
         self._kernels: Dict[CacheKey, Any] = {}
         self.stats = CacheStats()
+        self._health = None
         self.recover()
+
+    @property
+    def health(self):
+        """This cache's :class:`~repro_torch.resilience.HealthLedger`:
+        breaker state of compile rungs, persisted under ``<root>/health/``
+        (memory-only for ``disk=False`` caches).  Built lazily; it reads
+        and writes nothing until a rung fails."""
+        if self._health is None:
+            from repro_torch import resilience as RZ
+            self._health = RZ.HealthLedger(
+                self.root / "health" if self.disk else None)
+        return self._health
 
     # -- startup crash recovery --------------------------------------------
     def recover(self) -> None:
         """Crash-recovery sweep, run once per cache construction:
 
-        * remove orphaned ``*.{pid}.tmp`` files left by writers that
+        * remove orphaned ``*.{pid}.tmp`` files, in the cache directory
+          and in its ``health/`` ledger, left by writers that
           died between open and rename (dead pid, or over-age as the
           cross-host fallback where the pid namespace differs);
         * remove a stale ``.lock`` that no live process holds (flock
@@ -327,33 +354,34 @@ class KernelCache:
         except OSError:
             return
         now = time.time()
-        try:
-            tmps = sorted(self.root.glob("*.tmp"))
-        except OSError:
-            tmps = []
-        for tmp in tmps:
-            pid = _tmp_writer_pid(tmp.name)
-            if pid is not None and pid != os.getpid() \
-                    and not _pid_alive(pid):
-                orphan = True
-            else:
-                # our own pid, a live writer, or an unparseable name:
-                # only reclaim once clearly abandoned by age
-                try:
-                    orphan = now - tmp.stat().st_mtime > STALE_TMP_AGE_S
-                except OSError:
-                    continue
-            if not orphan:
-                continue
+        for d in (self.root, self.root / "health"):
             try:
-                tmp.unlink()
+                tmps = sorted(d.glob("*.tmp"))
             except OSError:
                 continue
-            self.stats.recovered_tmp += 1
-            warnings.warn(
-                f"kernel cache: recovered orphaned tmp file {tmp} "
-                f"(writer pid {pid} is gone)", RuntimeWarning,
-                stacklevel=2)
+            for tmp in tmps:
+                pid = _tmp_writer_pid(tmp.name)
+                if pid is not None and pid != os.getpid() \
+                        and not _pid_alive(pid):
+                    orphan = True
+                else:
+                    # our own pid, a live writer, or an unparseable name:
+                    # only reclaim once clearly abandoned by age
+                    try:
+                        orphan = now - tmp.stat().st_mtime > STALE_TMP_AGE_S
+                    except OSError:
+                        continue
+                if not orphan:
+                    continue
+                try:
+                    tmp.unlink()
+                except OSError:
+                    continue
+                self.stats.recovered_tmp += 1
+                warnings.warn(
+                    f"kernel cache: recovered orphaned tmp file {tmp} "
+                    f"(writer pid {pid} is gone)", RuntimeWarning,
+                    stacklevel=2)
         self._sweep_stale_lock(now)
         self._cap_quarantine()
 
@@ -467,6 +495,13 @@ class KernelCache:
         if not self.disk:
             return None, None
         pj, pg = self._paths(key)
+        # fault injection: garble the real on-disk entry, so that the
+        # integrity checks below detect it
+        from repro_torch import resilience as RZ
+        spec = RZ.fire("cache:get_plan")
+        if spec is not None and spec.kind == "corrupt" and pj.exists():
+            blob = pj.read_bytes()
+            pj.write_bytes(blob[:max(len(blob) // 2, 1)] + b"\xff{corrupt")
         try:
             plan = _read_plan(pj)
         except FileNotFoundError:
@@ -564,7 +599,8 @@ class KernelCache:
         with self._lock():
             try:
                 self.root.mkdir(parents=True, exist_ok=True)
-                self._atomic_write(pj, _plan_envelope(plan).encode())
+                self._atomic_write(
+                    pj, envelope("plan", plan.to_json()).encode())
             except OSError as e:
                 self.stats.write_errors += 1
                 warnings.warn(f"kernel cache: failed to write plan {pj}: "

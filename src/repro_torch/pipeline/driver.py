@@ -35,18 +35,43 @@ counts hits and misses (a serving engine pins its ``CacheStats.delta``);
 :data:`STATS` counts, per process, the CUDA kernels emitted and the
 fusion and selection runs.
 
-The reference's degradation ladder and health ledger wait for the
-resilience slice: a compile that cannot lower raises.
+Failures degrade instead of aborting: lowering walks the resilience
+ladder (``repro_torch.resilience``) under the ``CompileOptions.resilience``
+policy, from the rung the options ask for (cuda: ``grouped``, or
+``ungrouped`` with ``group=False``; torch: ``torch``; py: ``interpreter``)
+down one rung per failed attempt: ``grouped`` is ``emit_program`` on the
+group plan, ``ungrouped`` ``emit_program`` on a per-region plan computed
+anew, ``torch`` ``codegen_torch.merged_runner``, ``interpreter`` the numpy
+interpreter.  Every attempt is recorded in ``CompiledKernel.
+resilience_report`` (``kern.rung`` is the rung that served), every
+demotion is counted in ``resilience.METRICS`` and warned, and each rung's
+failures feed the cache's health ledger (``KernelCache.health``, keyed by
+graph fingerprint), whose open breakers skip a rung without an attempt.
+Configuration errors (cuda without ``blocks``) raise before any rung
+runs.  **When ``device`` is a CUDA device no compile demotes to a plain
+version**: ``torch`` and ``interpreter`` are offered only when the options
+ask for them, so a cuda compile on the card stops at ``ungrouped`` (its
+kernels launch or it raises), and exhausting the ladder raises
+``resilience.LadderError`` (the port's counterpart of the reference's
+"the interpreter rung is not servable"; the interpreter also runs numpy
+on the CPU).  Lowering emits CUDA source and builds nothing (nvcc runs at
+the first launch or in ``codegen_cuda.build``), so an attempt abandoned
+by ``attempt_timeout_s`` never leaves a half-built library, and its
+kernel is never the one cached.
 """
 
 from __future__ import annotations
 
+import functools
+import time
+import warnings
 from dataclasses import dataclass, replace
 from math import lcm
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import resilience as RZ
 from repro_torch.core import calibrate as CAL
 from repro_torch.core import numerics as NU
 from repro_torch.core import regions as REG
@@ -66,6 +91,10 @@ AUTOTUNE_OBJECTIVES = ("analytic", "measured")
 #: an ``autotune`` sweep) and measured autotune candidates skipped
 #: because they failed to compile or run
 STATS = {"kernels": 0, "fusions": 0, "selections": 0, "measure_skips": 0}
+
+
+#: the rungs that run a kernel's plain version, never a demotion on the card
+PLAIN_RUNGS = ("torch", "interpreter")
 
 
 @dataclass
@@ -100,6 +129,11 @@ class CompiledKernel:
     measured_s: Optional[float] = None
     autotune_timings: Optional[Tuple] = None
     autotune_report: Optional[Tuple[Dict[str, Any], ...]] = None
+    # fault provenance (resilience.ResilienceReport): the rung requested,
+    # the rung that served the compile, and every ladder attempt in
+    # between; on every compile (the happy path is one ok attempt at the
+    # requested rung)
+    resilience_report: Optional[Any] = None
 
     def __call__(self, inputs: Dict[str, Any], instances: int = 0
                  ) -> Dict[str, Any]:
@@ -107,11 +141,32 @@ class CompiledKernel:
         if missing:
             raise KeyError(f"missing kernel inputs {missing}; "
                            f"expected {self.in_names}")
+        if self.demoted_to_plain and any(
+                getattr(inputs[n], "is_cuda", False) for n in self.in_names):
+            asked = self.resilience_report.requested
+            raise RuntimeError(
+                f"this compile was demoted from the {asked!r} rung to the "
+                f"plain {self.rung!r} rung: it serves CPU tensors only (on "
+                "a CUDA tensor a kernel launches or raises)")
         return self._fn(inputs, instances)
 
     @property
     def predicted_traffic_reduction(self) -> float:
         return self.initial_cost / max(self.cost, 1e-30)
+
+    @property
+    def rung(self) -> Optional[str]:
+        """The ladder rung that served this compile."""
+        return (self.resilience_report.rung
+                if self.resilience_report is not None else None)
+
+    @property
+    def demoted_to_plain(self) -> bool:
+        """Whether the ladder demoted this compile to a plain-version rung
+        (one the options did not ask for)."""
+        rr = self.resilience_report
+        return (rr is not None and rr.rung != rr.requested
+                and rr.rung in PLAIN_RUNGS)
 
     @property
     def launches(self) -> Optional[int]:
@@ -157,6 +212,9 @@ def _lower_py(g: Graph, dims: Dict[str, int]):
     def call(inputs: Dict[str, Any], instances: int = 0):
         if instances:
             raise ValueError("the py backend takes no instance axes")
+        if any(getattr(inputs[nm], "is_cuda", False) for nm, _ in in_info):
+            raise ValueError("the interpreter runs numpy on the CPU: it "
+                             "takes no CUDA tensors")
         nested = {nm: P.to_nested(_numpy(inputs[nm]), vt, dims)
                   for nm, vt in in_info}
         outs = prog(nested)
@@ -180,35 +238,145 @@ def _merged_call(g: Graph, fn: Callable) -> Callable:
     return call
 
 
-def _grouped_plan(g: Graph, dims: Dict[str, int], blocks: Dict[str, int],
-                  group: bool):
-    """Partition the selected snapshot and pack its regions into kernel
-    groups (one-region groups with ``group=False``): shared between the
-    per-kernel costing and the lowering."""
-    pplan = REG.plan_program(g)
-    return (REG.group_plan(pplan, dims, blocks) if group
-            else REG.ungrouped_plan(pplan))
-
-
-def _lower(backend: str, g: Graph, dims: Dict[str, int],
-           blocks: Optional[Dict[str, int]], jit, gplan):
-    """The selected snapshot lowered, nothing else: ``(call, report)``."""
-    if backend == "py":
-        return _lower_py(g, dims), None
-    if backend == "torch":
-        from repro_torch.core.codegen_torch import merged_runner
-        return _merged_call(g, merged_runner(g, dims,
-                                             per_op=jit == "per-op")), None
+def _lower_cuda(g: Graph, dims: Dict[str, int], blocks: Dict[str, int],
+                pplan, gplan, group: bool):
+    """``emit_program`` of the selected snapshot: ``(call, report)``."""
     from repro_torch.core.codegen_cuda import emit_program
-    program, report = emit_program(g, dims, blocks,
-                                   program_plan=gplan.plan,
-                                   grouped_plan=gplan)
+    program, report = emit_program(g, dims, blocks, program_plan=pplan,
+                                   grouped_plan=gplan, group=group)
     call = _merged_call(g, program)
     # the raw program carries the per-kernel runners that
     # core/timing.region_times and the chip checks drive
     call.raw_program = program
     STATS["kernels"] += len(program.region_runners)
     return call, report
+
+
+def _rung_thunk(rung: str, g: Graph, dims: Dict[str, int], *,
+                blocks: Optional[Dict[str, int]], jit, pplan, gplan,
+                group: bool) -> Callable[[], Tuple]:
+    """The lowering a ladder rung runs; every thunk returns ``(call,
+    LoweringReport-or-None)``.  ``gplan`` is reusable only at the rung it
+    was packed for: the other cuda rung plans its own groups."""
+    if rung == "grouped":
+        return lambda: _lower_cuda(g, dims, blocks, pplan,
+                                   gplan if group else None, True)
+    if rung == "ungrouped":
+        return lambda: _lower_cuda(g, dims, blocks, pplan,
+                                   None if group else gplan, False)
+    if rung == "torch":
+        from repro_torch.core.codegen_torch import merged_runner
+        return lambda: (_merged_call(g, merged_runner(
+            g, dims, per_op=jit == "per-op")), None)
+    return lambda: (_lower_py(g, dims), None)
+
+
+def _on_card(device) -> bool:
+    import torch
+    return torch.device(device).type == "cuda"
+
+
+def _ladder_rungs(start: str, policy, device) -> Tuple[str, ...]:
+    """The rungs a compile may attempt: ``start`` down to
+    ``policy.max_rung``, less the plain-version rungs below ``start``
+    when ``device`` is a CUDA device: on a CUDA tensor a kernel launches
+    or raises."""
+    rungs = RZ.rungs_from(start, policy.max_rung)
+    if _on_card(device):
+        rungs = tuple(r for r in rungs
+                      if r == start or r not in PLAIN_RUNGS)
+    return rungs
+
+
+def _ladder_lower(rungs: Tuple[str, ...], make_thunk: Callable,
+                  policy, rr, *, ledger=None,
+                  health_key: Optional[str] = None,
+                  cut_on_card: bool = False) -> Tuple:
+    """Attempt each allowed rung in order (``policy.retries`` extra
+    same-rung tries with exponential backoff, each attempt optionally
+    under ``policy.attempt_timeout_s``), recording every attempt in the
+    :class:`resilience.ResilienceReport` ``rr``.  Returns the first
+    successful rung's ``(call, report)``; raises
+    :class:`resilience.LadderError` when every rung is exhausted (its
+    message says so when ``cut_on_card``: the plain-version rungs were
+    left out because the device is a CUDA device).
+
+    With a :class:`resilience.HealthLedger`, each rung's breaker is
+    consulted first: an **open** breaker skips the rung instantly (a
+    zero-cost ``skipped_open`` attempt: no retry sleep, no timeout
+    worker), a breaker whose cool-down elapsed admits the attempt as a
+    half-open **probe**, and every executed attempt's outcome feeds back
+    into the ledger.  The default policy costs the happy path nothing: no
+    timeout means no worker thread, zero retries no sleep, and the ledger
+    holds no entry for a rung that never failed."""
+    last: Optional[BaseException] = None
+    for ri, rung in enumerate(rungs):
+        probe = False
+        if ledger is not None and health_key is not None:
+            verdict = ledger.decision(health_key, rung)
+            if verdict == "open":
+                rr.attempts.append(RZ.Attempt(
+                    rung, False, 0.0, error="breaker open (skipped)",
+                    skipped_open=True))
+                RZ.METRICS.skipped_open += 1
+                if ri + 1 < len(rungs):
+                    warnings.warn(
+                        f"compile ladder: rung {rung!r} breaker open; "
+                        f"skipping to {rungs[ri + 1]!r}", RuntimeWarning,
+                        stacklevel=3)
+                continue
+            probe = verdict == "probe"
+            if probe:
+                RZ.METRICS.probes += 1
+        thunk = make_thunk(rung)
+
+        def attempt(rung=rung, thunk=thunk):
+            RZ.check(f"compile:{rung}")
+            return thunk()
+
+        for retry in range(policy.retries + 1):
+            if retry:
+                time.sleep(policy.backoff_s * (2 ** (retry - 1)))
+            t0 = time.perf_counter()
+            try:
+                res = (RZ.run_with_timeout(attempt,
+                                           policy.attempt_timeout_s)
+                       if policy.attempt_timeout_s is not None
+                       else attempt())
+            except Exception as e:  # any lowering failure demotes
+                last = e
+                rr.attempts.append(RZ.Attempt(
+                    rung, False, time.perf_counter() - t0,
+                    error=f"{type(e).__name__}: {e}", retry=retry,
+                    timed_out=isinstance(e, RZ.AttemptTimeout),
+                    probe=probe))
+                if ledger is not None and health_key is not None:
+                    ledger.record_failure(health_key, rung, e,
+                                          policy=policy)
+                    if probe:
+                        RZ.METRICS.probe_failures += 1
+                        probe = False  # retries are ordinary attempts
+                continue
+            rr.attempts.append(RZ.Attempt(
+                rung, True, time.perf_counter() - t0, retry=retry,
+                probe=probe))
+            rr.rung = rung
+            if ledger is not None and health_key is not None:
+                ledger.record_success(health_key, rung)
+            return res
+        if ri + 1 < len(rungs):
+            RZ.METRICS.demotions += 1
+            warnings.warn(
+                f"compile ladder: rung {rung!r} failed "
+                f"({rr.attempts[-1].error}); demoting to "
+                f"{rungs[ri + 1]!r}", RuntimeWarning, stacklevel=3)
+    RZ.METRICS.ladder_failures += 1
+    why = (" (on a CUDA device a compile never demotes to a plain "
+           "version: the torch and interpreter rungs are not offered)"
+           if cut_on_card else "")
+    raise RZ.LadderError(
+        f"every allowed ladder rung failed{why} ({rr.summary()}); "
+        f"last error: {last}", rr)
 
 
 def _candidate(graph: Graph, dim_candidates: Dict[str, Sequence[int]],
@@ -234,10 +402,17 @@ def _candidate(graph: Graph, dim_candidates: Dict[str, Sequence[int]],
     if bad:
         raise ValueError(f"stack dims {bad} need equal candidate counts "
                          "(block size is pinned to 1)")
+    # a candidate is timed on the rung asked for or skipped: never
+    # demoted to a plain version, and its failures (a size past shared
+    # memory) say nothing of the rung's health
+    policy = replace(options._policy(), breaker_threshold=0,
+                     max_rung=RZ.start_rung(options.backend,
+                                            bool(options.group)))
     cand = options.replace(
         blocks=(cand_blocks if options.backend == "cuda"
                 else options.blocks),
-        stabilize=stabilize, autotune="analytic", profile=profile)
+        stabilize=stabilize, autotune="analytic", profile=profile,
+        resilience=policy)
     return cand, cand_blocks
 
 
@@ -402,9 +577,12 @@ def compile(graph: Graph, dims: Optional[Dict[str, int]] = None, *,
     (``STATS["measure_skips"]``), never replaced by a plain version.  ``profile`` overrides the calibration profile; by default
     the measured path loads the one saved for this backend and device
     under the cache root (``calibrate.load_or_default``), the analytic
-    path keeps the default constants.  ``device`` is used by the measured
-    sweep only, and keys it (a sweep timed on the CPU never serves one
-    asked of the card); compiling itself touches no device.
+    path keeps the default constants.  ``device`` is where the kernel
+    will run: the measured sweep times on it, and keys it (a sweep timed
+    on the CPU never serves one asked of the card), and a CUDA device
+    leaves the plain-version rungs off the ladder; compiling itself
+    touches no device.  Lowering walks the resilience ladder under
+    ``options.resilience`` (see the module docstring).
     """
     if options is None:
         try:
@@ -454,7 +632,9 @@ def compile(graph: Graph, dims: Optional[Dict[str, int]] = None, *,
     key = CacheKey.make(graph.fingerprint(), backend, key_dims, blocks,
                         fused, opts)
     hit = cache.get_kernel(key)
-    if hit is not None:
+    # a kernel the ladder demoted to a plain version on the CPU is never
+    # served to the card: compile it anew for the card
+    if hit is not None and not (hit.demoted_to_plain and _on_card(device)):
         return replace(hit, cache_hit="memory")
 
     plan, selected = cache.get_plan(key)
@@ -505,8 +685,20 @@ def compile(graph: Graph, dims: Optional[Dict[str, int]] = None, *,
             selected = _snapshots(graph, fused, stab)[0][
                 plan.snapshot_index]
     use_dims = plan.dims
-    gplan = (_grouped_plan(selected, use_dims, blocks, group)
-             if backend == "cuda" else None)
+    # the partition is shared between the per-kernel costing and the cuda
+    # rungs; a snapshot the partitioner cannot split leaves both cuda
+    # rungs to fail (emit_program raises the same RegionError) and the
+    # ladder to demote, with the error in the report
+    pplan = gplan = plan_err = None
+    if backend == "cuda":
+        try:
+            pplan = REG.plan_program(selected)
+        except REG.RegionError as err:
+            plan_err = f"{type(err).__name__}: {err}"
+        else:
+            # kernel groups (one-region groups with group=False)
+            gplan = (REG.group_plan(pplan, use_dims, blocks) if group
+                     else REG.ungrouped_plan(pplan))
     if cache_hit is None and gplan is not None:
         plan = replace(
             plan, region_costs=SEL.region_costs(selected, use_dims,
@@ -519,14 +711,32 @@ def compile(graph: Graph, dims: Optional[Dict[str, int]] = None, *,
     # -- lowering: the selected snapshot, nothing else -----------------------
     # the measured sweep already compiled its candidates through this
     # driver; a candidate lowered exactly as this compile would lower
-    # (same backend and, for cuda, the same block extents) is reused
+    # (same backend and, for cuda, the same block extents) is reused, and
+    # its provenance adopted in place of a fresh zero-cost attempt
+    policy = o._policy()
+    start = RZ.start_rung(backend, group)
+    rr = RZ.ResilienceReport(requested=start, plan_error=plan_err)
     fn = report = None
     if measure is not None:
         cand = measure.kernels.get(tuple(sorted(use_dims.items())))
         if cand is not None and (backend != "cuda" or cand.blocks == blocks):
             fn, report = cand._fn, cand.lowering_report
+            rr = cand.resilience_report or rr
     if fn is None:
-        fn, report = _lower(backend, selected, use_dims, blocks, jit, gplan)
+        rungs = _ladder_rungs(start, policy, device)
+        fn, report = _ladder_lower(
+            rungs,
+            functools.partial(_rung_thunk, g=selected, dims=use_dims,
+                              blocks=blocks, jit=jit, pplan=pplan,
+                              gplan=gplan, group=group),
+            policy, rr,
+            # the cache's ledger is shared by every process on the same
+            # cache directory; keyed by graph fingerprint, so one
+            # program's bad rung never taints another
+            ledger=(cache.health if policy.breaker_threshold > 0
+                    else None),
+            health_key=graph.fingerprint(),
+            cut_on_card=rungs != RZ.rungs_from(start, policy.max_rung))
 
     # emission may diverge from the planned grouping (a group whose
     # kernel the emitter refuses becomes per-region kernels): the
@@ -560,6 +770,7 @@ def compile(graph: Graph, dims: Optional[Dict[str, int]] = None, *,
         out_names=[n for n, _ in out_info], _fn=fn,
         lowering_report=report, region_costs=plan.region_costs,
         kernel_ids=plan.kernel_ids, measured_s=plan.measured_s,
-        autotune_timings=timings, autotune_report=autotune_report)
+        autotune_timings=timings, autotune_report=autotune_report,
+        resilience_report=rr)
     cache.put_kernel(key, kern)
     return kern

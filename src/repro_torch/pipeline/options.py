@@ -16,14 +16,12 @@ emitted kernel.  It
 Problem *shape* stays out of the options: ``dims`` / ``dim_candidates``
 say what is compiled, ``CompileOptions`` says how.
 
-Two of the reference's fields are not here:
-
-* ``interpret``: the port places a kernel by its tensors' device
-  (``core/runtime.py``): CPU tensors run the plain version, CUDA tensors
-  launch the kernel, so no option chooses between them;
-* ``resilience``: the degradation-ladder policy.  The reference keys it
-  only when it is not the default, so adding it later leaves every key
-  made without it unchanged.
+One of the reference's fields is not here: ``interpret``.  The port
+places a kernel by its tensors' device (``core/runtime.py``): CPU tensors
+run the plain version, CUDA tensors launch the kernel, so no option
+chooses between them.  ``resilience`` (the degradation-ladder policy) is
+keyed only when it is not the default, as the reference keys it, so a
+default-policy key is the one made before the field existed.
 """
 
 from __future__ import annotations
@@ -71,6 +69,12 @@ class CompileOptions:
     # calibration profile override (CalibrationProfile); takes part in
     # hashing and equality by its digest, not by object identity
     profile: Optional[Any] = None
+    # degradation-ladder policy (resilience.ResiliencePolicy): how far a
+    # failing compile may demote (grouped -> ungrouped -> torch ->
+    # interpreter), the per-attempt timeout, the retry budget and the
+    # health-ledger breaker knobs.  None = the default policy (full
+    # ladder, no timeout, no retries, threshold-3 breaker)
+    resilience: Optional[Any] = None
 
     def __post_init__(self):
         for name in _MAP_FIELDS:
@@ -89,13 +93,19 @@ class CompileOptions:
     def _profile_digest(self) -> Optional[str]:
         return self.profile.digest() if self.profile is not None else None
 
+    def _policy(self):
+        """The effective ResiliencePolicy (``None`` -> the default)."""
+        from repro_torch import resilience as RZ
+        return (self.resilience if self.resilience is not None
+                else RZ.DEFAULT_POLICY)
+
     def key(self) -> Tuple:
         """Canonical value tuple: what equality and hashing mean."""
         return (self.backend, self.blocks, self.item_bytes, self.fused,
                 self.jit if self.jit == "per-op" else bool(self.jit),
                 self.stabilize, self.autotune, int(self.top_k),
                 int(self.measure_repeats), bool(self.group),
-                self._profile_digest())
+                self._profile_digest(), self._policy().key())
 
     def __hash__(self) -> int:
         return hash(self.key())
@@ -156,6 +166,13 @@ class CompileOptions:
             # another calibration profile can select another snapshot or
             # dims: never serve its plan under the default's key
             opts += (("profile", profile.digest()),)
+        from repro_torch import resilience as RZ
+        policy = self._policy()
+        if policy != RZ.DEFAULT_POLICY:
+            # a bounded ladder or a timeout can change which rung's
+            # kernel is cached in-process; keyed only when non-default,
+            # so default keys stay byte-identical
+            opts += (("resilience", policy.key()),)
         return opts
 
 

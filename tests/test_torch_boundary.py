@@ -94,3 +94,24 @@ def test_boundary_covers_the_compile_driver():
                  "reset_default_cache", "CODEGEN_VERSION",
                  "AUTOTUNE_OBJECTIVES"):
         assert hasattr(pipeline, name), name
+
+
+def test_resilience_layer_imports_no_jax():
+    """``repro_torch.resilience`` keeps its own copy of the reference's
+    jax-free module: importing it, and the driver and engine that use it,
+    brings in neither ``jax`` nor ``repro``."""
+    assert "repro_torch.resilience" in _modules()
+    code = (
+        "import sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+        "import repro_torch.resilience as RZ\n"
+        "import repro_torch.pipeline.driver, repro_torch.launch.engine\n"
+        "assert RZ.ENV_VAR == 'REPRO_TORCH_FAULT_PLAN'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT / "tests")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

@@ -17,6 +17,9 @@ LayerNorm+matmul kernels, checked on the CPU.
   of the float32 gamma * Y) likewise; on rows whose mean dwarfs their
   spread, where ``acc - mu * colsum(gamma Y)`` cancels, 3xTF32 keeps
   float32's digits and one pass loses them.
+* The reference's side runs on jax's CPU device at ``highest`` matmul
+  precision (``reference_cpu``), so the file passes on a machine where
+  jax also sees a GPU.
 * ``launch_shape`` fills the card at the whisper decoder-self and cross
   shapes (attention) and at both of path B's LayerNorm+matmul shapes, and
   keeps every path shape within the cluster, grid and shared-memory
@@ -35,6 +38,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import layernorm_matmul as LN
 from repro_torch.kernels import rmsnorm_swiglu as SW
 from repro_torch.launch import hand_variants as HV
+from reference_cpu import reference_on_cpu  # noqa: E402, F401
 
 ATTN_TOL, SWIGLU_TOL, LN_TOL, BF16_TOL = 2e-4, 4e-4, 2e-4, 5e-2
 
