@@ -6,7 +6,9 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
 
 1. the card: its name and power limit, as ``nvidia-smi`` reports them;
    a fresh kernel-cache root for the run (``$REPRO_TORCH_KERNEL_CACHE``
-   under ``build/``);
+   under ``build/``); the seconds a seeded draw of 10^9 float32 weights
+   takes with numpy on the host and on the card (``ParamBuilder``'s two
+   routes);
 2. build, one nvcc per source, all started together: every kernel the
    serving paths emit (for each architecture of ``SERVED``: the attention
    kernel of each prompt bucket and of the ragged decode step, and the
@@ -32,11 +34,14 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    plan (lifted dims, cluster size, blocks, shared memory);
 4. ``repro_torch.launch.serve`` at full width for each architecture of
    ``SERVED`` (smollm-135m and llama3.2-1b at full depth, qwen3-moe-
-   30b-a3b and qwen2-7b at 2 layers, qwen3-32b at 1; seeded random
-   weights; 8 requests, prompts of 4-24 tokens, 4-12 new tokens) through
-   the CUDA kernels, with every launch counter set to 0 just before and
-   read just after; its greedy tokens are held against the same engine
-   on the plain ``torch`` backend; the resilience layer's clean path is
+   30b-a3b and qwen2-7b at 2 layers, qwen3-32b at 1, deepseek-v3-671b at
+   2: one MLA+SwiGLU and one MLA+MoE layer, its MLA on the plain torch
+   attention as the reference's runs plain XLA there; seeded random
+   weights drawn on the card, their seconds printed; 8 requests, prompts
+   of 4-24 tokens, 4-12 new tokens) through the CUDA kernels, with every
+   launch counter set to 0 just before and read just after; its greedy
+   tokens are held against the same engine on the plain ``torch``
+   backend; the resilience layer's clean path is
    gated (here and in 4a): no demotion, probe, re-promotion, quarantine
    or emitter split, decode on ``pipeline-cuda``, every program on its
    requested rung, no file in the run's ``<cache>/health/``; then
@@ -79,7 +84,15 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    each call once with the launch counters set to 0 just before and read
    just after (exact counts), its logits finite and within 1e-3 of the
    same call on the plain impls, then timed over ``PATH_REPEATS`` calls
-   (median and spread);
+   (median and spread); path D (``PATH_D``): mamba2-2.7b at full width
+   and depth (64 layers) on its plain torch SSD, no kernel on it (the
+   reference's SSD is plain XLA): ``LM.prefill`` of 4 x 480 tokens, 32
+   greedy ``LM.decode_step``s, then ``LM.forward`` over the 512 tokens
+   they made, timed as above and per decode step; every position's
+   logits held against the forward pass's by the reference's rule at
+   1e-3 on the first 16 layers (at 64 layers float32 itself lies
+   further than that from float64, so there the distances to the forward
+   pass and to a float64 forward pass are printed);
 8. measured autotune on the card: ``pipeline.compile(...,
    dim_candidates=..., autotune="measured", top_k=3)`` of the programs of
    ``TUNED`` (smollm-135m's SwiGLU at t = 4 and 32, llama3.2-1b's at t =
@@ -156,7 +169,15 @@ PATH_REPEATS = 10   # timed calls of each hand-kernel path
 #: the serving phases: each architecture at full width, with its depth
 #: (None: the config's) cut only where the run's time limit asks
 SERVED = (("smollm-135m", None), ("llama3.2-1b", None),
-          ("qwen3-moe-30b-a3b", 2), ("qwen2-7b", 2), ("qwen3-32b", 1))
+          ("qwen3-moe-30b-a3b", 2), ("qwen2-7b", 2), ("qwen3-32b", 1),
+          ("deepseek-v3-671b", 2))
+#: path D: mamba2-2.7b at full width and depth on the port's plain torch
+#: SSD (the reference runs no kernel there): forward on ``batch`` x
+#: ``seq`` tokens; prefill of the first ``prefill`` tokens (max_len
+#: ``seq``), then greedy decode steps to ``seq``; the reference's decode
+#: rule held on its first ``rule_layers`` layers (see ``run_path_d``)
+PATH_D = dict(arch="mamba2-2.7b", batch=4, seq=512, prefill=480,
+              rule_layers=16)
 #: the engine and trace of every serving phase
 SERVE = dict(n_requests=8, prompt_lens=(4, 24), gen_lens=(4, 12), seed=0,
              record_logits=True, max_batch=4, max_len=96,
@@ -205,6 +226,32 @@ HAND_TC = ("flash_attention", "rmsnorm_swiglu",   # hand kernels on HMMA
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def weights_route():
+    """The seconds per 10^9 seeded float32 values of ``ParamBuilder``'s
+    two routes: numpy's ``standard_normal`` on the host (a draw of 10^8)
+    and ``normal_`` with a ``torch.Generator`` on the card (a draw of
+    10^9, synchronized)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    rng.standard_normal(10 ** 8, dtype=np.float32)
+    host_s = (time.perf_counter() - t0) * 10
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.empty(10 ** 9, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w.normal_(0.0, 1.0, generator=gen)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    del w
+    torch.cuda.empty_cache()
+    print(f"weights: a seeded draw of 10^9 float32 values takes {host_s:.3f}"
+          f" s with numpy on the host (from 10^8) and {card_s:.4f} s on the "
+          "card", flush=True)
+    return {"numpy_host_s_per_1e9": host_s, "card_s_per_1e9": card_s}
 
 
 def on_requested_rung(label, kern):
@@ -781,6 +828,163 @@ def run_paths(kernels, phase_s):
     return out
 
 
+def greedy_against_forward(model, params, prompt, seq):
+    """``LM.prefill`` of ``prompt`` (max_len ``seq``), greedy
+    ``LM.decode_step``s to ``seq``, then ``LM.forward`` over the tokens
+    they made.  Returns the prefill and decode logits (positions 0 ..
+    seq - 1), the forward pass's, the tokens and each decode step's ms
+    between two synchronizations."""
+    import torch
+    p0, step_ms = prompt.shape[1], []
+    lg, cache = model.prefill(params, prompt, max_len=seq)
+    steps, toks = [lg], [prompt]
+    for i in range(seq - p0):
+        nxt = steps[-1][:, -1].argmax(-1)[:, None]
+        toks.append(nxt)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, nxt, p0 + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        steps.append(lg)
+    toks = torch.cat(toks, 1)
+    return torch.cat(steps, 1), model.forward(params, toks), toks, step_ms
+
+
+def allowance_used(got, want):
+    """The largest share of the reference's allowance, ``|got - want| <=
+    atol + rtol |want|`` at ``atol = rtol = PATH_TOL``, that any logit
+    uses (1 or less passes), and the max abs difference."""
+    err = (got.double() - want.double()).abs()
+    return ((err / (PATH_TOL + PATH_TOL * want.double().abs())).max().item(),
+            err.max().item())
+
+
+def run_path_d(phase_s):
+    """Path D: ``PATH_D``'s mamba2-2.7b at full width and depth, seeded
+    random weights drawn on the card; no kernel runs on it (the
+    reference's SSD is plain XLA, layers.py:662-820; the port's is plain
+    torch on the card).  :func:`greedy_against_forward` from ``prefill``
+    tokens to ``seq``: the logits finite and of their shapes, then the
+    medians of ``PATH_REPEATS`` forward and prefill calls and each decode
+    step's time.
+
+    The prefill and decode logits are held against the forward pass's by
+    the reference's own rule (tests/test_models_decode.py:21-37:
+    ``assert_allclose`` at ``atol = rtol = 1e-4`` on the CPU), here at
+    ``atol = rtol = PATH_TOL``, on the first ``rule_layers`` layers of the
+    same weights at the same widths and tokens.  At the full 64 layers
+    two float32 evaluations cannot be held to it: the float32 forward pass
+    itself lies several times the allowance from the same model's float64
+    forward pass (PERF.md).  So the full depth's distances (prefill and
+    decode against forward, each against the float64 forward) are
+    measured and printed, not gated."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.launch import profile_decode as PD
+    from repro_torch.models.lm import build_model
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(C.get_config(PATH_D["arch"]),
+                              dtype=torch.float32)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    b, seq, p0 = PATH_D["batch"], PATH_D["seq"], PATH_D["prefill"]
+    n_rule = PATH_D["rule_layers"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    prompt = torch.randint(0, cfg.vocab, (b, p0), generator=gen,
+                           device="cuda")
+    label = (f"path D: {cfg.name} ({cfg.n_layers} layers, d "
+             f"{cfg.d_model}, {cfg.n_ssm_heads} SSM heads of "
+             f"{cfg.ssm_head_dim}, state {cfg.ssm_state})")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    with torch.no_grad():
+        got, full, toks, step_ms = greedy_against_forward(model, params,
+                                                          prompt, seq)
+        if got.shape != (b, seq, cfg.vocab) or full.shape != got.shape \
+                or not torch.isfinite(got).all() \
+                or not torch.isfinite(full).all():
+            fail(f"{label}: logits {tuple(got.shape)} against "
+                 f"{tuple(full.shape)}, or not finite")
+        used, diff = allowance_used(got, full)
+        used_dec, diff_dec = allowance_used(got[:, p0:], full[:, p0:])
+        # the float64 yardstick: the same model and tokens in float64
+        m64 = build_model(dataclasses.replace(cfg, dtype=torch.float64))
+        p64 = {k: ([{n: ({w: t.double() for w, t in v.items()}
+                         if isinstance(v, dict) else v.double())
+                     for n, v in lay.items()} for lay in val]
+                   if k == "layers" else val.double())
+               for k, val in params.items()}
+        full64 = m64.forward(p64, toks)
+        del p64
+        used_f64, diff_f64 = allowance_used(full, full64)
+        used_g64, diff_g64 = allowance_used(got, full64)
+        del got, full, full64
+        # the reference's rule where float32 can hold it
+        cut = dataclasses.replace(cfg, n_layers=n_rule)
+        got_c, full_c, _, _ = greedy_against_forward(
+            build_model(cut), dict(params, layers=params["layers"][:n_rule]),
+            prompt, seq)
+        used_c, diff_c = allowance_used(got_c, full_c)
+        del got_c, full_c
+        if used_c > 1.0:
+            fail(f"{label}: at {n_rule} layers the prefill and decode "
+                 f"logits differ from the forward pass's by {diff_c:.3e}, "
+                 f"{used_c:.3f} of the allowance atol = rtol = {PATH_TOL}")
+        fwd = [timed(lambda: model.forward(params, toks))
+               for _ in range(PATH_REPEATS)]
+        pre = [timed(lambda: model.prefill(params, prompt, max_len=seq))
+               for _ in range(PATH_REPEATS)]
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": b,
+           "seq": seq, "prefill": p0, "decode_steps": seq - p0,
+           "rule_layers": n_rule, "rule_max_abs_diff": diff_c,
+           "rule_allowance_used": used_c,
+           "max_abs_diff_vs_forward": diff, "allowance_used": used,
+           "decode_max_abs_diff_vs_forward": diff_dec,
+           "decode_allowance_used": used_dec,
+           "forward_vs_float64": diff_f64,
+           "forward_vs_float64_allowance_used": used_f64,
+           "prefill_decode_vs_float64": diff_g64,
+           "prefill_decode_vs_float64_allowance_used": used_g64,
+           "forward_median_ms": statistics.median(fwd),
+           "forward_min_ms": min(fwd), "forward_max_ms": max(fwd),
+           "prefill_median_ms": statistics.median(pre),
+           "prefill_min_ms": min(pre), "prefill_max_ms": max(pre),
+           "decode_step_median_ms": statistics.median(step_ms),
+           "decode_step_min_ms": min(step_ms),
+           "decode_step_max_ms": max(step_ms), "calls": PATH_REPEATS,
+           "weights": sum(t.numel() for t in PD._tensors(params)),
+           "weights_s": weights_s, "max_memory_allocated": peak}
+    print(f"{label}: at {n_rule} layers prefill + {seq - p0} greedy decode "
+          f"steps within {diff_c:.3e} of LM.forward ({b} x {seq}; "
+          f"{used_c:.3f} of the allowance atol = rtol = {PATH_TOL}); at "
+          f"{cfg.n_layers} layers {diff:.3e} ({used:.3f}; decode steps "
+          f"{diff_dec:.3e}, {used_dec:.3f}), where the float32 forward "
+          f"lies {diff_f64:.3e} ({used_f64:.3f}) and prefill + decode "
+          f"{diff_g64:.3e} ({used_g64:.3f}) from the float64 forward; "
+          f"median of {PATH_REPEATS} calls: forward "
+          f"{rec['forward_median_ms']} ms, prefill ({p0} tokens) "
+          f"{rec['prefill_median_ms']} ms; decode step median "
+          f"{rec['decode_step_median_ms']} ms (min "
+          f"{rec['decode_step_min_ms']}, max {rec['decode_step_max_ms']}); "
+          f"weights drawn in {weights_s:.2f} s; max_memory_allocated "
+          f"{peak} B; {card_line()}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    phase_s["7 path D"] = time.perf_counter() - t0
+    return rec
+
+
 def check_emitted(served, gen):
     """Phase 3: every emitted kernel of every served architecture against
     its plain version on the card, at the shapes its serving path gives
@@ -899,14 +1103,19 @@ def serve_phase(arch, n_layers, warm=False):
     from repro_torch.launch import profile_decode as PD
     from repro_torch.launch import serve as S
     from repro_torch.models import layers as L
+    from repro_torch.models.lm import build_model
 
     cfg = S.ServeConfig(arch=arch, n_layers=n_layers, **SERVE)
     mc = S.model_config(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    # the weights the engine would draw from the seed, timed on their own
+    params = build_model(mc).init_params(cfg.seed, "cuda")
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
     # the engine first: its cache counters start here, and the programs
     # compiled next are the ones its warmup finds
-    engine = S.build_engine(cfg)
+    engine = S.build_engine(cfg, params)
     t1 = time.perf_counter()
     programs = L.pipeline_kernels(mc, prefill_lens=cfg.prompt_buckets,
                                   decode_batch=cfg.max_batch,
@@ -929,8 +1138,9 @@ def serve_phase(arch, n_layers, warm=False):
           f"{report.steps} steps, {report.tokens_per_s:.2f} tok/s, p50 "
           f"{report.p50_token_ms:.2f} ms, p99 {report.p99_token_ms:.2f} ms, "
           f"recompiles {report.decode_recompiles}, {serve_s:.1f} s with "
-          f"weights and warmup, {compile_s:.1f} s compiling and building",
-          flush=True)
+          f"weights and warmup ({weights_s:.2f} s drawing the "
+          f"{sum(t.numel() for t in PD._tensors(params))} weights on the "
+          f"card), {compile_s:.1f} s compiling and building", flush=True)
     if report.n_completed != cfg.n_requests:
         fail(f"{label}: only {report.n_completed}/{cfg.n_requests} "
              "requests completed")
@@ -953,7 +1163,7 @@ def serve_phase(arch, n_layers, warm=False):
                      "fusions": PL.STATS["fusions"],
                      "selections": PL.STATS["selections"],
                      "nvcc_builds": CB.STATS["builds"]},
-           "compile_s": compile_s,
+           "compile_s": compile_s, "weights_s": weights_s,
            "tokens": {str(r): t for r, t in report.tokens.items()}}
     print(f"{label}: kernel cache {json.dumps(rec['cache'])} for "
           f"{len(programs)} programs", flush=True)
@@ -1716,6 +1926,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}", flush=True)
+    route = weights_route()
     phase_s = {}
     # a fresh kernel-cache root for this run: the plans this process
     # compiles go to <root>/main, phase 4's cold and warm smollm-135m
@@ -1765,6 +1976,7 @@ def main() -> int:
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = check_emitted(served, gen)
+    torch.cuda.empty_cache()   # the wide inputs' blocks, before the serves
     phase_s["3 emitted kernels"] = time.perf_counter() - t0
 
     # -- 4. the serving paths -------------------------------------------------
@@ -1790,6 +2002,7 @@ def main() -> int:
     check_backward(gen)
     phase_s["6 backward"] = time.perf_counter() - t0
     paths = run_paths(hand, phase_s)
+    path_d = run_path_d(phase_s)
 
     # -- 8-10. the compile driver: measured autotune, fusion, calibration --
     t0 = time.perf_counter()
@@ -1818,8 +2031,9 @@ def main() -> int:
     print("serving: " + json.dumps({a: {k: v for k, v in r.items()
                                         if k != "launches"}
                                     for a, r in serving.items()}))
-    print("paths: " + json.dumps({p: {**timing, "max_abs_diff_vs_plain": d}
-                                  for p, (_, timing, d) in paths.items()}))
+    print("paths: " + json.dumps({
+        **{p: {**timing, "max_abs_diff_vs_plain": d}
+           for p, (_, timing, d) in paths.items()}, "D": path_d}))
     print("compile driver: " + json.dumps({
         "warm_serve": {k: v for k, v in warm.items() if k != "tokens"},
         "measured_autotune": tuned_res, "fusion": fusion_res,
@@ -1829,6 +2043,7 @@ def main() -> int:
         **{run: {k: v for k, v in rec.items()
                  if k not in ("tokens", "kernel_launches", "rungs")}
            for run, rec in res.items()}}))
+    print("weights route: " + json.dumps({"card": card, **route}))
     print("phase seconds: " + json.dumps(phase_s))
     print(json.dumps({"kernels": list(rows.values())
                       + list(hand_rows.values())}))

@@ -386,8 +386,10 @@ class Engine:
         return self._decode()
 
     def _insert(self, cache, slot: int) -> None:
-        for name in ("k", "v"):
-            self.caches[name][:, slot] = cache[name][:, 0]
+        """Copy a one-sequence prefill cache into ``slot``, every entry
+        by name (``k``/``v``, or MLA's ``ckv``/``krope``)."""
+        for name, t in cache.items():
+            self.caches[name][:, slot] = t[:, 0]
 
     def _compiles(self) -> Tuple:
         """The counters a compile moves: the kernel cache's and nvcc's."""

@@ -15,9 +15,10 @@ then runs ``--steps`` ragged decode steps:
   kernel name (the emitted kernels are named ``emit_region_<gid>`` and
   ``emit_group_<gid>``), and the device's busy share of the timed steps'
   wall time (its idle share is the rest);
-* the step's bound: the larger of its bytes (every weight, the attended
-  cache rows and the logits, once) over 3.35 TB/s and its operations over
-  67 TFLOP/s (float32), the H100 SXM data sheet's rates.
+* the step's bound (:func:`step_cost`): the larger of its bytes (every
+  weight, the attended rows of every cache tensor the model has and the
+  logits, once) over 3.35 TB/s and its operations over 67 TFLOP/s
+  (float32), the H100 SXM data sheet's rates.
 
 It prints one JSON object, and needs a card: without one it exits
 nonzero.  :func:`profile_decode` does the same for an engine the caller
@@ -80,6 +81,21 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def step_cost(engine, prompt_len: int):
+    """The bytes and float operations a decode step of ``engine`` must
+    move and do at ``prompt_len`` filled positions: every weight read
+    once, the cache rows attended read once (the values of every cache
+    tensor the model has at the ``prompt_len + 1`` positions of each
+    sequence: MLA's compressed rows as they are), the logits written
+    once, all float32; two operations per weight per sequence."""
+    b = engine.max_batch
+    weights = sum(t.numel() for t in _tensors(engine.params))
+    cache_values = sum(t.numel() // engine.max_len * (prompt_len + 1)
+                       for t in engine.caches.values())
+    return 4 * (weights + cache_values + b * engine.cfg.vocab), \
+        2 * b * weights
+
+
 def profile_decode(engine, steps: int = 5, prompt_len: int = 20) -> dict:
     """Fill every slot of a warmed ``engine`` with a prefilled prompt of
     ``prompt_len`` tokens, then time ``steps`` ragged decode steps on the
@@ -136,14 +152,7 @@ def profile_decode(engine, steps: int = 5, prompt_len: int = 20) -> dict:
     busy = _busy_us(intervals)
     per_step = {k: v / steps / 1e3 for k, v in
                 sorted(by_name.items(), key=lambda kv: -kv[1])}
-    # the least time a step could take (float32, H100 SXM data sheet):
-    # every weight read once, the cache rows attended to read once, the
-    # logits written once; two operations per weight per sequence
-    mc, b = engine.cfg, engine.max_batch
-    weights = sum(t.numel() for t in _tensors(engine.params))
-    kv_rows = mc.n_layers * b * mc.n_kv_heads * (prompt_len + 1)
-    step_bytes = 4 * (weights + 2 * kv_rows * mc.d_head + b * mc.vocab)
-    step_flops = 2 * b * weights
+    step_bytes, step_flops = step_cost(engine, prompt_len)
     return {
         "card": _card(),
         "device": torch.cuda.get_device_name(0),

@@ -13,12 +13,13 @@ default ``build/repro_torch/cache``): a later process serving the same
 model loads them from disk (``ServeReport.cache_disk_hits``) without
 fusion, selection or nvcc.  ``arch`` is any dense or MoE architecture
 of ``repro_torch.configs`` (smollm-135m, llama3.2-1b, qwen2-7b,
-qwen3-32b, qwen3-moe-30b-a3b); ``n_layers`` cuts the depth, never a
-width.  ``max_queue`` bounds admission and ``repromote_after`` is the
-clean ticks before a demoted decode rung is probed (None, ``0`` on the
-CLI: never).  Decode demotes only on CPU tensors: on the card a failed
-decode step raises.  The CLI prints the rung decode ended on and the
-resilience counters beside the cache's.  The CLI::
+qwen3-32b, qwen3-moe-30b-a3b, deepseek-v3-671b); ``n_layers`` cuts the
+depth (:func:`cut_depth`), never a width.  ``max_queue`` bounds
+admission and ``repromote_after`` is the clean ticks before a demoted
+decode rung is probed (None, ``0`` on the CLI: never).  Decode demotes
+only on CPU tensors: on the card a failed decode step raises.  The CLI
+prints the rung decode ended on and the resilience counters beside the
+cache's.  The CLI::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --n-requests 8 --json report.json
@@ -80,8 +81,19 @@ def model_config(cfg: ServeConfig):
           else configs.get_config(cfg.arch))
     mc = dataclasses.replace(mc, dtype=getattr(torch, cfg.dtype))
     if cfg.n_layers is not None:
-        mc = dataclasses.replace(mc, n_layers=cfg.n_layers)
+        mc = cut_depth(mc, cfg.n_layers)
     return configs.with_pipeline(mc, backend=cfg.backend)
+
+
+def cut_depth(mc, n_layers: int):
+    """``mc`` at ``n_layers`` layers with its layer mix kept: a model with
+    MoE layers keeps at least one (its leading dense layers cut to
+    ``n_layers - 1``, the split of the reference's ``reduced_config``), so
+    deepseek-v3 cut to 2 layers is 1 dense + 1 MoE layer."""
+    over = {"n_layers": n_layers}
+    if mc.n_experts and mc.n_dense_layers < mc.n_layers:
+        over["n_dense_layers"] = min(mc.n_dense_layers, n_layers - 1)
+    return dataclasses.replace(mc, **over)
 
 
 def build_engine(cfg: ServeConfig, params=None) -> Engine:

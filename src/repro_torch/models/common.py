@@ -22,7 +22,8 @@ import torch
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"       # dense | moe | encdec (the families ported)
+    family: str = "dense"       # dense | moe | ssm | encdec (the families
+                                 # ported)
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -43,6 +44,19 @@ class ModelConfig:
     n_shared_experts: int = 0
     n_dense_layers: int = 0      # leading dense (SwiGLU) layers
     capacity_factor: float = 1.25
+    # --- MLA (deepseek) ---
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # --- SSM (mamba2 SSD) ---
+    ssm_state: int = 128
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
     # --- enc-dec (whisper) ---
     n_enc_layers: int = 0
     enc_seq: int = 1500
@@ -56,6 +70,23 @@ class ModelConfig:
                                  # impls; when set, its backend wins over
                                  # pipeline_backend.  Hashable, so the
                                  # config stays usable as a cache key.
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def mixer(self) -> str:
+        """Every layer's token mixer: ``"mamba"`` (the ``ssm`` family),
+        ``"mla"`` (``use_mla``) or ``"attn"`` (the reference's
+        ``plan_stages``, lm.py:48-63)."""
+        if self.family == "ssm":
+            return "mamba"
+        return "mla" if self.use_mla else "attn"
 
     def is_moe_layer(self, i: int) -> bool:
         """Layer ``i``'s MLP is the MoE (the reference's ``moe_period`` is
@@ -82,6 +113,14 @@ def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
         moe_d_ff=64 if cfg.n_experts else 0,
         n_shared_experts=min(cfg.n_shared_experts, 1),
         n_dense_layers=min(cfg.n_dense_layers, 1),
+        q_lora_rank=64 if cfg.q_lora_rank else 0,
+        kv_lora_rank=32 if cfg.use_mla else 0,
+        qk_nope_dim=32 if cfg.use_mla else 0,
+        qk_rope_dim=16 if cfg.use_mla else 0,
+        v_head_dim=32 if cfg.use_mla else 0,
+        ssm_state=16,
+        ssm_head_dim=16,
+        ssm_chunk=32,
         n_enc_layers=min(cfg.n_enc_layers, 2),
         enc_seq=64 if cfg.n_enc_layers else 0,
         dtype=torch.float32,
@@ -90,11 +129,19 @@ def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **small)
 
 
+def compute_dtype(dtype) -> torch.dtype:
+    """What the RMSNorm and the SSD compute in: float32, where the
+    reference upcasts to float32, or float64 for float64 tensors (JAX has
+    none by default), so that a float64 model is a float64 yardstick."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
              ) -> torch.Tensor:
-    xf = x.float()
+    ct = compute_dtype(x.dtype)
+    xf = x.to(ct)
     irms = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (xf * irms * gamma.float()).to(x.dtype)
+    return (xf * irms * gamma.to(ct)).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -126,11 +173,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 class ParamBuilder:
-    """Seeded numpy parameter init, laid out like the reference's
-    ``ParamBuilder`` trees (dense weights ~ N(0, 1/fan_in))."""
+    """Seeded parameter init, laid out like the reference's
+    ``ParamBuilder`` trees (dense weights ~ N(0, 1/fan_in)).
+
+    On the CPU numpy's ``rng`` draws every value.  On a CUDA device a
+    ``torch.Generator`` on that device, seeded once from ``rng``, draws
+    each tensor in place where it lives: numpy draws about 10^9 float32
+    values in 15 s on the host, and one of deepseek-v3's expert stacks
+    alone holds 3.8 x 10^9 (PERF.md).  So one seed gives one set of weights
+    per device type; the tests that hold the port against the reference
+    load the reference's own weights (``LM.from_jax_params``)."""
 
     def __init__(self, rng: np.random.Generator, dtype, device):
-        self.rng, self.dtype, self.device = rng, dtype, device
+        self.rng, self.dtype = rng, dtype
+        self.device = torch.device(device)
+        self._gen = None
+        if self.device.type == "cuda":
+            self._gen = torch.Generator(device=self.device)
+            self._gen.manual_seed(int(rng.integers(2 ** 62)))
 
     def _t(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(arr, dtype=torch.float32).to(
@@ -140,14 +200,17 @@ class ParamBuilder:
               scale: Optional[float] = None) -> torch.Tensor:
         fan_in = shape[0] if len(shape) >= 2 else 1
         scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+        if self._gen is not None:
+            w = torch.empty(shape, dtype=torch.float32, device=self.device)
+            return w.normal_(0.0, scale, generator=self._gen).to(self.dtype)
         w = self.rng.standard_normal(shape, dtype=np.float32) * scale
         return self._t(w)
 
     def ones(self, shape: Tuple[int, ...]) -> torch.Tensor:
-        return self._t(np.ones(shape, np.float32))
+        return torch.ones(shape, dtype=self.dtype, device=self.device)
 
     def zeros(self, shape: Tuple[int, ...]) -> torch.Tensor:
-        return self._t(np.zeros(shape, np.float32))
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
 
 def init_attention(pb: ParamBuilder, cfg: ModelConfig):
@@ -186,21 +249,63 @@ def init_moe(pb: ParamBuilder, cfg: ModelConfig):
     return p
 
 
+def init_mla(pb: ParamBuilder, cfg: ModelConfig):
+    """MLA's projections (the reference's ``init_mla``, layers.py:289-303):
+    q through the ``q_lora_rank`` bottleneck (``wq_a``, its RMSNorm gain
+    ``q_norm``, ``wq_b``), or ``wq`` where the rank is 0; the joint KV
+    compression ``wkv_a`` to ``kv_lora_rank`` plus the shared RoPE key,
+    its gain ``kv_norm``, the up-projection ``wkv_b`` to every head's
+    no-RoPE key and value, and ``wo``."""
+    d, h = cfg.d_model, cfg.n_heads
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    r = cfg.kv_lora_rank
+    if cfg.q_lora_rank:
+        p = {"wq_a": pb.dense((d, cfg.q_lora_rank)),
+             "q_norm": pb.ones((cfg.q_lora_rank,)),
+             "wq_b": pb.dense((cfg.q_lora_rank, h * qd))}
+    else:
+        p = {"wq": pb.dense((d, h * qd))}
+    p.update(wkv_a=pb.dense((d, r + cfg.qk_rope_dim)),
+             kv_norm=pb.ones((r,)),
+             wkv_b=pb.dense((r, h * (cfg.qk_nope_dim + cfg.v_head_dim))),
+             wo=pb.dense((h * cfg.v_head_dim, d)))
+    return p
+
+
+def init_mamba(pb: ParamBuilder, cfg: ModelConfig):
+    """A Mamba2 block (the reference's ``init_mamba``, layers.py:648-659):
+    ``w_in`` to z, the conv channels (x, B, C) and dt; the depthwise conv
+    ``conv_w`` (scale 0.5) and ``conv_b``; ``A_log``, ``dt_bias`` and the
+    skip ``D`` per head (zeros); the gated RMSNorm gain ``ssm_norm``;
+    ``w_out``."""
+    d, di, n, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    conv_ch = di + 2 * n
+    return {"w_in": pb.dense((d, 2 * di + 2 * n + nh)),
+            "conv_w": pb.dense((cfg.ssm_conv, conv_ch), scale=0.5),
+            "conv_b": pb.zeros((conv_ch,)), "A_log": pb.zeros((nh,)),
+            "dt_bias": pb.zeros((nh,)), "D": pb.zeros((nh,)),
+            "ssm_norm": pb.ones((di,)), "w_out": pb.dense((di, d))}
+
+
+INIT_MIXER = {"attn": init_attention, "mla": init_mla, "mamba": init_mamba}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
-    """Random LM weights from a seeded numpy generator, with the
+    """Random LM weights from a seed (:class:`ParamBuilder`), with the
     reference's shapes and scales, in the layout ``models/lm.py``
-    describes: a SwiGLU MLP, or the MoE where ``cfg.is_moe_layer``."""
+    describes: each layer's mixer by ``cfg.mixer``, then a SwiGLU MLP, or
+    the MoE where ``cfg.is_moe_layer``; a Mamba layer has no MLP (the
+    reference's lm.py:80-97)."""
     pb = ParamBuilder(np.random.default_rng(seed), cfg.dtype, device)
     d = cfg.d_model
     params = {"embed": pb.dense((cfg.vocab, d), scale=0.02), "layers": []}
     for i in range(cfg.n_layers):
-        params["layers"].append({
-            "ln1": pb.ones((d,)),
-            "mixer": init_attention(pb, cfg),
-            "ln2": pb.ones((d,)),
-            "mlp": (init_moe(pb, cfg) if cfg.is_moe_layer(i)
-                    else init_swiglu(pb, cfg, cfg.d_ff)),
-        })
+        layer = {"ln1": pb.ones((d,)), "mixer": INIT_MIXER[cfg.mixer](pb, cfg)}
+        if cfg.mixer != "mamba":
+            layer["ln2"] = pb.ones((d,))
+            layer["mlp"] = (init_moe(pb, cfg) if cfg.is_moe_layer(i)
+                            else init_swiglu(pb, cfg, cfg.d_ff))
+        params["layers"].append(layer)
     params["ln_f"] = pb.ones((d,))
     if not cfg.tie_embeddings:
         params["head"] = pb.dense((d, cfg.vocab), scale=0.02)

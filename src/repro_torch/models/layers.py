@@ -1,5 +1,6 @@
-"""Attention, RMSNorm+SwiGLU and MoE layers of the torch port: the port of
-the dense and MoE parts of ``repro.models.layers``.
+"""Attention, MLA, RMSNorm+SwiGLU, MoE and Mamba2 layers of the torch
+port: the port of ``repro.models.layers`` (all but jamba's and the VLM's
+parts).
 
 ``cfg.attn_impl`` / ``cfg.mlp_impl`` pick the implementation:
 
@@ -16,6 +17,8 @@ the dense and MoE parts of ``repro.models.layers``.
 The projections, ``wo``, the head and the MoE experts stay
 ``torch.matmul``: none of them is inside a Pallas kernel in the reference
 either (its unsharded ``moe_apply`` runs ``einsum`` outside any kernel).
+Nor are MLA's attention and Mamba2's SSD: the reference runs both as
+plain XLA whatever the impls say, and the port as plain torch.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as R
-from repro_torch.models.common import ModelConfig, apply_rope, rms_norm
+from repro_torch.models.common import (ModelConfig, apply_rope,
+                                       compute_dtype, rms_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +280,121 @@ def attention_decode(p, x, cache, pos, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# MLA attention (deepseek-v3): low-rank q/kv compression, decoupled RoPE,
+# a compressed-KV cache with the absorbed decode form
+# ---------------------------------------------------------------------------
+
+def mla_q(p, x, cfg: ModelConfig, positions):
+    """Every head's query, split into its no-RoPE and RoPE parts, each
+    (b, h, s, dim): through the ``q_lora_rank`` bottleneck and its RMSNorm,
+    or ``wq`` where the rank is 0 (the reference's ``_mla_q``)."""
+    b, s, _ = x.shape
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(b, s, cfg.n_heads, qd).transpose(1, 2)
+    q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_kv_compressed(p, x, cfg: ModelConfig, positions):
+    """The compressed KV latent (b, s, kv_lora_rank), RMS-normalised, and
+    the RoPE key every head shares (b, s, qk_rope_dim): what MLA's cache
+    holds (the reference's ``_mla_kv_compressed``)."""
+    ckv, k_rope = (x @ p["wkv_a"]).split(
+        [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
+    ckv = rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta)[:, 0]
+    return ckv, k_rope
+
+
+def mla_apply(p, x, cfg: ModelConfig, *, causal: bool = True,
+              positions=None) -> torch.Tensor:
+    """Full-sequence MLA: ``wkv_b`` expands the latent to every head's key
+    (no-RoPE part, then the shared RoPE key) and value, and attention runs
+    over keys of width ``qk_nope_dim + qk_rope_dim`` against values of
+    width ``v_head_dim``.
+
+    The reference forces its plain ``xla`` attention here whatever
+    ``attn_impl`` says, ``ref`` apart (layers.py:346-348), so MLA reaches
+    no Pallas kernel; the port runs its counterpart, the plain ``chunked``
+    attention (``kernels/ref.py:attention_chunked``, the reference's
+    ``kernels/ref.py:86``), or ``ref``."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q_nope, q_rope = mla_q(p, x, cfg, positions)
+    ckv, k_rope = mla_kv_compressed(p, x, cfg, positions)
+    kv = (ckv @ p["wkv_b"]).reshape(
+        b, s, h, cfg.qk_nope_dim + cfg.v_head_dim).transpose(1, 2)
+    k_nope, v = kv.split([cfg.qk_nope_dim, cfg.v_head_dim], dim=-1)
+    k_rope_h = k_rope[:, None].expand(b, h, s, cfg.qk_rope_dim)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope_h], -1)
+    scale = 1.0 / (cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5
+    impl = "ref" if cfg.attn_impl == "ref" else "chunked"
+    o = K.flash_attention(q, k, v, scale=scale, causal=causal, impl=impl)
+    return o.transpose(1, 2).reshape(b, s, h * cfg.v_head_dim) @ p["wo"]
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> Dict[str, torch.Tensor]:
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                 dtype=dtype, device=device)}
+
+
+def mla_decode(p, x, cache, pos, cfg: ModelConfig):
+    """One-token MLA decode in the absorbed form: the query is taken into
+    the latent space through ``wkv_b``'s key half, scores run against the
+    compressed cache (``kv_lora_rank + qk_rope_dim`` values a token) in
+    float32 with the ``-1e30`` frontier mask, and the context leaves
+    through the value half (the reference's ``mla_decode``,
+    layers.py:365-409: plain einsums, no kernel, as here).
+
+    ``pos`` is a scalar or a ``(b,)`` vector (ragged continuous-batching
+    step).  The cache is written in place at ``pos`` (and returned)."""
+    b = x.shape[0]
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
+    ragged = pos.dim() == 1
+    positions = pos[:, None, None] if ragged else pos.reshape(1)
+    q_nope, q_rope = mla_q(p, x, cfg, positions)            # (b,h,1,*)
+    ckv_t, krope_t = mla_kv_compressed(p, x, cfg, positions)
+    ckv, krope = cache["ckv"], cache["krope"]
+    if ragged:
+        rows = torch.arange(b, device=x.device)
+        ckv[rows, pos] = ckv_t[:, 0].to(ckv.dtype)
+        krope[rows, pos] = krope_t[:, 0].to(krope.dtype)
+    else:
+        ckv[:, pos] = ckv_t[:, 0].to(ckv.dtype)
+        krope[:, pos] = krope_t[:, 0].to(krope.dtype)
+    f32 = torch.float32
+    wkv_b = p["wkv_b"].to(f32).reshape(r, h,
+                                       cfg.qk_nope_dim + cfg.v_head_dim)
+    w_uk = wkv_b[:, :, :cfg.qk_nope_dim]                    # (r,h,nope)
+    w_uv = wkv_b[:, :, cfg.qk_nope_dim:]                    # (r,h,v)
+    q_abs = torch.einsum("bhqn,rhn->bhqr", q_nope.to(f32), w_uk)
+    ckv_f = ckv.to(f32)
+    scale = 1.0 / (cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5
+    s = (torch.einsum("bhqr,bsr->bhqs", q_abs, ckv_f)
+         + torch.einsum("bhqe,bse->bhqs", q_rope.to(f32),
+                        krope.to(f32))) * scale
+    cols = torch.arange(ckv.shape[1], device=x.device)[None, None, None, :]
+    frontier = pos[:, None, None, None] if ragged else pos
+    s = torch.where(cols <= frontier, s, torch.full_like(s, R.NEG_INF))
+    pr = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bhqr", pr, ckv_f)
+    o = torch.einsum("bhqr,rhv->bhqv", ctx, w_uv)
+    o = o.transpose(1, 2).reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)
+    return o @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
 # RMSNorm + FFN-SwiGLU
 # ---------------------------------------------------------------------------
 
@@ -390,6 +509,172 @@ def mlp_apply(p, x, gamma, cfg: ModelConfig, layer: int) -> torch.Tensor:
     return rmsnorm_swiglu_apply(p, x, gamma, cfg)
 
 
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD, chunked): attention-free, the chunked matmul form
+# ---------------------------------------------------------------------------
+# The reference runs all of it as plain XLA, no Pallas kernel
+# (layers.py:662-820); the port runs it as plain torch on the tensors'
+# device, as the reference does on its own.
+
+def _mamba_proj(p, x, cfg: ModelConfig):
+    """z, the conv channels (x_in, B, C) and dt of ``w_in``."""
+    di, n = cfg.d_inner, cfg.ssm_state
+    return (x @ p["w_in"]).split([di, di + 2 * n, cfg.n_ssm_heads], dim=-1)
+
+
+def _causal_conv(xbc, p, cfg: ModelConfig):
+    """Depthwise causal conv of width ``cfg.ssm_conv`` over the sequence
+    axis of (b, s, channels), then SiLU."""
+    w = p["conv_w"]                                      # (W, C)
+    width, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    out = sum(pad[:, i:i + s] * w[i] for i in range(width))
+    return F.silu(out + p["conv_b"])
+
+
+def _ssd_chunked(xh, dt, A, B, C, cfg: ModelConfig, h0=None):
+    """SSD forward (Mamba-2) in chunks of ``cfg.ssm_chunk``: xh (b, s, nh,
+    hd), dt (b, s, nh), A (nh,), B and C (b, s, n).  Returns y (b, s, nh,
+    hd) and the final state (b, nh, hd, n), in float32 (float64 for
+    float64 inputs: ``compute_dtype``); ``h0`` is the state
+    before the first token (zeros when None).  The sequence is padded to
+    whole chunks (dt = 0 there, so the state passes through unchanged) and
+    y cut back to ``s``.  The reference's inter-chunk ``lax.scan`` is a
+    loop over the chunks.  One departure from the reference's arithmetic
+    (layers.py:696-699, 708-710), not from its result: the decay exponents
+    are sums within each segment, not differences of prefix sums, which
+    keeps float32 within 5e-7 of float64 at mamba2-2.7b's chunk of 256
+    where the differences leave more than 1e-6 (relative to the largest
+    output; tests/test_torch_ssm.py)."""
+    b, s, nh, hd = xh.shape
+    n = B.shape[-1]
+    q = min(cfg.ssm_chunk, s)
+    pad = (-s) % q
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt, B, C = (F.pad(t, (0, 0, 0, pad)) for t in (dt, B, C))
+    L = (s + pad) // q
+    ct = compute_dtype(xh.dtype)
+    xh = xh.reshape(b, L, q, nh, hd).to(ct)
+    dt = dt.reshape(b, L, q, nh).to(ct)
+    Bc = B.reshape(b, L, q, n).to(ct)
+    Cc = C.reshape(b, L, q, n).to(ct)
+
+    dA = dt * A                                          # (b,L,q,nh) <= 0
+    cs = torch.cumsum(dA, dim=2)
+    # seg[i, j] = dA_{j+1} + ... + dA_i, summed within the segment (the
+    # Mamba-2 paper's segsum), not as cs_i - cs_j: the difference of two
+    # prefix sums near -|cs| loses |cs| 2^-24 to cancellation
+    ones = torch.ones(q, q, dtype=torch.bool, device=xh.device)
+    strict, causal = ones.tril(-1), ones.tril()
+    seg = torch.cumsum(dA[:, :, :, None, :].expand(b, L, q, q, nh)
+                       .masked_fill(~strict[None, None, :, :, None], 0.0),
+                       dim=2)                            # (b,L,q,q,nh)
+    # masked before exp: exp(seg) * 0 would be NaN where seg overflows
+    decay = torch.exp(seg.masked_fill(~causal[None, None, :, :, None],
+                                      float("-inf")))
+
+    # intra-chunk (the diagonal blocks): y = (C B^T . decay . dt) x
+    cb = torch.einsum("blqn,blkn->blqk", Cc, Bc)
+    att = cb[..., None] * decay * dt[:, :, None, :, :]   # (b,L,q,k,nh)
+    y_diag = torch.einsum("blqkh,blkhd->blqhd", att, xh)
+
+    # chunk states: h_c = sum_j exp(cs_end - cs_j) dt_j B_j x_j, the
+    # exponent being seg's last row
+    w_end = torch.exp(seg[:, :, -1]) * dt                # (b,L,q,nh)
+    states = torch.einsum("blqn,blqh,blqhd->blhdn", Bc, w_end, xh)
+
+    # inter-chunk recurrence over the L chunks
+    chunk_decay = torch.exp(cs[:, :, -1, :])             # (b,L,nh)
+    h = (torch.zeros((b, nh, hd, n), dtype=ct, device=xh.device)
+         if h0 is None else h0.to(ct))
+    h_prevs = []
+    for c in range(L):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prevs, 1)                     # (b,L,nh,hd,n)
+
+    y_inter = torch.einsum("blqn,blqh,blhdn->blqhd", Cc, torch.exp(cs),
+                           h_prev)
+    y = (y_diag + y_inter).reshape(b, L * q, nh, hd)[:, :s]
+    return y, h
+
+
+def _mamba_inner(p, xn, cfg: ModelConfig):
+    """The block's body after its norm: returns the output before ``w_out``,
+    the raw conv channels and the final SSM state."""
+    b, s, _ = xn.shape
+    nh, hd, n, di = (cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                     cfg.d_inner)
+    ct = compute_dtype(xn.dtype)
+    z, xbc_raw, dt = _mamba_proj(p, xn, cfg)
+    xbc = _causal_conv(xbc_raw, p, cfg)
+    xin, B, C = xbc.split([di, n, n], dim=-1)
+    xh = xin.reshape(b, s, nh, hd)
+    dt = F.softplus(dt.to(ct) + p["dt_bias"].to(ct))
+    A = -torch.exp(p["A_log"].to(ct))
+    y, h = _ssd_chunked(xh, dt, A, B, C, cfg)
+    y = y + xh.to(ct) * p["D"].to(ct)[None, None, :, None]
+    y = y.reshape(b, s, di).to(xn.dtype)
+    y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
+    return y, xbc_raw, h
+
+
+def mamba_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
+    """Pre-norm Mamba2 block on the residual stream ``x`` (returns the
+    residual delta)."""
+    y, _, _ = _mamba_inner(p, rms_norm(x, gamma, cfg.norm_eps), cfg)
+    return y @ p["w_out"]
+
+
+def mamba_init_cache(cfg: ModelConfig, batch: int, dtype, device
+                     ) -> Dict[str, torch.Tensor]:
+    """The decode state: the SSM state ``h`` (float32) and the last
+    ``ssm_conv - 1`` raw conv inputs ``conv``."""
+    return {"h": torch.zeros((batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                              cfg.ssm_state), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1,
+                                 cfg.d_inner + 2 * cfg.ssm_state),
+                                dtype=dtype, device=device)}
+
+
+def mamba_prefill(p, x, gamma, cfg: ModelConfig):
+    """:func:`mamba_apply` that also returns the decode cache: the final
+    SSM state and the raw conv window (zeros before the first token)."""
+    s = x.shape[1]
+    y, xbc_raw, h = _mamba_inner(p, rms_norm(x, gamma, cfg.norm_eps), cfg)
+    w = cfg.ssm_conv - 1
+    window = F.pad(xbc_raw, (0, 0, max(w - s, 0), 0))[:, -w:]
+    return y @ p["w_out"], {"h": h, "conv": window.to(cfg.dtype)}
+
+
+def mamba_decode(p, x, gamma, cache, cfg: ModelConfig):
+    """One-token SSM step: the conv over the cached window and the new
+    input, then the O(1) state update.  Returns the residual delta and the
+    new cache ``{"h", "conv"}`` (the caller stores it)."""
+    b = x.shape[0]
+    nh, hd, n, di = (cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                     cfg.d_inner)
+    ct = compute_dtype(x.dtype)
+    z, xbc, dt = _mamba_proj(p, rms_norm(x, gamma, cfg.norm_eps), cfg)
+    window = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)], 1)
+    conv = F.silu((window * p["conv_w"][None]).sum(1, keepdim=True)
+                  + p["conv_b"])
+    xin, B, C = conv.split([di, n, n], dim=-1)
+    xh = xin.reshape(b, nh, hd).to(ct)
+    dtv = F.softplus(dt[:, 0].to(ct) + p["dt_bias"].to(ct))   # (b,nh)
+    A = -torch.exp(p["A_log"].to(ct))
+    decay = torch.exp(dtv * A[None])
+    h = cache["h"] * decay[:, :, None, None] + torch.einsum(
+        "bh,bhd,bn->bhdn", dtv, xh, B[:, 0].to(ct))
+    y = torch.einsum("bhdn,bn->bhd", h, C[:, 0].to(ct))
+    y = y + xh * p["D"].to(ct)[None, :, None]
+    y = y.reshape(b, 1, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
+    return y @ p["w_out"], {"h": h, "conv": window[:, 1:]}
+
+
 def pipeline_kernels(cfg: ModelConfig, *, prefill_lens=(),
                      decode_batch: Optional[int] = None,
                      max_len: Optional[int] = None,
@@ -397,14 +682,18 @@ def pipeline_kernels(cfg: ModelConfig, *, prefill_lens=(),
     """Compile (without running) the pipeline kernels a serving run on
     ``device`` (a device type) touches, by name: one attention and one
     SwiGLU kernel per prefill length (``attention_prefill8``...), plus
-    the ragged decode pair (``attention_decode``, ``swiglu_decode``)."""
+    the ragged decode pair (``attention_decode``, ``swiglu_decode``).
+    MLA never takes the attention pipeline (:func:`mla_apply`), a model
+    of MoE layers only has no SwiGLU kernel, and a Mamba2 model neither."""
     opts = _pipeline_options(cfg)
-    scale = 1.0 / cfg.d_head ** 0.5
-    group = cfg.n_heads // cfg.n_kv_heads
-    dh, d, eps = cfg.d_head, cfg.d_model, float(cfg.norm_eps)
-    attn = cfg.attn_impl == "pipeline"
-    mlp = cfg.mlp_impl == "pipeline" and not all(
-        cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    d, eps = cfg.d_model, float(cfg.norm_eps)
+    attn = cfg.attn_impl == "pipeline" and cfg.mixer == "attn"
+    mlp = (cfg.mlp_impl == "pipeline" and cfg.mixer != "mamba"
+           and not all(cfg.is_moe_layer(i) for i in range(cfg.n_layers)))
+    if attn:
+        scale = 1.0 / cfg.d_head ** 0.5
+        group = cfg.n_heads // cfg.n_kv_heads
+        dh = cfg.d_head
     out: Dict[str, object] = {}
     for s in prefill_lens:
         if attn:

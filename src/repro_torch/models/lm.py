@@ -1,18 +1,30 @@
-"""Decoder-only LM of the torch port (``family`` ``"dense"`` or ``"moe"``):
-the port of ``repro.models.lm``.
+"""Decoder-only LM of the torch port (``family`` ``"dense"``, ``"moe"``
+or ``"ssm"``): the port of ``repro.models.lm``.
 
 Parameters are a dict: ``embed`` (vocab, d), ``ln_f`` (d,), ``head``
 (d, vocab) when embeddings are untied, and ``layers``, one dict per layer
-with ``ln1``, ``mixer`` (``wq``/``wk``/``wv``/``wo``, plus ``bq``/``bk``/
-``bv`` with ``qkv_bias`` and ``q_norm``/``k_norm`` with ``qk_norm``),
-``ln2`` and ``mlp``: ``w_gate``/``w_up``/``w_down`` for a SwiGLU layer,
+with ``ln1`` and ``mixer``, the layer's token mixer by ``cfg.mixer``:
+
+* ``attn``: ``wq``/``wk``/``wv``/``wo``, plus ``bq``/``bk``/``bv`` with
+  ``qkv_bias`` and ``q_norm``/``k_norm`` with ``qk_norm``;
+* ``mla`` (``use_mla``, deepseek-v3): ``wq_a``/``q_norm``/``wq_b`` (or
+  ``wq``), ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``;
+* ``mamba`` (``family="ssm"``, mamba2): ``w_in``, ``conv_w``/``conv_b``,
+  ``A_log``, ``dt_bias``, ``D``, ``ssm_norm``, ``w_out``.
+
+An attention or MLA layer also has ``ln2`` and ``mlp``:
+``w_gate``/``w_up``/``w_down`` for a SwiGLU layer,
 ``router``/``we_gate``/``we_up``/``we_down`` (and ``shared_*``) for an MoE
 layer.  As in the reference's ``plan_stages``, an MoE model has
 ``n_dense_layers`` SwiGLU layers, then MoE layers
-(``ModelConfig.is_moe_layer``).  The reference stacks each stage's
-layers on a leading axis and scans them; the port loops over the list.
-The KV cache is ``{"k", "v"}`` of shape (n_layers, batch, kv heads,
-max_len, d_head), updated in place by :meth:`LM.decode_step`.
+(``ModelConfig.is_moe_layer``); a Mamba2 layer has no MLP.  The
+reference stacks each stage's layers on a leading axis and scans them;
+the port loops over the list.  The cache is a dict of tensors stacked on
+a leading layer axis, by mixer: ``{"k", "v"}`` (n_layers, batch, kv
+heads, max_len, d_head); ``{"ckv", "krope"}`` (n_layers, batch, max_len,
+kv_lora_rank | qk_rope_dim); ``{"h", "conv"}`` (n_layers, batch, heads,
+head_dim, state) in float32 and (n_layers, batch, ssm_conv - 1, d_inner
++ 2 state).  :meth:`LM.decode_step` updates it in place.
 
 With ``attn_impl="cuda"`` and ``mlp_impl="cuda"`` the forward pass and
 prefill run the paper's hand-written kernels (``kernels/ops.py``), as the
@@ -26,29 +38,32 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.common import ModelConfig, init_params, rms_norm
 
+#: the families :class:`LM` runs
+FAMILIES = ("dense", "moe", "ssm")
+
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in FAMILIES:
             raise ValueError(f"family {cfg.family!r} is not ported yet")
         self.cfg = cfg
 
     # -- params ---------------------------------------------------------------
     def init_params(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
-        """Random weights from a seeded numpy generator
-        (``models.common.init_params``)."""
+        """Random weights from a seed (``models.common.init_params``)."""
         return init_params(self.cfg, seed, device)
 
     def from_jax_params(self, tree, device="cuda") -> Dict[str, Any]:
         """The port's parameters from the reference's ``LM.init_params``
         tree (arrays converted to numpy; each ``stageN/sub0/...`` stacked
         on a leading layer axis, the stages in layer order, reference
-        lm.py:166-186)."""
+        lm.py:166-186), whatever the layer's mixer and MLP hold."""
         dtype = self.cfg.dtype
 
         def t(a):
@@ -83,60 +98,98 @@ class LM:
                 else params["head"])
         return x @ head
 
+    def _mlp(self, p, x, i):
+        """Layer ``i``'s MLP residual step (none in a Mamba2 layer)."""
+        if self.cfg.mixer == "mamba":
+            return x
+        return x + L.mlp_apply(p["mlp"], x, p["ln2"], self.cfg, i)
+
     def forward(self, params, tokens) -> torch.Tensor:
         cfg = self.cfg
         x = self._embed(params, tokens)
         for i, p in enumerate(params["layers"]):
-            x = x + L.attention_apply(p["mixer"],
-                                      rms_norm(x, p["ln1"], cfg.norm_eps),
-                                      cfg, causal=True)
-            x = x + L.mlp_apply(p["mlp"], x, p["ln2"], cfg, i)
+            if cfg.mixer == "mamba":
+                x = x + L.mamba_apply(p["mixer"], x, p["ln1"], cfg)
+            else:
+                mix = L.mla_apply if cfg.mixer == "mla" else L.attention_apply
+                x = x + mix(p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                            cfg, causal=True)
+            x = self._mlp(p, x, i)
         return self._logits(params, x)
 
     # -- caches ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device="cuda"):
+        """Zeros of the cache layout of ``cfg.mixer`` (module docstring)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
-        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+        if cfg.mixer == "mamba":
+            one = L.mamba_init_cache(cfg, batch, cfg.dtype, device)
+        elif cfg.mixer == "mla":
+            one = L.mla_init_cache(cfg, batch, max_len, cfg.dtype, device)
+        else:
+            one = L.attention_init_cache(cfg, batch, max_len, cfg.dtype,
+                                         device)
+        return {name: t.new_zeros((cfg.n_layers, *t.shape))
+                for name, t in one.items()}
 
     # -- prefill / decode -----------------------------------------------------
     def prefill(self, params, tokens, max_len: Optional[int] = None):
         """Run the prompt; returns logits and a cache filled to the prompt
-        length, padded to ``max_len`` for later decode steps."""
+        length, its sequence axis padded to ``max_len`` for later decode
+        steps (a Mamba2 cache has no sequence axis)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         b, s = tokens.shape
         max_len = max_len or s
-        pos = (torch.arange(s, device=x.device) if cfg.rope_theta > 0
-               else None)
-        ks, vs = [], []
+        pad = (0, 0, 0, max_len - s)
+        pos = torch.arange(s, device=x.device)
+        caches = []
         for i, p in enumerate(params["layers"]):
-            xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-            q, k, v = L.qkv(p["mixer"], xn, cfg, pos)
-            y = L._attend(q, k, v, cfg, causal=True)
-            y = y.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
-            x = x + y @ p["mixer"]["wo"]
-            pad = (0, 0, 0, max_len - s)
-            ks.append(torch.nn.functional.pad(k, pad).to(cfg.dtype))
-            vs.append(torch.nn.functional.pad(v, pad).to(cfg.dtype))
-            x = x + L.mlp_apply(p["mlp"], x, p["ln2"], cfg, i)
-        return self._logits(params, x), {"k": torch.stack(ks),
-                                         "v": torch.stack(vs)}
+            if cfg.mixer == "mamba":
+                y, cache = L.mamba_prefill(p["mixer"], x, p["ln1"], cfg)
+                x = x + y
+            elif cfg.mixer == "mla":
+                # the reference's lm.py:307-319: the layer, then the cache
+                # from the compressed projections of the same input
+                xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+                x = x + L.mla_apply(p["mixer"], xn, cfg)
+                ckv, krope = L.mla_kv_compressed(p["mixer"], xn, cfg, pos)
+                cache = {"ckv": F.pad(ckv, pad).to(cfg.dtype),
+                         "krope": F.pad(krope, pad).to(cfg.dtype)}
+            else:
+                xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+                q, k, v = L.qkv(p["mixer"], xn, cfg,
+                                pos if cfg.rope_theta > 0 else None)
+                y = L._attend(q, k, v, cfg, causal=True)
+                y = y.transpose(1, 2).reshape(b, s,
+                                              cfg.n_heads * cfg.d_head)
+                x = x + y @ p["mixer"]["wo"]
+                cache = {"k": F.pad(k, pad).to(cfg.dtype),
+                         "v": F.pad(v, pad).to(cfg.dtype)}
+            caches.append(cache)
+            x = self._mlp(p, x, i)
+        return self._logits(params, x), {
+            name: torch.stack([c[name] for c in caches])
+            for name in caches[0]}
 
     def decode_step(self, params, caches, tokens, pos):
         """tokens: (B, 1); pos: the filled cache length, a scalar or a
-        (B,) vector (ragged continuous batching).  Writes the new k/v
-        into ``caches`` in place and returns ``(logits, caches)``."""
+        (B,) vector (ragged continuous batching; a Mamba2 step takes no
+        position).  Writes the new cache entries into ``caches`` in place
+        and returns ``(logits, caches)``."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         for i, p in enumerate(params["layers"]):
-            cache = {"k": caches["k"][i], "v": caches["v"][i]}
-            y, _ = L.attention_decode(
-                p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps), cache, pos,
-                cfg)
-            x = x + y
-            x = x + L.mlp_apply(p["mlp"], x, p["ln2"], cfg, i)
+            cache = {name: t[i] for name, t in caches.items()}
+            if cfg.mixer == "mamba":
+                y, new = L.mamba_decode(p["mixer"], x, p["ln1"], cache, cfg)
+                for name, t in new.items():
+                    cache[name].copy_(t)
+            else:
+                dec = (L.mla_decode if cfg.mixer == "mla"
+                       else L.attention_decode)
+                y, _ = dec(p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                           cache, pos, cfg)
+            x = self._mlp(p, x + y, i)
         return self._logits(params, x), caches
 
 

@@ -249,3 +249,108 @@ def test_disk_hit_relowers_without_nvcc(card, tmp_path):
     assert CB.STATS["builds"] == builds
     for n in again.out_names:
         torch.testing.assert_close(got[n], want[n], rtol=0, atol=0)
+
+
+# -- deepseek-v3 (MLA) and mamba2 on the card ---------------------------------
+
+DEEPSEEK_SWIGLU = ("swiglu_decode", "swiglu_prefill8", "swiglu_prefill16",
+                   "swiglu_prefill32")
+
+
+@pytest.mark.parametrize("name", DEEPSEEK_SWIGLU)
+def test_deepseek_swiglu_kernels_on_card(name, card):
+    """The dense layer's emitted SwiGLU kernels at deepseek-v3's widths
+    (d 7168, d_ff 18432: three kernels a program), each launched once on
+    seeded inputs of its serving shape, against its plain version."""
+    from repro_torch.launch import serve as S
+    from repro_torch.models import layers as L
+    cfg = S.ServeConfig(arch="deepseek-v3-671b", n_layers=2)
+    mc = S.model_config(cfg)
+    ck = L.pipeline_kernels(mc, prefill_lens=cfg.prompt_buckets,
+                            decode_batch=cfg.max_batch,
+                            max_len=cfg.max_len)[name]
+    d, dff = mc.d_model, mc.d_ff
+    t = cfg.max_batch if name == "swiglu_decode" else int(
+        name[len("swiglu_prefill"):])
+    gen = torch.Generator(device=card).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=card) * scale
+
+    inputs = {"X": randn(t, d), "WT": randn(dff, d, scale=d ** -0.5),
+              "VT": randn(dff, d, scale=d ** -0.5),
+              "UT": randn(d, dff, scale=dff ** -0.5)}
+    raw = ck._fn.raw_program
+    env = {ref: inputs[n] for ref, n in zip(raw.input_refs, ck.in_names)}
+    CC.build(ck.kernels)
+    assert len(ck.kernels) == 3
+    for kr, kern in raw.region_runners:
+        kin = [env[r] for r in kr.in_refs]
+        before = kern.launches
+        got = kern(*kin)
+        want = kern.plain(*kin)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        for g_, w_ in zip(got, want):
+            torch.testing.assert_close(g_, w_, rtol=TOL, atol=TOL,
+                                       msg=f"{name}/{kern.gid}")
+        env.update(zip(kr.out_refs, got))
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["scalar", "ragged"])
+def test_mla_decode_on_card_matches_cpu(ragged, card):
+    """``mla_decode`` at deepseek-v3's full widths on CUDA tensors (plain
+    torch there, as the reference runs plain einsums) against the same
+    function on the CPU: output and the compressed cache."""
+    import dataclasses
+    from repro_torch import configs as C
+    from repro_torch.models import common as CM
+    from repro_torch.models import layers as L
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(C.get_config("deepseek-v3-671b"),
+                              dtype=torch.float32)
+    pb = CM.ParamBuilder(np.random.default_rng(0), torch.float32, "cpu")
+    p = CM.init_mla(pb, cfg)
+    rng = np.random.default_rng(1)
+    b, max_len = 4, 96
+    cache = {"ckv": torch.from_numpy(rng.normal(
+                 size=(b, max_len, cfg.kv_lora_rank)).astype(np.float32)),
+             "krope": torch.from_numpy(rng.normal(
+                 size=(b, max_len, cfg.qk_rope_dim)).astype(np.float32))}
+    x = torch.from_numpy(rng.normal(size=(b, 1, cfg.d_model)).astype(
+        np.float32))
+    pos = torch.tensor([5, 40, 70, 95]) if ragged else torch.tensor(50)
+    gc = {k: v.to(card) for k, v in cache.items()}
+    got, _ = L.mla_decode({k: v.to(card) for k, v in p.items()},
+                          x.to(card), gc, pos.to(card), cfg)
+    want, _ = L.mla_decode(p, x, cache, pos, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for k in cache:
+        torch.testing.assert_close(gc[k].cpu(), cache[k], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_ssd_chunked_on_card_matches_cpu(card):
+    """``_ssd_chunked`` at mamba2-2.7b's widths (80 heads of 64, state
+    128, chunk 256) over 600 tokens (three chunks, the last padded), with
+    an initial state, on CUDA tensors against the CPU."""
+    from repro_torch import configs as C
+    from repro_torch.models import layers as L
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = C.get_config("mamba2-2.7b")
+    rng = np.random.default_rng(2)
+    b, s = 1, 600
+    nh, hd, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(
+            np.float32))
+
+    args = (normal(b, s, nh, hd), torch.nn.functional.softplus(
+        normal(b, s, nh)), -torch.exp(normal(nh, scale=0.5)),
+        normal(b, s, n, scale=0.1), normal(b, s, n, scale=0.1))
+    h0 = normal(b, nh, hd, n)
+    y, h = L._ssd_chunked(*(a.to(card) for a in args), cfg, h0=h0.to(card))
+    wy, wh = L._ssd_chunked(*args, cfg, h0=h0)
+    torch.testing.assert_close(y.cpu(), wy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h.cpu(), wh, rtol=1e-4, atol=1e-4)
