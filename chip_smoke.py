@@ -59,8 +59,14 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    tokens; no temporary file may be left in the cache directory;
 5. each hand-written kernel against its plain version (which follows the
    kernel's split of the key or d_ff axis) at every shape of paths A, B
-   and C below, plus one bfloat16 case each, and SwiGLU at llama3.2-1b's
-   widths in bfloat16 and at qwen2-7b's D 3584 (float32: ``2e-4`` for
+   and C and of phase 12 below, plus one bfloat16 case each, SwiGLU at
+   llama3.2-1b's widths in bfloat16 and at qwen2-7b's D 3584; phase 12
+   adds internvl2-26b's (q (2, 48, 320, 128) over 8 KV heads, causal; x
+   (640, 6144), W/V (6144, 16384)), smollm-135m's training batch (q (8,
+   9, 512, 64) over 3 KV heads; x (4096, 576)) and the drill's (q (4, 9,
+   128, 64); x (512, 576)).  Each wrapper counts its launches by shape,
+   and the script fails if a path or phase 12 launched a kernel at a
+   shape no case holds (float32: ``2e-4`` for
    attention, ``2e-4 * sqrt(K)`` absolute for LayerNorm+matmul, ``4e-4``
    for SwiGLU; bfloat16: ``5e-2``), with its launch grid, cluster size
    and (SwiGLU) X layout, timed with
@@ -138,10 +144,40 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    engines give (``DEADLINE_RECORDS``).  Every run: zero nvcc builds,
    zero unexplained compiles, no breaker left open (refuse: no file in
    ``<cache>/health/``);
-12. the serving records, the paths' times, the compile driver's record,
-   the ``resilience`` record (the three runs' counters and seconds, and
-   the card), each phase's seconds, a ``kernels`` JSON line, the card
-   line, and the result line.
+12. training on the hand kernels, float32, seeded weights drawn on the
+   card, ``SyntheticLMData(seed=0)``, remat on (each kernel launched
+   twice a layer a step: forward and recompute; its backward is autograd
+   of its plain version, by design): **12a** step 0's loss and gradients
+   of smollm-135m (full, batch 8 x 512), whisper-tiny (full, 2 x 1500
+   frames, 64 tokens) and internvl2-26b (full width, 2 layers, 2 x (256
+   vision + 64 text)) on the hand kernels against the plain impls (loss
+   within ``1e-4`` relative, every gradient leaf within ``1e-3`` relative
+   L2, a miss fails), exact launches; the worst leaf of each model (and
+   any leaf that missed), of the hand kernels, the plain impls and each
+   family of hand kernel alone, is held against a float64 run of the
+   plain impls whose attention is float64 too (SDPA's math path in place
+   of the float32 oracle), and the distances are printed; **12b** 30 steps of smollm-135m through
+   ``launch/train.py`` (lr 1e-3, 8 x 512), then on the plain impls: every
+   loss finite, falling, each within ``1e-3`` of the plain run's, exact
+   launches; **12c** llama3.2-1b at full width and depth, 3 steps of 4 x
+   512, then on the plain impls: step 0's loss within ``1e-4`` of the
+   plain impls', exact launches, the later steps' distances printed;
+   a ``torch.profiler`` split of one step of each of these two (hand
+   kernels, cuBLAS products, other kernels, optimizer, host); **12d** the
+   crash drill in child processes (this script with ``--train``):
+   smollm-135m at full width, checkpoints every 10 steps, a crash after
+   step 13 (exit 42), a resume to 20, and a clean run to 20 must end on
+   bitwise-equal checkpoints, each child with exact launches.  12b, 12c,
+   the profiles and the children run under ``launch/train.py``'s
+   ``deterministic``; in this process cuBLAS has its workspace from the
+   earlier phases, and only the children take ``:4096:8``.  Each run's
+   step time, tokens/s, bound and peak memory are printed beside the
+   card;
+13. the serving records, the paths' times, the compile driver's record,
+   the ``resilience`` and ``training`` records (with the card), each
+   phase's seconds, a ``kernels`` JSON line (the hand kernels' launches by
+   path, phase 12's runs among them, and each case's launches by path at
+   its shape), the card line, and the result line.
 """
 
 from __future__ import annotations
@@ -396,11 +432,14 @@ def bound(in_out_bytes: int, flops: float, bf16: bool = False):
 
 
 def hand_cases(gen):
-    """Every hand-kernel case: the shapes paths A and B give each kernel
-    (the first of each kernel is its main shape), plus one bfloat16 case
-    per kernel, each with its launch (grid, cluster).  Inputs scaled as in
-    tests/test_kernels.py.  The plain versions follow the kernels' splits
-    of the key (flash), d_ff (SwiGLU) and K (LayerNorm+matmul) axes."""
+    """Every hand-kernel case: the shapes paths A-C and phase 12 give each
+    kernel (the first of each kernel is its main shape; ``key`` is the
+    shape as the kernel's ``KERNEL.shapes`` counts it, and ``main`` fails
+    a path that launched a kernel at a shape no case holds), plus one
+    bfloat16 case per kernel, each with its launch (grid, cluster).
+    Inputs scaled as in tests/test_kernels.py.  The plain versions follow
+    the kernels' splits of the key (flash), d_ff (SwiGLU) and K
+    (LayerNorm+matmul) axes."""
     import torch
     import torch.nn.functional as F
     mods = hand_modules()
@@ -430,6 +469,7 @@ def hand_cases(gen):
             library=lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=hkv != h),
             grid=shape.grid, cluster=shape.split, threads=shape.threads,
+            key=mod.shape_key(q, k, causal),
             bytes=nbytes(q, k, v, q), flops=4.0 * dh * kept * b * h))
 
     def swiglu(label, m, d, kdim, n, dtype=f32):
@@ -449,7 +489,8 @@ def hand_cases(gen):
                                     kslice=shape.kslice), library=None,
             grid=shape.grid, cluster=shape.cluster, threads=shape.threads,
             layout="X panel held" if shape.panel else "X streamed",
-            smem=shape.smem, bytes=nbytes(x, w, v, u, g, out),
+            smem=shape.smem, key=mod.shape_key(x, w, u),
+            bytes=nbytes(x, w, v, u, g, out),
             flops=4.0 * m * d * kdim + 2.0 * m * kdim * n))
 
     def lnmm(label, m, kdim, n, dtype=f32):
@@ -471,6 +512,7 @@ def hand_cases(gen):
             context=lambda: torch.matmul(
                 F.layer_norm(x, (kdim,), gc, btc), y),
             grid=shape.grid, cluster=shape.split, threads=shape.threads,
+            key=mod.shape_key(x, y),
             bytes=nbytes(x, y, g, bt, out), flops=2.0 * m * kdim * n))
 
     attention("smollm prefill q (4,9,512,64) kv (4,3,512,64) causal",
@@ -484,6 +526,12 @@ def hand_cases(gen):
               dtype=bf16)
     attention("llama prefill q (4,32,512,64) kv (4,8,512,64) causal",
               4, 32, 512, 512, 64, True, hkv=8)
+    attention("internvl2-26b q (2,48,320,128) kv (2,8,320,128) causal",
+              2, 48, 320, 320, 128, True, hkv=8)
+    attention("smollm training q (8,9,512,64) kv (8,3,512,64) causal",
+              8, 9, 512, 512, 64, True, hkv=3)
+    attention("smollm drill q (4,9,128,64) kv (4,3,128,64) causal",
+              4, 9, 128, 128, 64, True, hkv=3)
     swiglu("smollm x (2048,576) W/V (576,1536) U (1536,576)", 2048, 576,
            1536, 576)
     swiglu("smollm M=2048 bf16", 2048, 576, 1536, 576, dtype=bf16)
@@ -492,6 +540,12 @@ def hand_cases(gen):
     swiglu("llama M=2048 bf16", 2048, 2048, 8192, 2048, dtype=bf16)
     swiglu("qwen2-7b width x (256,3584) W/V (3584,18944) U (18944,3584)",
            256, 3584, 18944, 3584)
+    swiglu("internvl2-26b x (640,6144) W/V (6144,16384) U (16384,6144)",
+           640, 6144, 16384, 6144)
+    swiglu("smollm training x (4096,576) W/V (576,1536) U (1536,576)", 4096,
+           576, 1536, 576)
+    swiglu("smollm drill x (512,576) W/V (576,1536) U (1536,576)", 512, 576,
+           1536, 576)
     lnmm("whisper encoder x (3000,384) Y (384,1536)", 3000, 384, 1536)
     lnmm("whisper decoder x (128,384) Y (384,1536)", 128, 384, 1536)
     lnmm("whisper encoder M=3000 bf16", 3000, 384, 1536, dtype=bf16)
@@ -565,7 +619,8 @@ def check_hand_kernels(cases):
         bound_ms, bound_by, fma_ms = bound(
             c["bytes"], c["flops"], c["dtype"] == torch.bfloat16)
         blocks = math.prod(c["grid"])
-        case = {"shape": label, "max_abs_err": err, "atol": atol,
+        case = {"shape": label, "key": c["key"], "max_abs_err": err,
+                "atol": atol,
                 "ms": ms, "device_ms": None, "plain_ms": plain_ms,
                 "library_ms": lib_ms, "library_device_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by,
@@ -720,15 +775,18 @@ def run_path(label, call, plain_call, expect, kernels):
     """Phase 7: one warm call; one call with every launch counter set to 0
     just before and read just after, whose logits are held against the
     same call on the plain impls; then ``PATH_REPEATS`` calls, each timed
-    on the host clock between two synchronizations."""
+    on the host clock between two synchronizations.  Returns the counts,
+    the times, the logits' distance and the launches by shape."""
     import torch
     call()
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
+        k.shapes.clear()
     logits = call()
     torch.cuda.synchronize()
     counts = {name: k.launches for name, k in kernels.items()}
+    shapes = {name: dict(k.shapes) for name, k in kernels.items()}
     if counts != expect:
         fail(f"{label}: launches {counts}, expected {expect}")
     if not torch.isfinite(logits).all():
@@ -751,7 +809,7 @@ def run_path(label, call, plain_call, expect, kernels):
           f"{len(times)} calls (min {timing['min_ms']}, max "
           f"{timing['max_ms']}), launches {counts}, logits within "
           f"{diff:.3e} of the plain impls", flush=True)
-    return counts, timing, diff
+    return counts, timing, diff, shapes
 
 
 def run_paths(kernels, phase_s):
@@ -1900,6 +1958,569 @@ def check_resilience(recs, phase4):
               flush=True)
 
 
+# -- phase 12: training on the hand kernels ---------------------------------
+
+#: phase 12's impls: the paper's hand kernels, and the plain versions they
+#: are held against (float32 both)
+HAND_IMPLS = dict(attn_impl="cuda", mlp_impl="cuda")
+PLAIN_IMPLS = dict(attn_impl="ref", mlp_impl="unfused")
+#: 12a's float64 comparison also takes each family of hand kernel alone,
+#: the other on its plain impl (whisper-tiny's MLP kernel is
+#: LayerNorm+matmul)
+ONE_HAND = {"attention kernel alone": dict(attn_impl="cuda",
+                                           mlp_impl="unfused"),
+            "MLP kernel alone": dict(attn_impl="ref", mlp_impl="cuda")}
+#: 12a, gradient parity at full width: (architecture, depth (None: the
+#: config's), batch, text tokens a sequence)
+TRAIN_PARITY = (("smollm-135m", None, 8, 512), ("whisper-tiny", None, 2, 64),
+                ("internvl2-26b", 2, 2, 64))
+TRAIN_LOSS_RTOL = 1e-4    # a step's loss, hand kernels against plain impls
+TRAIN_GRAD_RTOL = 1e-3    # each gradient leaf, relative L2
+TRAIN_STEP_RTOL = 1e-3    # 12b: each step's loss against the plain run's
+TRAIN_TIMED = 3           # 12a: timed steps of each model
+#: 12b: steps through launch/train.py on the hand kernels, then the plain
+#: impls; 12c: the wider model; 12d: the fault drill, in child processes
+TRAIN_STEPS = dict(arch="smollm-135m", steps=30, lr=1e-3, batch=8, seq=512)
+TRAIN_WIDE = dict(arch="llama3.2-1b", steps=3, lr=1e-3, batch=4, seq=512)
+TRAIN_DRILL = dict(arch="smollm-135m", steps=20, lr=1e-3, batch=4, seq=128,
+                   ckpt_every=10, fail_at=13)
+
+
+def train_argv(run, **extra):
+    """``launch/train.py``'s flags for one of phase 12's runs."""
+    argv = ["--arch", run["arch"], "--steps", str(run["steps"]),
+            "--batch", str(run["batch"]), "--seq", str(run["seq"]),
+            "--lr", str(run["lr"]), "--log-every", "1"]
+    for k, v in {"ckpt_every": 0, **extra}.items():
+        argv += ["--" + k.replace("_", "-"), str(v)]
+    return argv
+
+
+def forward_launches(cfg):
+    """Each hand kernel's launches in one forward pass of ``cfg`` on the
+    hand impls: a flash attention a self- or cross-attention, an
+    RMSNorm+SwiGLU a SwiGLU layer, a LayerNorm+matmul a whisper MLP."""
+    if cfg.family == "encdec":
+        return {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers,
+                "rmsnorm_swiglu": 0,
+                "layernorm_matmul": cfg.n_enc_layers + cfg.n_layers}
+    return {"flash_attention": cfg.n_layers,
+            "rmsnorm_swiglu": sum(not cfg.is_moe_layer(i)
+                                  for i in range(cfg.n_layers)),
+            "layernorm_matmul": 0}
+
+
+def step_bound(cfg, params, batch, optimizer: bool):
+    """A training step's least time on the card: 8 N T float32 operations
+    (forward 2, recompute 2, backward 4; attention's scores not counted)
+    over 3xTF32's 165 TFLOP/s, against its bytes over 3.35 TB/s: the
+    weights read and their gradients written (``optimizer``: the weights
+    and both moments read and written, 24 N).  N counts the weights in a
+    product (an untied embedding's lookup is none), T the positions each
+    passes (whisper: the encoder's frames, the decoder's tokens; a VLM's
+    vision positions too)."""
+    from torch.utils import _pytree as pytree
+
+    def numel(tree):
+        return sum(t.numel() for t in pytree.tree_leaves(tree))
+
+    n_all = numel(params)
+    b, s = batch["tokens"].shape
+    if cfg.family == "encdec":
+        n_enc = numel(params["enc"])
+        ops = 8.0 * (n_enc * b * cfg.enc_seq + (n_all - n_enc) * b * s)
+    else:
+        n = n_all - (0 if cfg.tie_embeddings else params["embed"].numel())
+        t = b * (s + (cfg.n_vision_tokens if cfg.family == "vlm" else 0))
+        ops = 8.0 * n * t
+    nbytes_ = (24 if optimizer else 8) * n_all
+    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes_ / HBM_BYTES_PER_S * 1e3
+    return {"weights": n_all, "ops": ops, "bytes": nbytes_,
+            "ops_ms": t_ops, "bytes_ms": t_bytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def by_path(tree):
+    """The leaves of ``tree`` by their paths."""
+    from torch.utils import _pytree as pytree
+    flat, _ = pytree.tree_flatten_with_path(tree)
+    return {pytree.keystr(path): leaf for path, leaf in flat}
+
+
+def rel_l2(got, want) -> float:
+    """``||got - want|| / ||want||``, at ``want``'s precision."""
+    den = want.norm().item()
+    return (got.to(want.dtype) - want).norm().item() / (den or 1.0)
+
+
+def leaf_distances(got, want):
+    """``||g - w|| / ||w||`` of every gradient leaf, by its path."""
+    got = by_path(got)
+    return {k: rel_l2(got[k].float(), w.float())
+            for k, w in by_path(want).items()}
+
+
+def counted(kernels, fn):
+    """``fn()`` with every launch counter set to 0 just before and read
+    just after (synchronized): its result, the counts and the counts by
+    shape."""
+    import torch
+    for k in kernels.values():
+        k.launches = 0
+        k.shapes.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {name: k.launches for name, k in kernels.items()},
+            {name: dict(k.shapes) for name, k in kernels.items()})
+
+
+def attention_at_input_precision(q, k, v, *, scale=None, causal=False,
+                                 q_offset=0):
+    """``kernels.ref.attention_ref`` at its inputs' precision (the oracle
+    itself computes in float32): SDPA's math path, for the float64 run.
+    A training step's attention starts at position 0."""
+    import torch.nn.functional as F
+    if not (isinstance(q_offset, int) and q_offset == 0):
+        raise ValueError(f"the float64 run takes q_offset 0, not {q_offset}")
+    return F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, scale=scale,
+        enable_gqa=q.shape[1] != k.shape[1])
+
+
+def float64_yardstick(cfg, params, batch, leaves):
+    """The relative L2 distance of each gradient of ``leaves`` (``{path:
+    {impls: gradient}}``) from a float64 run of the plain impls on the
+    same weights and batch, its attention in float64 too; only those
+    leaves' gradients are taken."""
+    import torch
+    from unittest import mock
+    from torch.utils import _pytree as pytree
+    from repro_torch.kernels import ref as R
+    from repro_torch.models.lm import build_model
+    m64 = build_model(dataclasses.replace(cfg, dtype=torch.float64,
+                                          **PLAIN_IMPLS))
+    flat, spec = pytree.tree_flatten_with_path(params)
+    names = [pytree.keystr(path) for path, _ in flat]
+    p64 = [t.detach().double().requires_grad_(n in leaves)
+           for n, (_, t) in zip(names, flat)]
+    b64 = {k: v.double() if v.is_floating_point() else v
+           for k, v in batch.items()}
+    with mock.patch.object(R, "attention_ref",
+                           attention_at_input_precision), \
+            torch.enable_grad():
+        loss = m64.loss(pytree.tree_unflatten(p64, spec), b64.pop("tokens"),
+                        b64.pop("labels"), **b64)
+        wanted = [n for n in names if n in leaves]
+        g64 = torch.autograd.grad(loss, [t for n, t in zip(names, p64)
+                                         if n in leaves])
+    del p64, loss
+    return {n: {what: rel_l2(got, g) for what, got in leaves[n].items()}
+            for n, g in zip(wanted, g64)}
+
+
+def train_parity(kernels, card):
+    """12a: step 0's loss and gradients of each ``TRAIN_PARITY`` model at
+    full width, seeded weights drawn on the card and
+    ``SyntheticLMData(seed=0)``'s step 0, on the hand kernels (remat on:
+    each kernel launched twice a layer, forward and recompute) and on the
+    plain impls; the worst gradient leaf of the two (and any leaf past the
+    gate) of these and of ``ONE_HAND``'s impls against a float64 run; then
+    ``TRAIN_TIMED`` timed steps on the hand kernels."""
+    import torch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps as TS
+    from repro_torch.models.lm import build_model
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    for arch, n_layers, b, s in TRAIN_PARITY:
+        t0 = time.perf_counter()
+        cfg = train_model_config(arch, n_layers)
+        hand = build_model(cfg)
+        plain = build_model(dataclasses.replace(cfg, **PLAIN_IMPLS))
+        vision = (f" + {cfg.n_vision_tokens} vision"
+                  if cfg.family == "vlm" else "")
+        label = (f"12a {arch} ({cfg.n_layers} layers, d {cfg.d_model}, "
+                 f"batch {b} x ({s} text{vision}))")
+        torch.cuda.reset_peak_memory_stats()
+        params = hand.init_params(seed=0, device="cuda")
+        batch = SyntheticLMData(cfg.vocab, s, b, seed=0).batch(0, "cuda")
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = torch.randn(
+                b, cfg.n_vision_tokens, cfg.d_model, generator=gen,
+                device="cuda")
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn(b, cfg.enc_seq, cfg.d_model,
+                                          generator=gen, device="cuda")
+        expect = {k: 2 * n for k, n in forward_launches(cfg).items()}
+        (loss_h, grads_h), counts, shapes = counted(
+            kernels, lambda: TS.value_and_grad(hand, params, batch))
+        if counts != expect:
+            fail(f"{label}: launches {counts} in a step, expected {expect} "
+                 "(forward and recompute)")
+        loss_p, grads_p = TS.value_and_grad(plain, params, batch)
+        lh, lp = loss_h.item(), loss_p.item()
+        if not (math.isfinite(lh) and abs(lh - lp) <= TRAIN_LOSS_RTOL
+                * abs(lp)):
+            fail(f"{label}: loss {lh} against the plain impls' {lp}")
+        dist = leaf_distances(grads_h, grads_p)
+        worst = max(dist, key=dist.get)
+        missed = [k for k, d in dist.items() if not d <= TRAIN_GRAD_RTOL]
+        flat_h, flat_p = by_path(grads_h), by_path(grads_p)
+        kept = {k: {"hand kernels": flat_h[k], "plain impls": flat_p[k]}
+                for k in [worst, *missed]}
+        del grads_h, grads_p, flat_h, flat_p
+        for what, impls in ONE_HAND.items():
+            one = build_model(dataclasses.replace(cfg, **impls))
+            grads = by_path(TS.value_and_grad(one, params, batch)[1])
+            for k in kept:
+                kept[k][what] = grads[k]
+            del grads
+        f64 = float64_yardstick(cfg, params, batch, kept)
+        del kept
+        for k, d in f64.items():
+            print(f"{label}: {k} (hand against plain {dist[k]:.3e}) from "
+                  "the float64 run, relative L2: " + ", ".join(
+                      f"{what} {x:.3e}" for what, x in d.items()),
+                  flush=True)
+        if missed:
+            fail(f"{label}: gradient leaves past {TRAIN_GRAD_RTOL}: "
+                 f"{ {k: dist[k] for k in missed} }")
+        times = []
+        for _ in range(TRAIN_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            TS.value_and_grad(hand, params, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        ms = statistics.median(times)
+        tokens = b * s
+        bound = step_bound(cfg, params, batch, optimizer=False)
+        rec = {"loss": lh, "plain_loss": lp, "launches": counts,
+               "launch_shapes": shapes, "worst_leaf": worst,
+               "worst_leaf_rel_l2": dist[worst], "float64": f64,
+               "leaves": len(dist), "step_ms": ms, "step_ms_all": times,
+               "text_tokens_per_s": tokens / ms * 1e3,
+               "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "bound": bound, "seconds": time.perf_counter() - t0}
+        print(f"{label}: loss {lh} (plain {lp}), launches {counts}, "
+              f"{len(dist)} gradient leaves, worst {worst} at "
+              f"{dist[worst]:.3e} relative L2; loss and gradients step "
+              f"median {ms:.2f} ms of {times}, "
+              f"{rec['text_tokens_per_s']:.1f} text tokens/s, bound "
+              f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}; ops "
+              f"{bound['ops_ms']:.3f}, bytes {bound['bytes_ms']:.3f}), max "
+              f"memory "
+              f"{rec['max_memory_gb']:.2f} GB [{card}]", flush=True)
+        out[f"12a {arch}"] = rec
+        del params, batch, hand, plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_run(kernels, run, impls, steps=None):
+    """``train.main`` in this process on ``run``'s flags and ``impls``
+    (float32): its result (with the peak memory), and the launches of the
+    whole run, in all and by shape."""
+    import torch
+    from repro_torch.launch import train as TT
+    r = dict(run, steps=steps or run["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, shapes = counted(kernels, lambda: TT.main(
+        train_argv(r), dtype=torch.float32, **impls))
+    res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res, counts, shapes
+
+
+def train_record(label, cfg, run, res, counts, card):
+    """A run's losses, step times (the first step, which builds nothing
+    here but warms the allocator, left out of the median), tokens/s and
+    memory, printed beside the card."""
+    import torch
+    from repro_torch.data import SyntheticLMData
+    steps = res["step_s"][1:] or res["step_s"]
+    ms = statistics.median(steps) * 1e3
+    tokens = run["batch"] * run["seq"]
+    batch = SyntheticLMData(cfg.vocab, run["seq"], run["batch"]).batch(
+        0, "cuda")
+    bound = step_bound(cfg, res["params"], batch, optimizer=True)
+    rec = {"losses": [l for _, l in res["losses"]], "launches": counts,
+           "step_ms": ms, "step_ms_min": min(steps) * 1e3,
+           "step_ms_max": max(steps) * 1e3,
+           "tokens_per_s": tokens / ms * 1e3,
+           "max_memory_gb": res["max_memory_gb"], "bound": bound}
+    print(f"{label}: losses {rec['losses'][0]:.4f} -> "
+          f"{rec['losses'][-1]:.4f} over {len(rec['losses'])} steps, "
+          f"launches {counts}, step median {ms:.2f} ms (min "
+          f"{rec['step_ms_min']:.2f}, max {rec['step_ms_max']:.2f}), "
+          f"{rec['tokens_per_s']:.1f} tokens/s, bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}; ops "
+          f"{bound['ops_ms']:.3f}, bytes {bound['bytes_ms']:.3f}), max "
+          f"memory {rec['max_memory_gb']:.2f} GB [{card}]", flush=True)
+    del batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_model_config(arch, n_layers=None):
+    """``arch`` at full width on the hand kernels in float32, cut to
+    ``n_layers`` as ``launch/train.py --n-layers`` cuts it."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.launch.serve import cut_depth
+    cfg = C.get_config(arch)
+    if n_layers:
+        cfg = cut_depth(cfg, n_layers)
+    return dataclasses.replace(cfg, dtype=torch.float32, **HAND_IMPLS)
+
+
+def train_steps(kernels, card):
+    """12b: ``TRAIN_STEPS`` through ``launch/train.py`` on the hand
+    kernels, then on the plain impls: every loss finite, the last below
+    the first, each step's within ``TRAIN_STEP_RTOL`` of the plain run's,
+    exact launches (every step twice the forward's)."""
+    run = TRAIN_STEPS
+    cfg = train_model_config(run["arch"])
+    res, counts, shapes = train_run(kernels, run, HAND_IMPLS)
+    expect = {k: run["steps"] * 2 * n
+              for k, n in forward_launches(cfg).items()}
+    if counts != expect:
+        fail(f"12b: launches {counts} over {run['steps']} steps, expected "
+             f"{expect}")
+    rec = train_record(f"12b {run['arch']} ({run['steps']} steps, batch "
+                       f"{run['batch']} x {run['seq']}, hand kernels)",
+                       cfg, run, res, counts, card)
+    del res
+    plain, _, _ = train_run(kernels, run, PLAIN_IMPLS)
+    plain_rec = train_record(f"12b {run['arch']} plain impls", cfg, run,
+                             plain, {}, card)
+    del plain
+    got, want = rec["losses"], plain_rec["losses"]
+    if len(got) != run["steps"] or not all(map(math.isfinite, got)):
+        fail(f"12b: losses {got}")
+    if not got[-1] < got[0]:
+        fail(f"12b: the loss did not fall: {got[0]} -> {got[-1]}")
+    worst = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    if worst > TRAIN_STEP_RTOL:
+        fail(f"12b: a step's loss lies {worst:.3e} from the plain run's "
+             f"(hand {got}, plain {want})")
+    print(f"12b: every step's loss within {worst:.3e} (relative) of the "
+          "plain run's", flush=True)
+    return {"launches": counts, "launch_shapes": shapes, "hand": rec,
+            "plain": plain_rec, "max_rel_diff": worst}
+
+
+def train_wide(kernels, card):
+    """12c: ``TRAIN_WIDE`` (llama3.2-1b at full width and depth) through
+    ``launch/train.py`` on the hand kernels, then on the plain impls:
+    exact launches, step 0's loss within ``TRAIN_LOSS_RTOL`` of the plain
+    impls'; the later steps' distances are printed, not gated (three steps
+    from a random start need not fall)."""
+    run = TRAIN_WIDE
+    cfg = train_model_config(run["arch"])
+    res, counts, shapes = train_run(kernels, run, HAND_IMPLS)
+    expect = {k: run["steps"] * 2 * n
+              for k, n in forward_launches(cfg).items()}
+    if counts != expect:
+        fail(f"12c: launches {counts} over {run['steps']} steps, expected "
+             f"{expect}")
+    rec = train_record(f"12c {run['arch']} ({run['steps']} steps, batch "
+                       f"{run['batch']} x {run['seq']}, hand kernels)",
+                       cfg, run, res, counts, card)
+    rec["launch_shapes"] = shapes
+    del res
+    plain, _, _ = train_run(kernels, run, PLAIN_IMPLS)
+    rec["plain_losses"] = [l for _, l in plain["losses"]]
+    del plain
+    got, want = rec["losses"][0], rec["plain_losses"][0]
+    if not all(map(math.isfinite, rec["losses"])) or abs(
+            got - want) > TRAIN_LOSS_RTOL * abs(want):
+        fail(f"12c: step 0's loss {got} against the plain impls' {want}")
+    rec["max_rel_diff"] = max(abs(g - w) / abs(w) for g, w in zip(
+        rec["losses"], rec["plain_losses"]))
+    print(f"12c: step 0's loss {got} against the plain impls' {want}; "
+          f"losses {rec['losses']} against the plain impls' "
+          f"{rec['plain_losses']} (largest relative distance "
+          f"{rec['max_rel_diff']:.3e})", flush=True)
+    return rec
+
+
+def profile_step(run, card):
+    """One training step of ``run``'s model on the hand kernels, split by
+    ``torch.profiler``: the loss and gradients, then the optimizer, each
+    its own burst on the card's timeline (synchronized, 40 ms apart, after
+    a lead-in burst the profiler may clip).  Device ms of the hand
+    kernels, of the products (cuBLAS: names with ``gemm``/``gemv``), of the
+    other kernels of forward and backward, and of the optimizer; the host
+    ms is the step's wall time the card sat idle.  Run under
+    ``launch/train.py``'s ``deterministic``, as 12b and 12c are."""
+    from repro_torch.launch import train as TT
+    with TT.deterministic("cuda"):
+        return _profile_step(run, card)
+
+
+def _profile_step(run, card):
+    import torch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.profile_decode import _busy_us, bursts
+    from repro_torch.models.lm import build_model
+    cfg = train_model_config(run["arch"])
+    model = build_model(cfg)
+    params = model.init_params(seed=0, device="cuda")
+    opt = TS.default_optimizer()
+    state = opt.init(params)
+    batch = SyntheticLMData(cfg.vocab, run["seq"], run["batch"]).batch(
+        0, "cuda")
+    opt.update(TS.value_and_grad(model, params, batch)[1], state, params)
+    torch.cuda.synchronize()
+    walls = []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.04)
+        t = time.perf_counter()
+        _, grads = TS.value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        time.sleep(0.04)
+        t = time.perf_counter()
+        opt.update(grads, state, params)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    found = bursts([(ev.time_range.start, ev.time_range.end, ev.name)
+                    for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA],
+                   20e3)
+    if len(found) < 2:
+        fail(f"profile of a {run['arch']} step: {len(found)} bursts of "
+             "kernels on the card's timeline, expected the step's 2")
+    grad, upd = found[-2:]
+
+    def ms(burst, keep=lambda n: True):
+        return sum(e - s for s, e, n in burst if keep(n)) / 1e3
+
+    def is_hand(n):
+        return any(fn in n for fn in HAND_FN.values())
+
+    def is_product(n):
+        return not is_hand(n) and ("gemm" in n.lower()
+                                   or "gemv" in n.lower())
+
+    busy = (_busy_us([(s, e) for s, e, _ in grad])
+            + _busy_us([(s, e) for s, e, _ in upd])) / 1e3
+    rec = {"hand_kernels_ms": ms(grad, is_hand),
+           "products_ms": ms(grad, is_product),
+           "other_kernels_ms": ms(grad, lambda n: not is_hand(n)
+                                  and not is_product(n)),
+           "optimizer_ms": ms(upd), "step_wall_ms": sum(walls) * 1e3,
+           "device_busy_ms": busy, "kernels": len(grad) + len(upd)}
+    rec["host_ms"] = rec["step_wall_ms"] - busy
+    print(f"12 profile {run['arch']} step (batch {run['batch']} x "
+          f"{run['seq']}, hand kernels): " + json.dumps(rec)
+          + f" [{card}]", flush=True)
+    del params, state, grads, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_child(args):
+    """This script with ``--train``: ``launch/train.py`` on the hand
+    kernels in a process of its own."""
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--train"] + args,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT)
+
+
+def train_drill(root):
+    """12d: the reference's crash drill (tests/test_train_integration.py:22)
+    on the card, at full width: ``TRAIN_DRILL`` checkpointing every 10
+    steps, crashed after step 13 (exit 42), resumed from step 10 to 20 in a
+    second process, against a clean run to 20 in another directory started
+    beside the crash; the two step-20 checkpoints (weights, moments, step)
+    must be equal bit for bit, and each child must launch each hand kernel
+    exactly twice a layer a step it ran."""
+    from collections import Counter
+    from torch.utils import _pytree as pytree
+    from repro_torch.checkpoint import CheckpointManager
+    run = TRAIN_DRILL
+    per_step = {k: 2 * n for k, n in forward_launches(
+        train_model_config(run["arch"])).items()}
+    dirs = {k: str(root / f"drill-{k}") for k in ("crash", "clean")}
+    argv = train_argv(run, ckpt_every=run["ckpt_every"])
+    crash = train_child(argv + ["--ckpt-dir", dirs["crash"], "--fail-at",
+                                str(run["fail_at"])])
+    clean = train_child(argv + ["--ckpt-dir", dirs["clean"]])
+    outs = {}
+    for name, proc in (("crash", crash), ("clean", clean)):
+        out, err = proc.communicate(timeout=600)
+        outs[name] = (proc.returncode, out, err)
+    rc, out, err = outs["crash"]
+    if rc != 42 or "injected failure!" not in out:
+        fail(f"12d: the crashed run exited {rc}, not 42: {err[-2000:]}")
+    if outs["clean"][0] != 0:
+        fail(f"12d: the clean run exited {outs['clean'][0]}: "
+             f"{outs['clean'][2][-2000:]}")
+    resume = train_child(argv + ["--ckpt-dir", dirs["crash"]])
+    out, err = resume.communicate(timeout=600)
+    if resume.returncode != 0 or "resumed from step 10" not in out:
+        fail(f"12d: the resumed run exited {resume.returncode}: "
+             f"{err[-2000:]}")
+    outs["resume"] = (0, out, err)
+    launches, shapes = Counter(), {k: Counter() for k in per_step}
+    for name, steps in (("crash", run["fail_at"] + 1),
+                        ("resume", run["steps"] - run["ckpt_every"]),
+                        ("clean", run["steps"])):
+        rec = json.loads(outs[name][1].strip().splitlines()[-1])
+        if rec["launches"] != {k: steps * n for k, n in per_step.items()}:
+            fail(f"12d: the {name} run launched {rec['launches']} in "
+                 f"{steps} steps, expected {per_step} a step")
+        launches.update(rec["launches"])
+        for k, by_shape in rec["shapes"].items():
+            shapes[k].update(by_shape)
+    got, want = (CheckpointManager(d).restore(run["steps"], device="cpu")
+                 for d in (dirs["crash"], dirs["clean"]))
+    flat_g, spec_g = pytree.tree_flatten(got)
+    flat_w, spec_w = pytree.tree_flatten(want)
+    differ = sum(not (a.dtype == b.dtype and a.shape == b.shape
+                      and bool((a == b).all()))
+                 for a, b in zip(flat_g, flat_w))
+    if spec_g != spec_w or differ:
+        fail(f"12d: the resumed run's step-{run['steps']} checkpoint "
+             f"differs from the clean run's in {differ} of {len(flat_w)} "
+             "leaves")
+    print(f"12d: crashed after step {run['fail_at']} (exit 42), resumed "
+          f"from step 10, step {run['steps']}'s {len(flat_w)} leaves "
+          "(weights, moments, step) equal the clean run's bit for bit; "
+          f"launches {dict(launches)}", flush=True)
+    return {"leaves": len(flat_w), "equal": True,
+            "launches": dict(launches),
+            "launch_shapes": {k: dict(v) for k, v in shapes.items()}}
+
+
+def train_phase(kernels, card, root, phase_s):
+    """Phase 12, training on the hand kernels: 12a-12d, each one's
+    seconds into ``phase_s``."""
+    out = {}
+    t0 = time.perf_counter()
+    out.update(train_parity(kernels, card))
+    phase_s["12a gradient parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["12b"] = train_steps(kernels, card)
+    out["12b"]["profile"] = profile_step(TRAIN_STEPS, card)
+    phase_s["12b steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["12c"] = train_wide(kernels, card)
+    out["12c"]["profile"] = profile_step(TRAIN_WIDE, card)
+    phase_s["12c wide"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["12d"] = train_drill(root)
+    phase_s["12d drill"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1912,6 +2533,19 @@ def main() -> int:
                           warm="--warm" in sys.argv[5:])
         print(json.dumps(rec))
         return 0
+    if sys.argv[1:2] == ["--train"]:        # a phase 12d child
+        from repro_torch.launch import train as TT
+        torch.backends.cuda.matmul.allow_tf32 = False
+        kernels = {name: mod.KERNEL for name, mod in hand_modules().items()}
+        code = 0
+        try:
+            TT.main(sys.argv[2:], dtype=torch.float32, **HAND_IMPLS)
+        except SystemExit as e:             # --fail-at's exit 42
+            code = e.code
+        print(json.dumps({
+            "launches": {n: k.launches for n, k in kernels.items()},
+            "shapes": {n: dict(k.shapes) for n, k in kernels.items()}}))
+        return code
     if sys.argv[1:2] == ["--resilience"]:   # a phase 11 child
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps(resilience_run(sys.argv[2],
@@ -2021,19 +2655,40 @@ def main() -> int:
     check_resilience(res, serving[RESILIENCE_ARCH])
     phase_s["11 resilience"] = time.perf_counter() - t0
 
+    # -- 12. training on the hand kernels ------------------------------------
+    t0 = time.perf_counter()
+    training = train_phase(hand, card, cache_root, phase_s)
+    phase_s["12 training"] = time.perf_counter() - t0
+
     for arch, rec in serving.items():
         for name, n in rec["launches"].items():
             rows[name]["launches"] = n
+    path_shapes = {p: s for p, (_, _, _, s) in paths.items()}
+    path_shapes.update({p: r["launch_shapes"] for p, r in training.items()
+                        if "launch_shapes" in r})
     for name, row in hand_rows.items():
-        row["launches_by_path"] = {p: c[name] for p, (c, _, _) in
+        row["launches_by_path"] = {p: c[name] for p, (c, _, _, _) in
                                    paths.items()}
+        row["launches_by_path"].update(
+            {p: r["launches"][name] for p, r in training.items()
+             if "launches" in r})
         row["launches"] = sum(row["launches_by_path"].values())
+        held = {case["key"] for case in row["cases"]}
+        for case in row["cases"]:
+            case["launches_by_path"] = {
+                p: s[name][case["key"]] for p, s in path_shapes.items()
+                if s.get(name, {}).get(case["key"])}
+        for p, s in path_shapes.items():
+            unheld = sorted(set(s.get(name, {})) - held)
+            if unheld:
+                fail(f"{p} launched {name} at {unheld}, where phase 5 did "
+                     "not hold it against its plain version")
     print("serving: " + json.dumps({a: {k: v for k, v in r.items()
                                         if k != "launches"}
                                     for a, r in serving.items()}))
     print("paths: " + json.dumps({
         **{p: {**timing, "max_abs_diff_vs_plain": d}
-           for p, (_, timing, d) in paths.items()}, "D": path_d}))
+           for p, (_, timing, d, _) in paths.items()}, "D": path_d}))
     print("compile driver: " + json.dumps({
         "warm_serve": {k: v for k, v in warm.items() if k != "tokens"},
         "measured_autotune": tuned_res, "fusion": fusion_res,
@@ -2043,6 +2698,7 @@ def main() -> int:
         **{run: {k: v for k, v in rec.items()
                  if k not in ("tokens", "kernel_launches", "rungs")}
            for run, rec in res.items()}}))
+    print("training: " + json.dumps({"card": card, **training}))
     print("weights route: " + json.dumps({"card": card, **route}))
     print("phase seconds: " + json.dumps(phase_s))
     print(json.dumps({"kernels": list(rows.values())

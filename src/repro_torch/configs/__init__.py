@@ -6,9 +6,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import (deepseek_v3_671b, llama3_2_1b,
-                                 mamba2_2_7b, qwen2_7b, qwen3_32b,
-                                 qwen3_moe_30b_a3b, smollm_135m,
+from repro_torch.configs import (deepseek_v3_671b, internvl2_26b,
+                                 llama3_2_1b, mamba2_2_7b, qwen2_7b,
+                                 qwen3_32b, qwen3_moe_30b_a3b, smollm_135m,
                                  whisper_tiny)
 from repro_torch.models.common import ModelConfig, reduced_config
 
@@ -16,7 +16,8 @@ ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in [smollm_135m.CONFIG, llama3_2_1b.CONFIG,
                         qwen2_7b.CONFIG, qwen3_32b.CONFIG,
                         qwen3_moe_30b_a3b.CONFIG, whisper_tiny.CONFIG,
-                        deepseek_v3_671b.CONFIG, mamba2_2_7b.CONFIG]}
+                        deepseek_v3_671b.CONFIG, mamba2_2_7b.CONFIG,
+                        internvl2_26b.CONFIG]}
 
 
 def get_config(arch: str) -> ModelConfig:

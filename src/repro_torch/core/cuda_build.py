@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -111,7 +112,8 @@ EMITTED_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
 class Launcher:
     """The C launcher ``symbol`` of the library built from ``source``: it
     returns a ``cudaError_t`` code as an int.  Built and loaded on first
-    use; each accepted launch adds one to ``launches``."""
+    use; each accepted launch adds one to ``launches``, and to
+    ``shapes[shape]`` where the caller names its ``shape``."""
 
     def __init__(self, source: str, symbol: str,
                  argtypes: Sequence = EMITTED_ARGTYPES,
@@ -121,6 +123,7 @@ class Launcher:
         self.what = what or symbol
         self.key = source_key(source)
         self.launches = 0
+        self.shapes: Counter = Counter()
         self._fn = None
 
     @property
@@ -137,7 +140,7 @@ class Launcher:
             fn.keepalive = lib
             self._fn = fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, shape: Optional[str] = None) -> None:
         """Call the launcher (the caller passes the stream among ``args``)
         and raise if the launch was refused."""
         self.build()
@@ -146,6 +149,8 @@ class Launcher:
             raise RuntimeError(f"launch of {self.what} failed with "
                                f"cudaError {rc}")
         self.launches += 1
+        if shape is not None:
+            self.shapes[shape] += 1
 
 
 def csrc_launcher(file: str, symbol: str, argtypes: Sequence) -> Launcher:

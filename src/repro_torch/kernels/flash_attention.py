@@ -109,6 +109,13 @@ def plain(q, k, v, *, scale: Optional[float] = None, causal: bool = False,
     return (num / den).reshape(*q.shape[:3], v.shape[-1]).to(q.dtype)
 
 
+def shape_key(q: torch.Tensor, k: torch.Tensor, causal: bool) -> str:
+    """The launch's shape, as ``KERNEL.shapes`` counts it."""
+    return (f"q {tuple(q.shape)} kv {tuple(k.shape)} "
+            f"{str(q.dtype).removeprefix('torch.')}"
+            + (" causal" if causal else ""))
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous at a 16-byte aligned address (the cp.async copies)."""
     t = t.contiguous()
@@ -156,5 +163,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), b, hq, hkv, sq, skv, dh, scale,
                       int(causal), q_offset, DTYPE_CODES[q.dtype], shape.bq,
-                      shape.split, shape.chunk, current_stream(q.device))
+                      shape.split, shape.chunk, current_stream(q.device),
+                      shape=shape_key(q, k, causal))
     return out

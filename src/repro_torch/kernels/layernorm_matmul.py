@@ -121,11 +121,19 @@ def plain(x, y, gamma, beta, *, eps: float = 1e-5,
         s1 = s1 + xk.sum(-1, keepdim=True)
         s2 = s2 + (xk * xk).sum(-1, keepdim=True)
         ys = ys + yg[ks].sum(0)
-        yb = yb + bt[ks] @ yf[ks]
+        # (1, K) @ (K, N): a 1-D matmul squeezes its product in place,
+        # which selective recompute (remat_policy "dots") refuses
+        yb = yb + (bt[ks][None] @ yf[ks])[0]
     mu = s1 / kdim
     var = s2 / kdim - mu * mu
     z = (acc - mu * ys) * torch.rsqrt(var + eps) + yb
     return z.to(x.dtype)
+
+
+def shape_key(x: torch.Tensor, y: torch.Tensor) -> str:
+    """The launch's shape, as ``KERNEL.shapes`` counts it."""
+    return (f"x {tuple(x.shape)} Y {tuple(y.shape)} "
+            f"{str(x.dtype).removeprefix('torch.')}")
 
 
 def layernorm_matmul_cuda(x: torch.Tensor, y: torch.Tensor,
@@ -162,5 +170,6 @@ def layernorm_matmul_cuda(x: torch.Tensor, y: torch.Tensor,
         KERNEL.launch(x.data_ptr(), y.data_ptr(), g.data_ptr(), b.data_ptr(),
                       out.data_ptr(), m, kdim, n, float(eps),
                       DTYPE_CODES[x.dtype], shape.bm, shape.split,
-                      shape.kslice, int(vec), current_stream(x.device))
+                      shape.kslice, int(vec), current_stream(x.device),
+                      shape=shape_key(x, y))
     return out

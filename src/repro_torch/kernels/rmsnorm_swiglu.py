@@ -110,6 +110,12 @@ def plain(x, w, v, u, gamma, *, eps: float = 1e-6, cluster: int = 1,
     return out.to(x.dtype)
 
 
+def shape_key(x: torch.Tensor, w: torch.Tensor, u: torch.Tensor) -> str:
+    """The launch's shape, as ``KERNEL.shapes`` counts it."""
+    return (f"x {tuple(x.shape)} W/V {tuple(w.shape)} U {tuple(u.shape)} "
+            f"{str(x.dtype).removeprefix('torch.')}")
+
+
 def rmsnorm_swiglu_cuda(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                         u: torch.Tensor, gamma: torch.Tensor, *,
                         eps: float = 1e-6) -> torch.Tensor:
@@ -154,5 +160,5 @@ def rmsnorm_swiglu_cuda(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                       u.data_ptr(), g.data_ptr(), out.data_ptr(), m, d, k, n,
                       float(eps), DTYPE_CODES[x.dtype], shape.cluster,
                       shape.kslice, int(vec), int(shape.panel),
-                      current_stream(x.device))
+                      current_stream(x.device), shape=shape_key(x, w, u))
     return out

@@ -13,17 +13,20 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"       # dense | moe | ssm | encdec (the families
-                                 # ported)
+    family: str = "dense"       # dense | moe | ssm | encdec | vlm (the
+                                 # families ported)
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -60,6 +63,8 @@ class ModelConfig:
     # --- enc-dec (whisper) ---
     n_enc_layers: int = 0
     enc_seq: int = 1500
+    # --- vlm (internvl) ---
+    n_vision_tokens: int = 0
     # --- runtime ---
     dtype: Any = torch.bfloat16
     attn_impl: str = "ref"       # ref | chunked | cuda | pipeline
@@ -70,6 +75,10 @@ class ModelConfig:
                                  # impls; when set, its backend wins over
                                  # pipeline_backend.  Hashable, so the
                                  # config stays usable as a cache key.
+    remat: bool = True           # recompute each layer in the backward
+    remat_policy: str = "full"   # full | dots (dots: keep the outputs of
+                                 # the matrix products; the hand kernels
+                                 # are recomputed under either)
 
     @property
     def d_inner(self) -> int:
@@ -123,14 +132,16 @@ def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
         ssm_chunk=32,
         n_enc_layers=min(cfg.n_enc_layers, 2),
         enc_seq=64 if cfg.n_enc_layers else 0,
+        n_vision_tokens=min(cfg.n_vision_tokens, 16),
         dtype=torch.float32,
+        remat=False,
     )
     small.update(overrides)
     return dataclasses.replace(cfg, **small)
 
 
 def compute_dtype(dtype) -> torch.dtype:
-    """What the RMSNorm and the SSD compute in: float32, where the
+    """What the norms, the SSD and the loss compute in: float32, where the
     reference upcasts to float32, or float64 for float64 tensors (JAX has
     none by default), so that a float64 model is a float64 yardstick."""
     return torch.promote_types(dtype, torch.float32)
@@ -146,11 +157,12 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float) -> torch.Tensor:
-    xf = x.float()
+    ct = compute_dtype(x.dtype)
+    xf = x.to(ct)
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, unbiased=False, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * gamma.float() + beta.float()).to(x.dtype)
+    return (y * gamma.to(ct) + beta.to(ct)).to(x.dtype)
 
 
 def rope_frequencies(d_head: int, theta: float,
@@ -170,6 +182,49 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 onehot: bool = False) -> torch.Tensor:
+    """Mean next-token cross entropy, accumulated in float32: the
+    logsumexp minus the gold logit (the reference's ``softmax_xent``,
+    common.py:248).  The gold logit is gathered; ``onehot=True`` takes it
+    by the reference's one-hot reduction instead, which it uses only to
+    keep vocabulary-sharded logits sharded."""
+    lf = logits.to(compute_dtype(logits.dtype))
+    logz = torch.logsumexp(lf, dim=-1)
+    labels = labels.long()
+    if onehot:
+        gold = (lf * F.one_hot(labels, lf.shape[-1]).to(lf.dtype)).sum(-1)
+    else:
+        gold = lf.gather(-1, labels[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
+#: the products ``remat_policy="dots"`` keeps from the forward pass (the
+#: reference's ``dots_with_no_batch_dims_saveable``): the hand kernels are
+#: no ATen op, so they are recomputed under either policy, as the
+#: reference recomputes its Pallas kernels, which are no ``dot_general``
+SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                  torch.ops.aten.addmm.default)
+
+
+def remat(fn: Callable, cfg: ModelConfig, *args):
+    """``fn(*args)``, one layer, recomputed in the backward pass where
+    ``cfg.remat`` is set and autograd records (the reference's ``_remat``,
+    lm.py:24): under ``torch.no_grad`` it runs once, as a serving or
+    prefill call does."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if cfg.remat_policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: (
+                              create_selective_checkpoint_contexts(
+                                  list(SAVED_PRODUCTS))))
+    if cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: expected "
+                         "'full' or 'dots'")
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 class ParamBuilder:

@@ -16,7 +16,9 @@ Parameters are a dict: ``embed`` (vocab, d) (tied head), ``ln_enc_f_g``/
 and ``xattn``.  The reference stacks layers on a leading axis and scans
 them; the port loops over the lists.  Caches are ``{"self": {"k", "v"},
 "cross": {"k", "v"}}``, each of shape (n_layers, B, Hkv, len, Dh);
-:meth:`EncDec.decode_step` updates the self cache in place.
+:meth:`EncDec.decode_step` updates the self cache in place.  Where
+autograd records, each encoder and decoder layer is recomputed in the
+backward pass (``cfg.remat``, reference encdec.py:24).
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
 from repro_torch.models.common import (ModelConfig, ParamBuilder,
-                                       init_attention, layer_norm)
+                                       init_attention, layer_norm, remat,
+                                       softmax_xent)
 
 
 def _ln(pb: ParamBuilder, name: str, d: int) -> Dict[str, torch.Tensor]:
@@ -159,29 +162,39 @@ class EncDec:
                        self.cfg.norm_eps)
         return x @ params["embed"].T
 
+    def _enc_layer(self, lp, x):
+        x = x + _attn_block(lp, x, self.cfg, "ln1", causal=False)
+        return x + _mlp(lp, x, self.cfg)
+
+    def _dec_layer(self, lp, x, mem):
+        cfg = self.cfg
+        x = x + _attn_block(lp, x, cfg, "ln1", causal=True)
+        x = x + _attn_block(lp, x, cfg, "ln_x", causal=False,
+                            kv=_cross_kv(lp, mem, cfg))
+        return x + _mlp(lp, x, cfg)
+
     def encode(self, params, frames):
         cfg = self.cfg
         x = frames.to(cfg.dtype)
         x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(cfg.dtype)
         for lp in params["enc"]:
-            x = x + _attn_block(lp, x, cfg, "ln1", causal=False)
-            x = x + _mlp(lp, x, cfg)
+            x = remat(self._enc_layer, cfg, lp, x)
         return layer_norm(x, params["ln_enc_f_g"], params["ln_enc_f_b"],
                           cfg.norm_eps)
 
     def decode(self, params, mem, tokens):
-        cfg = self.cfg
         x = self._embed(params, tokens,
                         torch.arange(tokens.shape[1], device=tokens.device))
         for lp in params["dec"]:
-            x = x + _attn_block(lp, x, cfg, "ln1", causal=True)
-            x = x + _attn_block(lp, x, cfg, "ln_x", causal=False,
-                                kv=_cross_kv(lp, mem, cfg))
-            x = x + _mlp(lp, x, cfg)
+            x = remat(self._dec_layer, self.cfg, lp, x, mem)
         return self._logits(params, x)
 
     def forward(self, params, tokens, frames):
         return self.decode(params, self.encode(params, frames), tokens)
+
+    def loss(self, params, tokens, labels, frames) -> torch.Tensor:
+        """Mean next-token cross entropy of the decoder's ``labels``."""
+        return softmax_xent(self.forward(params, tokens, frames), labels)
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device="cuda"):

@@ -1,6 +1,5 @@
 """Attention, MLA, RMSNorm+SwiGLU, MoE and Mamba2 layers of the torch
-port: the port of ``repro.models.layers`` (all but jamba's and the VLM's
-parts).
+port: the port of ``repro.models.layers`` (all but jamba's parts).
 
 ``cfg.attn_impl`` / ``cfg.mlp_impl`` pick the implementation:
 

@@ -1,5 +1,5 @@
-"""Decoder-only LM of the torch port (``family`` ``"dense"``, ``"moe"``
-or ``"ssm"``): the port of ``repro.models.lm``.
+"""Decoder-only LM of the torch port (``family`` ``"dense"``, ``"moe"``,
+``"ssm"`` or ``"vlm"``): the port of ``repro.models.lm``.
 
 Parameters are a dict: ``embed`` (vocab, d), ``ln_f`` (d,), ``head``
 (d, vocab) when embeddings are untied, and ``layers``, one dict per layer
@@ -30,6 +30,12 @@ With ``attn_impl="cuda"`` and ``mlp_impl="cuda"`` the forward pass and
 prefill run the paper's hand-written kernels (``kernels/ops.py``), as the
 reference's ``"pallas"`` impls do (lm.py:286-294); decode on that
 attention raises (``layers.attention_decode``).
+
+A ``vlm`` model (internvl) takes precomputed vision embeddings
+``(B, n_vision_tokens, d_model)``, prepended to the token embeddings
+(the vision frontend is a stub, as in the reference); :meth:`LM.loss`
+scores the text positions only.  Where autograd records, each layer is
+recomputed in the backward pass (``cfg.remat``, ``common.remat``).
 """
 
 from __future__ import annotations
@@ -42,10 +48,11 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.encdec import EncDec
-from repro_torch.models.common import ModelConfig, init_params, rms_norm
+from repro_torch.models.common import (ModelConfig, init_params, remat,
+                                       rms_norm, softmax_xent)
 
 #: the families :class:`LM` runs
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "vlm")
 
 
 class LM:
@@ -89,8 +96,11 @@ class LM:
         return params
 
     # -- forward --------------------------------------------------------------
-    def _embed(self, params, tokens):
-        return params["embed"][tokens].to(self.cfg.dtype)
+    def _embed(self, params, tokens, vision_embeds=None):
+        x = params["embed"][tokens].to(self.cfg.dtype)
+        if self.cfg.family == "vlm" and vision_embeds is not None:
+            x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+        return x
 
     def _logits(self, params, x):
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
@@ -104,18 +114,31 @@ class LM:
             return x
         return x + L.mlp_apply(p["mlp"], x, p["ln2"], self.cfg, i)
 
-    def forward(self, params, tokens) -> torch.Tensor:
+    def _layer(self, p, x, i):
+        """Layer ``i``: its mixer, then its MLP, each a residual step."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        if cfg.mixer == "mamba":
+            x = x + L.mamba_apply(p["mixer"], x, p["ln1"], cfg)
+        else:
+            mix = L.mla_apply if cfg.mixer == "mla" else L.attention_apply
+            x = x + mix(p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                        cfg, causal=True)
+        return self._mlp(p, x, i)
+
+    def forward(self, params, tokens, vision_embeds=None) -> torch.Tensor:
+        x = self._embed(params, tokens, vision_embeds)
         for i, p in enumerate(params["layers"]):
-            if cfg.mixer == "mamba":
-                x = x + L.mamba_apply(p["mixer"], x, p["ln1"], cfg)
-            else:
-                mix = L.mla_apply if cfg.mixer == "mla" else L.attention_apply
-                x = x + mix(p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                            cfg, causal=True)
-            x = self._mlp(p, x, i)
+            x = remat(self._layer, self.cfg, p, x, i)
         return self._logits(params, x)
+
+    def loss(self, params, tokens, labels, vision_embeds=None
+             ) -> torch.Tensor:
+        """Mean next-token cross entropy of ``labels`` (B, S); a VLM's
+        vision positions are sliced off first (reference lm.py:217-221)."""
+        logits = self.forward(params, tokens, vision_embeds)
+        if self.cfg.family == "vlm" and vision_embeds is not None:
+            logits = logits[:, vision_embeds.shape[1]:]
+        return softmax_xent(logits, labels)
 
     # -- caches ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device="cuda"):
@@ -132,13 +155,15 @@ class LM:
                 for name, t in one.items()}
 
     # -- prefill / decode -----------------------------------------------------
-    def prefill(self, params, tokens, max_len: Optional[int] = None):
-        """Run the prompt; returns logits and a cache filled to the prompt
-        length, its sequence axis padded to ``max_len`` for later decode
-        steps (a Mamba2 cache has no sequence axis)."""
+    def prefill(self, params, tokens, max_len: Optional[int] = None,
+                vision_embeds=None):
+        """Run the prompt (after a VLM's vision embeddings); returns logits
+        and a cache filled to the prompt length, its sequence axis padded to
+        ``max_len`` for later decode steps (a Mamba2 cache has no sequence
+        axis)."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
-        b, s = tokens.shape
+        x = self._embed(params, tokens, vision_embeds)
+        b, s = x.shape[:2]
         max_len = max_len or s
         pad = (0, 0, 0, max_len - s)
         pos = torch.arange(s, device=x.device)

@@ -115,3 +115,37 @@ def test_resilience_layer_imports_no_jax():
                          text=True, timeout=300, cwd=ROOT / "tests")
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_boundary_covers_the_training_path():
+    """The training modules (data, optimizer, compression, checkpoints, the
+    step functions, ``launch/train.py``) and the VLM config are among the
+    modules whose import must leave JAX out; importing ``launch/train.py``
+    and running its argument parser brings in neither ``jax`` nor
+    ``repro``."""
+    mods = _modules()
+    for m in ("repro_torch.data.pipeline", "repro_torch.optim.adamw",
+              "repro_torch.optim.compression",
+              "repro_torch.checkpoint.manager", "repro_torch.launch.steps",
+              "repro_torch.launch.train",
+              "repro_torch.configs.internvl2_26b"):
+        assert m in mods, m
+    code = (
+        "import sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+        "import repro_torch.launch.train as T\n"
+        "import repro_torch.launch.steps, repro_torch.checkpoint\n"
+        "import repro_torch.data, repro_torch.optim.compression\n"
+        "args = T.parse_args(['--arch', 'internvl2-26b', '--n-layers',"
+        " '2'])\n"
+        "cfg = T.model_config(args, remat_policy='dots')\n"
+        "assert cfg.family == 'vlm' and cfg.n_layers == 2, cfg\n"
+        "assert args.device == 'cuda'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT / "tests")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

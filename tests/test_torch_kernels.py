@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as JK
+from repro_torch.core import cuda_build as CB
 from repro_torch.kernels import flash_attention as TFA
 from repro_torch.kernels import layernorm_matmul as TLN
 from repro_torch.kernels import ops as TK
@@ -200,7 +201,8 @@ def test_rmsnorm_swiglu_gradients_match_reference():
 def test_cuda_on_cpu_tensors_runs_the_plain_version_without_a_launch():
     """``impl=None`` is ``"cuda"``; on CPU tensors every wrapper runs its
     kernel's plain version and counts no launch."""
-    before = [m.KERNEL.launches for m in (TFA, TLN, TSW)]
+    before = [(m.KERNEL.launches, dict(m.KERNEL.shapes))
+              for m in (TFA, TLN, TSW)]
     q, k, v = _torch(_arrays(90, "float32", (1, 2, 8, 32), (1, 1, 8, 32),
                              (1, 1, 8, 32)), "float32")
     torch.testing.assert_close(TK.flash_attention(q, k, v, causal=True),
@@ -212,7 +214,36 @@ def test_cuda_on_cpu_tensors_runs_the_plain_version_without_a_launch():
     w, u = _torch(_arrays(92, "float32", (16, 8), (8, 16)), "float32")
     torch.testing.assert_close(TK.rmsnorm_swiglu(x, w, w, u, g),
                                TSW.plain(x, w, w, u, g))
-    assert [m.KERNEL.launches for m in (TFA, TLN, TSW)] == before
+    assert [(m.KERNEL.launches, dict(m.KERNEL.shapes))
+            for m in (TFA, TLN, TSW)] == before
+
+
+def test_launcher_counts_accepted_launches_by_shape():
+    """A launch the C launcher accepts adds one to ``launches`` and, where
+    the wrapper names it, to ``shapes[shape]``; a refused one raises and
+    counts nothing.  Each wrapper's ``shape_key`` names the operands'
+    shapes, the dtype and (attention) causality."""
+    kern = CB.Launcher("// no source", "sym")
+    rc = {"value": 0}
+    kern._fn = lambda *args: rc["value"]          # loaded: nothing to build
+    kern.launch(1, 2, shape="a")
+    kern.launch(3)
+    kern.launch(shape="a")
+    assert kern.launches == 3 and kern.shapes == {"a": 2}
+    rc["value"] = 700
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        kern.launch(shape="a")
+    assert kern.launches == 3 and kern.shapes == {"a": 2}
+    q, k = torch.zeros(8, 9, 512, 64), torch.zeros(8, 3, 512, 64)
+    assert TFA.shape_key(q, k, True) == (
+        "q (8, 9, 512, 64) kv (8, 3, 512, 64) float32 causal")
+    assert TFA.shape_key(q.bfloat16(), k, False) == (
+        "q (8, 9, 512, 64) kv (8, 3, 512, 64) bfloat16")
+    x, w, u = torch.zeros(4096, 576), torch.zeros(576, 1536), torch.zeros(
+        1536, 576)
+    assert TSW.shape_key(x, w, u) == (
+        "x (4096, 576) W/V (576, 1536) U (1536, 576) float32")
+    assert TLN.shape_key(x, w) == "x (4096, 576) Y (576, 1536) float32"
 
 
 def test_layernorm_plain_version_takes_the_one_pass_variance():
