@@ -13,19 +13,23 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    serving paths emit (for each architecture of ``SERVED``: the attention
    kernel of each prompt bucket and of the ragged decode step, and the
    SwiGLU kernels of each, 2 at smollm-135m's widths and 3 at the wider
-   dense models'), generated by ``repro_torch.core.codegen_cuda``, the
-   kernels of phases 8 and 9 (each analytic finalist of the measured
+   dense models'), generated by ``repro_torch.core.codegen_cuda``, path
+   E's (jamba-1.5-large-398b's attention at 480 and 512 query rows over
+   4 sequences and its ragged decode over 512 positions, its SwiGLU at
+   1920, 2048 and 4 rows, at d 8192, d_ff 24576, 64/8 heads of 128, each
+   printed with its shared memory), the kernels of phases 8 and 9 (each analytic finalist of the measured
    sweeps at its timed blocks and at the base blocks a winner lowers at,
    each unfused program), and
    the three hand-written kernels of ``repro_torch/csrc/`` (flash
    attention, RMSNorm+SwiGLU, LayerNorm+matmul), all for sm_90a; then the
    HMMA (tensor-core) instructions and the registers and stack of each
    hand kernel's instantiations (``cuobjdump``): every hand kernel must
-   have HMMA instructions, and every served program must emit one kernel
-   for each group its plan made;
+   have HMMA instructions, and every served program and path E's must
+   lower on the rung it asked for and emit one kernel for each group its
+   plan made;
 3. each emitted kernel against its plain PyTorch version on the card, on
-   inputs of the shapes its serving path gives it (``rtol = atol =
-   2e-4``), timed with CUDA events (back to back, so a short kernel is
+   inputs of the shapes its serving path (or path E) gives it (``rtol =
+   atol = 2e-4``), timed with CUDA events (back to back, so a short kernel is
    timed at the host's enqueue rate) beside the plain version and, where
    one PyTorch call computes the same function, that call
    (``scaled_dot_product_attention`` for attention, ``matmul`` for the
@@ -98,7 +102,19 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    logits held against the forward pass's by the reference's rule at
    1e-3 on the first 16 layers (at 64 layers float32 itself lies
    further than that from float64, so there the distances to the forward
-   pass and to a float64 forward pass are printed);
+   pass and to a float64 forward pass are printed); path E
+   (``PATH_E``, ``run_path_e``, in a child process: ``--path-e``):
+   jamba-1.5-large-398b's first period (8 of 72 layers: Mamba2 and
+   attention interleaved, the MoE every other layer) at published widths,
+   2 of its 16 experts held (one chip of an 8-way expert-parallel layer;
+   router, top-2 and capacity the whole layer's), attention and SwiGLU on
+   the emitted kernels: prefill 4 x 480, 32 greedy decode steps and the
+   forward pass with exact launches, each within 1e-3 of the emitted
+   programs' plain versions (or the tokens' first difference), the plain
+   impls' and a float64 forward's distances printed, prefill and decode
+   against a float64 forward (layer by layer) at capacity factor 8.0,
+   times, the decode step by class
+   of work beside its bound, and ``max_memory_allocated``;
 8. measured autotune on the card: ``pipeline.compile(...,
    dim_candidates=..., autotune="measured", top_k=3)`` of the programs of
    ``TUNED`` (smollm-135m's SwiGLU at t = 4 and 32, llama3.2-1b's at t =
@@ -173,11 +189,13 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    earlier phases, and only the children take ``:4096:8``.  Each run's
    step time, tokens/s, bound and peak memory are printed beside the
    card;
-13. the serving records, the paths' times, the compile driver's record,
+13. the serving records, the paths' times (path E's record among
+   them), the compile driver's record,
    the ``resilience`` and ``training`` records (with the card), each
-   phase's seconds, a ``kernels`` JSON line (the hand kernels' launches by
-   path, phase 12's runs among them, and each case's launches by path at
-   its shape), the card line, and the result line.
+   phase's seconds, a ``kernels`` JSON line (the emitted kernels'
+   launches on their serving path or path E, the hand kernels' launches
+   by path, phase 12's runs among them, and each case's launches by path
+   at its shape), the card line, and the result line.
 """
 
 from __future__ import annotations
@@ -200,6 +218,8 @@ ROOT = Path(__file__).resolve().parent
 TOL = 2e-4          # kernel vs plain version, float32 (summation order)
 SERVE_TOL = 1e-3    # logits of the CUDA engine vs the torch engine
 PATH_TOL = 1e-3     # logits of a hand-kernel path vs its plain impls
+LAYER_TOL = 1e-4    # path E: a layer's increment or cache vs the plain
+                    # impls', over the plain one's largest magnitude
 BF16_TOL = 5e-2     # hand kernel vs plain version, bfloat16
 PATH_REPEATS = 10   # timed calls of each hand-kernel path
 #: the serving phases: each architecture at full width, with its depth
@@ -214,6 +234,21 @@ SERVED = (("smollm-135m", None), ("llama3.2-1b", None),
 #: rule held on its first ``rule_layers`` layers (see ``run_path_d``)
 PATH_D = dict(arch="mamba2-2.7b", batch=4, seq=512, prefill=480,
               rule_layers=16)
+#: path E: jamba-1.5-large-398b's first period (8 of its 72 layers:
+#: Mamba2 at 0-3 and 5-7, attention at 4, the MoE at 1, 3, 5 and 7) at
+#: published widths in float32, holding the ``experts`` (first, count) of
+#: its 16: one chip of an 8-way expert-parallel layer, whose router, top-2
+#: and capacity are the whole layer's (4 of 16, a 4-way layer's share,
+#: peaked at 79.69 GB of the card's 85.5, past the 78 GB this run keeps
+#: under; PERF.md).  On the emitted kernels
+#: (``with_pipeline(cfg, "cuda")``: attention and SwiGLU); the experts
+#: stay ``torch.bmm`` and Mamba2 plain torch, as the reference has them.
+#: Shape as path D; ``repeats`` timed forward and prefill calls,
+#: ``profile_steps`` profiled decode steps; prefill and decode held
+#: against a float64 forward at ``drop_free_capacity`` (``run_path_e``)
+PATH_E = dict(arch="jamba-1.5-large-398b", n_layers=8, experts=(0, 2),
+              batch=4, seq=512, prefill=480, drop_free_capacity=8.0,
+              repeats=3, profile_steps=3)
 #: the engine and trace of every serving phase
 SERVE = dict(n_requests=8, prompt_lens=(4, 24), gen_lens=(4, 12), seed=0,
              record_logits=True, max_batch=4, max_len=96,
@@ -331,9 +366,12 @@ def kernel_name(event_name: str) -> str:
     return head[-1] if head else event_name
 
 
-def program_inputs(name, kern, cfg, max_batch, max_len, gen):
-    """Inputs of one compiled program at the shapes the serving path
-    feeds it, with its instance-axis count."""
+def program_inputs(name, kern, cfg, max_batch, max_len, gen,
+                   prefill_batch=1):
+    """Inputs of one compiled program at the shapes the serving path (or
+    path E) feeds it, with its instance-axis count: decode at
+    ``max_batch`` over ``max_len`` cached positions, prefill over
+    ``prefill_batch`` sequences."""
     import torch
     dev, f32 = "cuda", torch.float32
 
@@ -349,7 +387,7 @@ def program_inputs(name, kern, cfg, max_batch, max_len, gen):
             pos = torch.linspace(5, max_len - 1, b, device=dev).round()
             qp = pos.reshape(b, 1, 1)
         else:
-            b, s = 1, int(name[len("attention_prefill"):])
+            b, s = prefill_batch, int(name[len("attention_prefill"):])
             skv = s
             qp = torch.arange(s, dtype=f32, device=dev).reshape(1, 1, s)
         return {"Q": randn(b, hkv, group, s, dh),
@@ -358,7 +396,7 @@ def program_inputs(name, kern, cfg, max_batch, max_len, gen):
                 "QP": qp.contiguous(),
                 "KP": torch.arange(skv, dtype=f32, device=dev).reshape(
                     1, 1, skv)}, 2
-    t = max_batch if name == "swiglu_decode" else int(
+    t = max_batch if name == "swiglu_decode" else prefill_batch * int(
         name[len("swiglu_prefill"):])
     return {"X": randn(t, d), "WT": randn(dff, d, scale=d ** -0.5),
             "VT": randn(dff, d, scale=d ** -0.5),
@@ -906,7 +944,9 @@ def greedy_against_forward(model, params, prompt, seq):
         step_ms.append((time.perf_counter() - t) * 1e3)
         steps.append(lg)
     toks = torch.cat(toks, 1)
-    return torch.cat(steps, 1), model.forward(params, toks), toks, step_ms
+    got = torch.cat(steps, 1)
+    del steps, lg, cache
+    return got, model.forward(params, toks), toks, step_ms
 
 
 def allowance_used(got, want):
@@ -1043,10 +1083,431 @@ def run_path_d(phase_s):
     return rec
 
 
-def check_emitted(served, gen):
-    """Phase 3: every emitted kernel of every served architecture against
-    its plain version on the card, at the shapes its serving path gives
-    it, timed beside the plain version and the library call; a kernel two
+def path_e_config(**over):
+    """Path E's model configuration (``PATH_E``) on the emitted kernels;
+    ``over`` replaces fields (the plain impls, a capacity factor)."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.launch import serve as S
+    cfg = S.cut_depth(C.get_config(PATH_E["arch"]), PATH_E["n_layers"])
+    cfg = dataclasses.replace(cfg, dtype=torch.float32,
+                              expert_share=PATH_E["experts"])
+    return dataclasses.replace(C.with_pipeline(cfg, backend="cuda"), **over)
+
+
+def path_e_programs(cfg, device="cuda"):
+    """The emitted programs path E runs, by name: attention and SwiGLU at
+    the prefill's and the forward pass's lengths over the batch, and the
+    decode pair over ``seq`` cached positions."""
+    from repro_torch.models import layers as L
+    return L.pipeline_kernels(
+        cfg, prefill_lens=(PATH_E["prefill"], PATH_E["seq"]),
+        decode_batch=PATH_E["batch"], max_len=PATH_E["seq"], device=device,
+        prefill_batch=PATH_E["batch"])
+
+
+def path_e_launches(cfg, programs):
+    """Each emitted kernel's launches in path E's counted run (prefill,
+    the greedy decode steps, then the forward pass): one a call of each
+    attention layer's program, one a call of each SwiGLU layer's."""
+    n_attn = sum(cfg.mixer_of(i) == "attn" for i in range(cfg.n_layers))
+    n_mlp = sum(cfg.mlp_of(i) == "swiglu" for i in range(cfg.n_layers))
+    steps = PATH_E["seq"] - PATH_E["prefill"]
+    per = {"attention_decode": n_attn * steps, "swiglu_decode": n_mlp * steps}
+    for s_ in (PATH_E["prefill"], PATH_E["seq"]):
+        per[f"attention_prefill{s_}"] = n_attn
+        per[f"swiglu_prefill{s_}"] = n_mlp
+    return {f"{cfg.name}/{prog}/{k.gid}": per[prog]
+            for prog, ck in programs.items() for k in ck.kernels}
+
+
+def path_e_decode_split(model, params, prompt, seq, programs, steps):
+    """Path E's decode step by class of work, from
+    ``profile_decode.profile_steps`` over ``steps`` decode steps after a
+    prefill of ``prompt``: the emitted attention and SwiGLU kernels by
+    name; the torch ops' kernels by the layer function that launched them
+    (``layers.mamba_decode``, ``layers.moe_apply``), the rest (embedding,
+    norms, q/k/v and output projections, residuals, the head) as other
+    torch ops; the card's busy time and the host's idle time, the steps'
+    wall time less the busy time.  Returns ms per step."""
+    from repro_torch.launch import profile_decode as PD
+    p0 = prompt.shape[1]
+    _, cache = model.prefill(params, prompt, max_len=seq)
+    tok = prompt[:, -1:].contiguous()
+    prof = PD.profile_steps(
+        lambda i: model.decode_step(params, cache, tok, p0 + i), steps,
+        classes={"mamba_decode": "mamba", "moe_apply": "moe"})
+    emitted = {part: {k.kname for k in programs[f"{part}_decode"].kernels}
+               for part in ("attention", "swiglu")}
+    out = {f"{part} kernels": sum(
+        ms for n, ms in prof["device_ms_per_step_by_kernel"].items()
+        if kernel_name(n) in names) for part, names in emitted.items()}
+    every = set().union(*emitted.values())
+    for cls in ("mamba", "moe", "other"):
+        out[f"{cls} torch ops"] = sum(
+            ms for n, ms in prof["device_ms_per_step_by_class"].get(
+                cls, {}).items() if kernel_name(n) not in every)
+    missing = [k for k, v in out.items() if v <= 0]
+    if missing:
+        fail(f"path E: the decode profile saw no device time of {missing}")
+    busy = prof["device_busy_ms"] / steps
+    wall = prof["profiled_window_ms"] / steps
+    out.update({"device busy": busy, "host idle": max(wall - busy, 0.0),
+                "step_wall_ms": wall, "host_step_ms": prof["host_step_ms"],
+                "unattributed_ms": busy - sum(out.values())})
+    return out
+
+
+def rel_max(got, want) -> float:
+    """The largest difference over the largest magnitude of ``want``."""
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def path_e_layers(model, plain, params, prompt, seq):
+    """Path E's layers one at a time, each on the emitted kernels
+    (``model``) and on the plain impls (``plain``: ``ref`` attention, the
+    ``unfused`` SwiGLU), both fed the emitted chain's input: the mixer's
+    and the MLP's residual increments over the prompt and for one decode
+    step after it, and the cache entries each mixer writes (prefill: also
+    the slot of ``LM.prefill``'s own cache).  Every kernel of the path
+    feeds the stream here, where the logits see only what rises above the
+    residual stream's float32 rounding (PERF.md, C18).  Returns each
+    quantity's :func:`rel_max`, by name."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import CACHE_NAMES
+    cfg, p0 = model.cfg, prompt.shape[1]
+    out = {}
+    _, caches = model.prefill(params, prompt, max_len=seq)
+    x = model._embed(params, prompt)
+    xd = model._embed(params, prompt[:, -1:])
+    for i, p in enumerate(params["layers"]):
+        mixer, slot = model.mixers[i], model.slots[i]
+        y, cache = model._prefill_mixer(p, x, i, seq)
+        y_p, cache_p = plain._prefill_mixer(p, x, i, seq)
+        out[f"prefill {i} {mixer}"] = rel_max(y, y_p)
+        for name, t in cache_p.items():
+            out[f"prefill {i} {name}"] = rel_max(cache[name], t)
+            out[f"prefill {i} {name} slot {slot}"] = rel_max(
+                caches[name][slot], t)
+        del cache, cache_p
+        step = {name: caches[name][slot]
+                for name in CACHE_NAMES[mixer]}
+        step_p = {name: t.clone() for name, t in step.items()}
+        yd = model._decode_mixer(p, xd, i, step, p0)
+        yd_p = plain._decode_mixer(p, xd, i, step_p, p0)
+        out[f"decode {i} {mixer}"] = rel_max(yd, yd_p)
+        for name, t in step_p.items():
+            out[f"decode {i} {name}"] = rel_max(step[name], t)
+        del step_p
+        x, xd = x + y, xd + yd
+        if cfg.mlp_of(i) != "none":
+            for what, h in (("prefill", x), ("decode", xd)):
+                m = L.mlp_apply(p["mlp"], h, p["ln2"], cfg, i)
+                m_p = L.mlp_apply(p["mlp"], h, p["ln2"], plain.cfg, i)
+                out[f"{what} {i} {cfg.mlp_of(i)}"] = rel_max(m, m_p)
+                if what == "prefill":
+                    x = x + m
+                else:
+                    xd = xd + m
+    torch.cuda.synchronize()
+    return out
+
+
+def float64_forward(cfg, params, toks):
+    """``LM.forward`` of ``cfg`` over ``toks`` in float64 on the plain
+    impls, attention too (``attention_at_input_precision``), one layer at
+    a time on the card: each layer's float32 weights are copied to float64
+    only while it runs, since a float64 copy of path E would not fit
+    beside them.  The folded SwiGLU copies of the emitted path are freed
+    first.  Returns the logits on the host."""
+    import torch
+    from unittest import mock
+    from torch.utils import _pytree as pytree
+    from repro_torch.kernels import ref as R
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import LM
+    L._FOLDED.clear()
+    torch.cuda.empty_cache()
+    m64 = LM(dataclasses.replace(cfg, dtype=torch.float64, **PLAIN_IMPLS))
+
+    def f64(tree):
+        return pytree.tree_map(lambda t: t.double(), tree)
+
+    with mock.patch.object(R, "attention_ref",
+                           attention_at_input_precision):
+        x = params["embed"][toks].double()
+        for i, layer in enumerate(params["layers"]):
+            x = m64._layer(f64(layer), x, i)
+        logits = m64._logits(f64({k: params[k] for k in ("ln_f", "head")}),
+                             x)
+    return logits.cpu()
+
+
+def greedy_distance(got, toks, want, want_toks, p0):
+    """Two greedy runs from the same prompt (:func:`greedy_against_forward`
+    logits and tokens): the prefill logits' max abs difference, the decode
+    logits' up to each sequence's first differing token, the sequences
+    whose tokens are all equal, and each one's first differing step."""
+    seq = toks.shape[1]
+    pre = (got[:, :p0] - want[:, :p0]).abs().max().item()
+    dec, same, first = 0.0, 0, []
+    for r in range(toks.shape[0]):
+        neq = (toks[r, p0:] != want_toks[r, p0:]).nonzero()
+        upto = seq if len(neq) == 0 else p0 + neq[0].item()
+        same += len(neq) == 0
+        first.append(None if len(neq) == 0 else upto - p0)
+        if upto > p0:
+            dec = max(dec, (got[r, p0:upto] - want[r, p0:upto]
+                            ).abs().max().item())
+    return pre, dec, same, first
+
+
+def run_path_e():
+    """Path E (``PATH_E``), in a child process of its own (this script with
+    ``--path-e``), so that its ~60 GB and its profiler session end with it:
+    jamba-1.5-large-398b's first period at published widths, float32,
+    seeded weights drawn on the card, 2 of its 16 experts held, attention
+    and SwiGLU on the emitted kernels (phase 2 built them; here they load).
+
+    * The counted run: with every launch counter of path E's kernels set
+      to 0 just before and read just after, ``LM.prefill`` of ``prefill``
+      tokens, greedy ``LM.decode_step``s to ``seq``, then ``LM.forward``
+      over the tokens they made (:func:`greedy_against_forward`); the
+      counts exact (:func:`path_e_launches`), the logits finite.
+    * The same run with the emitted programs' plain versions (the
+      pipeline's ``torch`` backend: the serving phases' yardstick), on the
+      same weights: the prefill logits within ``PATH_TOL``; the greedy
+      tokens equal, or the decode logits within ``PATH_TOL`` up to each
+      sequence's first differing token; the forward pass's logits over
+      the counted run's tokens within ``PATH_TOL``.  All at the published
+      capacity factor, 1.25, where the tokens of a call decide the drops,
+      so prefill and decode cannot equal the forward pass (in the
+      reference either).  The forward pass on the plain impls
+      (``PLAIN_IMPLS``) is printed beside them: at these widths two
+      float32 evaluations that sum in other orders lie about ``PATH_TOL``
+      apart at the logits, as each lies from a float64 one (the
+      reference's expert init, fan-in the expert count, puts the
+      residual stream near 10^4; PERF.md), so the logits see a layer's
+      work only where it rises above that stream's rounding: past the
+      first MoE layer, an attention or SwiGLU layer hardly at all.
+    * Layer by layer (:func:`path_e_layers`): each mixer's and MLP's
+      increment and each cache entry, prefill and one decode step, on the
+      emitted kernels and on the plain impls from the same input, within
+      ``LAYER_TOL`` of the plain one's largest magnitude.
+    * At ``drop_free_capacity`` (8.0: no assignment dropped at any of the
+      run's token counts) prefill then decode on the emitted kernels held
+      against the forward pass over the tokens they made by the
+      reference's rule (tests/test_models_decode.py:17-37) at ``atol =
+      rtol = PATH_TOL``, the forward pass in float64
+      (:func:`float64_forward`); the float32 forward pass's distances to
+      both printed beside it.
+    * Times: the weights' draw, the median of ``repeats`` forward and
+      prefill calls, each decode step of the counted run; the decode
+      step's device ms by class (:func:`path_e_decode_split`) beside its
+      bound (``profile_decode.step_cost``); ``max_memory_allocated``.
+    Returns the record, with the launches by kernel."""
+    import torch
+    from repro_torch.core import codegen_cuda as CC
+    from repro_torch.launch import profile_decode as PD
+    from repro_torch.models.lm import LM
+    t0 = time.perf_counter()
+    cfg = path_e_config()
+    programs = path_e_programs(cfg)
+    for prog, ck in programs.items():
+        on_requested_rung(f"path E {prog}", ck)
+        if ck.lowering_report.degraded:
+            fail(f"path E {prog}: planned groups split into per-region "
+                 f"kernels: {ck.lowering_report.degraded}")
+    kernels = {f"{cfg.name}/{prog}/{k.gid}": k
+               for prog, ck in programs.items() for k in ck.kernels}
+    CC.build(list(kernels.values()))
+    compile_s = time.perf_counter() - t0
+    b, seq, p0 = PATH_E["batch"], PATH_E["seq"], PATH_E["prefill"]
+    base, count = cfg.held_experts
+    model = LM(cfg)
+    lowering = LM(dataclasses.replace(cfg, pipeline_backend="torch"))
+    plain = LM(dataclasses.replace(cfg, **PLAIN_IMPLS))
+    drop_free = dataclasses.replace(
+        cfg, capacity_factor=PATH_E["drop_free_capacity"])
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params = model.init_params(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t1
+    weights = sum(t.numel() for t in PD._tensors(params))
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    toks = torch.randint(0, cfg.vocab, (b, seq), generator=gen,
+                         device="cuda")
+    prompt = toks[:, :p0]
+    label = (f"path E: {cfg.name} ({cfg.n_layers} of 72 layers, d "
+             f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+             f"{cfg.d_head}, no rope, d_ff {cfg.d_ff}, experts {base}.."
+             f"{base + count - 1} of {cfg.n_experts}, top-{cfg.top_k})")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    expect = path_e_launches(cfg, programs)
+    with torch.no_grad():
+        for k in kernels.values():
+            k.launches = 0
+        got, full, toks_e, step_ms = greedy_against_forward(
+            model, params, prompt, seq)
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        if launches != expect:
+            fail(f"{label}: launches {launches}, expected {expect}")
+        if got.shape != (b, seq, cfg.vocab) or full.shape != got.shape \
+                or not torch.isfinite(got).all() \
+                or not torch.isfinite(full).all():
+            fail(f"{label}: logits {tuple(got.shape)} against "
+                 f"{tuple(full.shape)}, or not finite")
+        used_125, diff_125 = allowance_used(got, full)
+        got_t, full_t, toks_t, step_ms_t = greedy_against_forward(
+            lowering, params, prompt, seq)
+        pre_diff, dec_diff, same, first_diff = greedy_distance(
+            got, toks_e, got_t, toks_t, p0)
+        if not torch.equal(toks_e, toks_t):
+            full_t = lowering.forward(params, toks_e)
+        fwd_diff = (full - full_t).abs().max().item()
+        del got, got_t, full_t
+        for what, d in (("prefill", pre_diff), ("decode", dec_diff),
+                        ("forward", fwd_diff)):
+            if d > PATH_TOL:
+                fail(f"{label}: {what} logits differ from the emitted "
+                     f"programs' plain versions' by {d:.3e}")
+        used_plain, diff_plain = allowance_used(
+            full, plain.forward(params, toks_e))
+        del full
+        layers = path_e_layers(model, plain, params, prompt, seq)
+        worst = max(layers, key=layers.get)
+        if layers[worst] > LAYER_TOL:
+            fail(f"{label}: layer by layer against the plain impls, "
+                 f"{worst} differs by {layers[worst]:.3e} of its largest "
+                 f"value (limit {LAYER_TOL}): {json.dumps(layers)}")
+        got8, full8, toks8, _ = greedy_against_forward(
+            LM(drop_free), params, prompt, seq)
+        got8, full8 = got8.cpu(), full8.cpu()
+        used8_f32, diff8_f32 = allowance_used(got8, full8)
+        fwd = [timed(lambda: model.forward(params, toks))
+               for _ in range(PATH_E["repeats"])]
+        pre = [timed(lambda: model.prefill(params, prompt, max_len=seq))
+               for _ in range(PATH_E["repeats"])]
+        split = path_e_decode_split(model, params, prompt, seq, programs,
+                                    PATH_E["profile_steps"])
+        _, cache = model.prefill(params, prompt, max_len=seq)
+        step_bytes, step_ops = PD.step_cost(cfg, params, cache, b, p0, seq)
+        del cache
+        peak = torch.cuda.max_memory_allocated()
+        full64 = float64_forward(drop_free, params, toks8)
+    used64, diff64 = allowance_used(full8, full64)
+    used8, diff8 = allowance_used(got8, full64)
+    del got8, full8, full64
+    if used8 > 1.0:
+        fail(f"{label}: at capacity factor {PATH_E['drop_free_capacity']} "
+             f"prefill and decode differ from the float64 forward pass by "
+             f"{diff8:.3e}, {used8:.3f} of the allowance atol = rtol = "
+             f"{PATH_TOL} (from the float32 forward pass {diff8_f32:.3e}, "
+             f"{used8_f32:.3f}; the float32 forward from the float64 one "
+             f"{diff64:.3e}, {used64:.3f})")
+    t_bytes = step_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = step_ops / FP32_FMA_FLOPS * 1e3
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "experts_held": [base, count], "n_experts": cfg.n_experts,
+           "batch": b, "seq": seq, "prefill": p0, "decode_steps": seq - p0,
+           "capacity_factor": cfg.capacity_factor,
+           "prefill_max_abs_diff_vs_lowering": pre_diff,
+           "decode_max_abs_diff_vs_lowering": dec_diff,
+           "forward_max_abs_diff_vs_lowering": fwd_diff,
+           "same_tokens": same, "first_differing_token": first_diff,
+           "forward_max_abs_diff_vs_plain_impls": diff_plain,
+           "forward_vs_plain_impls_allowance_used": used_plain,
+           "layers_vs_plain_impls": layers, "layers_worst": worst,
+           "drop_free_forward_vs_float64": diff64,
+           "drop_free_forward_vs_float64_allowance_used": used64,
+           "decode_vs_forward_at_published_capacity": diff_125,
+           "decode_vs_forward_at_published_capacity_allowance_used": used_125,
+           "drop_free_capacity": PATH_E["drop_free_capacity"],
+           "drop_free_max_abs_diff_vs_float64_forward": diff8,
+           "drop_free_allowance_used": used8,
+           "drop_free_max_abs_diff_vs_forward": diff8_f32,
+           "drop_free_allowance_used_vs_forward": used8_f32,
+           "forward_median_ms": statistics.median(fwd),
+           "forward_ms": fwd, "prefill_median_ms": statistics.median(pre),
+           "prefill_ms": pre,
+           "decode_step_median_ms": statistics.median(step_ms),
+           "decode_step_min_ms": min(step_ms),
+           "decode_step_max_ms": max(step_ms), "decode_step_ms": step_ms,
+           "lowering_decode_step_median_ms": statistics.median(step_ms_t),
+           "decode_step_by_class_ms": split,
+           "step_bytes": step_bytes, "step_ops": step_ops,
+           "step_bound_ms": max(t_bytes, t_ops),
+           "step_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "weights": weights, "weights_bytes": 4 * weights,
+           "weights_s": weights_s, "compile_s": compile_s,
+           "max_memory_allocated": peak, "launches": launches,
+           "smem_bytes": {name: k.smem_bytes for name, k in kernels.items()},
+           "card": card_line()}
+    print(f"{label}: counted run {json.dumps(launches)}; against the "
+          f"emitted programs' plain versions prefill {pre_diff:.3e}, decode "
+          f"{dec_diff:.3e} (greedy tokens equal for {same}/{b} sequences, "
+          f"first differences {first_diff}), forward {fwd_diff:.3e}; the "
+          f"forward pass on the plain impls {diff_plain:.3e} ({used_plain:.3f}"
+          f" of the allowance atol = rtol = {PATH_TOL}); layer by layer "
+          f"against the plain impls at most {layers[worst]:.3e} of the "
+          f"largest value ({worst}; limit {LAYER_TOL}); at capacity "
+          f"factor {PATH_E['drop_free_capacity']} prefill + {seq - p0} "
+          f"decode steps within {diff8:.3e} of the float64 LM.forward "
+          f"({used8:.3f} of the allowance), {diff8_f32:.3e} "
+          f"({used8_f32:.3f}) of the float32 one, which lies {diff64:.3e} "
+          f"({used64:.3f}) from the float64 one (at {cfg.capacity_factor}: "
+          f"{diff_125:.3e}); median "
+          f"of {PATH_E['repeats']} calls: forward {rec['forward_median_ms']} "
+          f"ms, prefill ({b} x {p0}) {rec['prefill_median_ms']} ms; decode "
+          f"step median {rec['decode_step_median_ms']} ms (min "
+          f"{rec['decode_step_min_ms']}, max {rec['decode_step_max_ms']}; "
+          f"plain versions {rec['lowering_decode_step_median_ms']}), bound "
+          f"{rec['step_bound_ms']:.3f} ms ({rec['step_bound_by']}: "
+          f"{step_bytes} B); by class {json.dumps(split)}; {weights} "
+          f"weights drawn in {weights_s:.2f} s; max_memory_allocated {peak} "
+          f"B; {rec['card']}", flush=True)
+    return rec
+
+
+def path_e_in_child():
+    """:func:`run_path_e` in a process of its own (this script with
+    ``--path-e``), on this process's kernel cache and nvcc build
+    directory, where phase 2 compiled and built its kernels."""
+    import torch
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--path-e"],
+        capture_output=True, text=True, timeout=900, cwd=ROOT)
+    lines = out.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if out.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        fail(f"path E (child process, rc {out.returncode}): "
+             f"{out.stderr.strip()[-3000:]}")
+    rec = json.loads(lines[-1])
+    rec.update(process_s=time.perf_counter() - t0,
+               parent_reserved_bytes=reserved)
+    return rec
+
+
+def check_emitted(served, gen, shapes):
+    """Phase 3: every emitted kernel of every served architecture and of
+    path E against its plain version on the card, at the shapes its path
+    gives it (``shapes[arch]``: decode batch, max_len, prefill batch),
+    timed beside the plain version and the library call; a kernel two
     architectures share (the same source) is checked once.  Then the
     device time per launch of every distinct kernel from one profiler
     session (by burst: two kernels whose bodies differ only in their
@@ -1054,9 +1515,10 @@ def check_emitted(served, gen):
     import torch
     rows, calls, by_key, dups = {}, [], {}, []
     for arch, (mc, programs) in served.items():
+        max_batch, max_len, prefill_batch = shapes[arch]
         for prog, ck in programs.items():
-            inputs, inst = program_inputs(prog, ck, mc, SERVE["max_batch"],
-                                          SERVE["max_len"], gen)
+            inputs, inst = program_inputs(prog, ck, mc, max_batch, max_len,
+                                          gen, prefill_batch)
             raw = ck._fn.raw_program
             env = {ref: inputs[name]
                    for ref, name in zip(raw.input_refs, ck.in_names)}
@@ -2004,9 +2466,10 @@ def forward_launches(cfg):
         return {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers,
                 "rmsnorm_swiglu": 0,
                 "layernorm_matmul": cfg.n_enc_layers + cfg.n_layers}
-    return {"flash_attention": cfg.n_layers,
-            "rmsnorm_swiglu": sum(not cfg.is_moe_layer(i)
-                                  for i in range(cfg.n_layers)),
+    layers = range(cfg.n_layers)
+    return {"flash_attention": sum(cfg.mixer_of(i) == "attn"
+                                   for i in layers),
+            "rmsnorm_swiglu": sum(cfg.mlp_of(i) == "swiglu" for i in layers),
             "layernorm_matmul": 0}
 
 
@@ -2546,6 +3009,10 @@ def main() -> int:
             "launches": {n: k.launches for n, k in kernels.items()},
             "shapes": {n: dict(k.shapes) for n, k in kernels.items()}}))
         return code
+    if sys.argv[1:2] == ["--path-e"]:       # path E's child
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(run_path_e()))
+        return 0
     if sys.argv[1:2] == ["--resilience"]:   # a phase 11 child
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps(resilience_run(sys.argv[2],
@@ -2587,7 +3054,17 @@ def main() -> int:
             if ck.lowering_report.degraded:
                 fail(f"{arch}/{prog}: planned groups split into per-region "
                      f"kernels: {ck.lowering_report.degraded}")
-    emitted = {k.key: k for _, programs in served.values()
+    pe_cfg = path_e_config()
+    path_e_served = {pe_cfg.name: (pe_cfg, path_e_programs(pe_cfg))}
+    for prog, ck in path_e_served[pe_cfg.name][1].items():
+        on_requested_rung(f"path E {prog}", ck)
+        print(f"path E {prog}: {ck.lowering_report.summary()}; shared "
+              f"memory {[k.smem_bytes for k in ck.kernels]} B", flush=True)
+        if ck.lowering_report.degraded:
+            fail(f"path E {prog}: planned groups split into per-region "
+                 f"kernels: {ck.lowering_report.degraded}")
+    emitted = {k.key: k for _, programs in [*served.values(),
+                                            *path_e_served.values()]
                for ck in programs.values() for k in ck.kernels}
     tuned = tuned_programs(served)
     more = {k.key: k for k in tuned_kernels(tuned) if k.key not in emitted}
@@ -2609,7 +3086,10 @@ def main() -> int:
     # -- 3. each emitted kernel against its plain version -------------------
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = check_emitted(served, gen)
+    shapes = {arch: (SERVE["max_batch"], SERVE["max_len"], 1)
+              for arch in served}
+    shapes[pe_cfg.name] = (PATH_E["batch"], PATH_E["seq"], PATH_E["batch"])
+    rows = check_emitted({**served, **path_e_served}, gen, shapes)
     torch.cuda.empty_cache()   # the wide inputs' blocks, before the serves
     phase_s["3 emitted kernels"] = time.perf_counter() - t0
 
@@ -2637,6 +3117,9 @@ def main() -> int:
     phase_s["6 backward"] = time.perf_counter() - t0
     paths = run_paths(hand, phase_s)
     path_d = run_path_d(phase_s)
+    t0 = time.perf_counter()
+    path_e = path_e_in_child()
+    phase_s["7 path E"] = time.perf_counter() - t0
 
     # -- 8-10. the compile driver: measured autotune, fusion, calibration --
     t0 = time.perf_counter()
@@ -2663,6 +3146,8 @@ def main() -> int:
     for arch, rec in serving.items():
         for name, n in rec["launches"].items():
             rows[name]["launches"] = n
+    for name, n in path_e["launches"].items():
+        rows[name]["launches"] = n
     path_shapes = {p: s for p, (_, _, _, s) in paths.items()}
     path_shapes.update({p: r["launch_shapes"] for p, r in training.items()
                         if "launch_shapes" in r})
@@ -2688,7 +3173,8 @@ def main() -> int:
                                     for a, r in serving.items()}))
     print("paths: " + json.dumps({
         **{p: {**timing, "max_abs_diff_vs_plain": d}
-           for p, (_, timing, d, _) in paths.items()}, "D": path_d}))
+           for p, (_, timing, d, _) in paths.items()}, "D": path_d,
+        "E": {k: v for k, v in path_e.items() if k != "launches"}}))
     print("compile driver: " + json.dumps({
         "warm_serve": {k: v for k, v in warm.items() if k != "tokens"},
         "measured_autotune": tuned_res, "fusion": fusion_res,

@@ -89,7 +89,13 @@ def cut_depth(mc, n_layers: int):
     """``mc`` at ``n_layers`` layers with its layer mix kept: a model with
     MoE layers keeps at least one (its leading dense layers cut to
     ``n_layers - 1``, the split of the reference's ``reduced_config``), so
-    deepseek-v3 cut to 2 layers is 1 dense + 1 MoE layer."""
+    deepseek-v3 cut to 2 layers is 1 dense + 1 MoE layer; a hybrid keeps
+    whole periods of ``attn_period`` layers (jamba: 8, 16, ...), and any
+    other count raises."""
+    if mc.family == "hybrid" and (n_layers < mc.attn_period
+                                  or n_layers % mc.attn_period):
+        raise ValueError(f"{mc.name}: a hybrid's depth is whole periods of "
+                         f"{mc.attn_period} layers, not {n_layers}")
     over = {"n_layers": n_layers}
     if mc.n_experts and mc.n_dense_layers < mc.n_layers:
         over["n_dense_layers"] = min(mc.n_dense_layers, n_layers - 1)

@@ -25,8 +25,7 @@ from torch.utils.checkpoint import (checkpoint,
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"       # dense | moe | ssm | encdec | vlm (the
-                                 # families ported)
+    family: str = "dense"       # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -47,6 +46,12 @@ class ModelConfig:
     n_shared_experts: int = 0
     n_dense_layers: int = 0      # leading dense (SwiGLU) layers
     capacity_factor: float = 1.25
+    moe_period: int = 1          # apply MoE every k-th layer (jamba: 2)
+    expert_share: Optional[Tuple[int, int]] = None  # (first expert,
+                                 # count) whose weights this card holds:
+                                 # one chip of an expert-parallel layer,
+                                 # the router still over all n_experts
+                                 # (None: every expert)
     # --- MLA (deepseek) ---
     use_mla: bool = False
     q_lora_rank: int = 0
@@ -60,6 +65,8 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_conv: int = 4
     ssm_chunk: int = 256
+    attn_period: int = 0         # hybrid: every k-th layer is attention
+                                 # (jamba: 8 -> 1 attn : 7 mamba)
     # --- enc-dec (whisper) ---
     n_enc_layers: int = 0
     enc_seq: int = 1500
@@ -89,25 +96,47 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim
 
     @property
-    def mixer(self) -> str:
-        """Every layer's token mixer: ``"mamba"`` (the ``ssm`` family),
-        ``"mla"`` (``use_mla``) or ``"attn"`` (the reference's
-        ``plan_stages``, lm.py:48-63)."""
+    def held_experts(self) -> Tuple[int, int]:
+        """(first expert, count) of the experts whose weights this card
+        holds (``expert_share``; all ``n_experts`` when None)."""
+        return self.expert_share or (0, self.n_experts)
+
+    def is_attn_layer(self, i: int) -> bool:
+        if self.family not in ("ssm", "hybrid"):
+            return True
         if self.family == "ssm":
+            return False
+        # jamba: one attention layer per attn_period block (at index p//2)
+        return i % self.attn_period == (self.attn_period // 2)
+
+    def is_moe_layer(self, i: int) -> bool:
+        if self.n_experts == 0:
+            return False
+        return i >= self.n_dense_layers and (i % self.moe_period ==
+                                             self.moe_period - 1)
+
+    def mixer_of(self, i: int) -> str:
+        """Layer ``i``'s token mixer, as the reference's ``plan_stages``
+        (lm.py:48-72) lays it out: ``"mamba"`` (every layer of the ``ssm``
+        family, a hybrid's non-attention layers), ``"mla"`` (``use_mla``)
+        or ``"attn"``."""
+        if not self.is_attn_layer(i):
             return "mamba"
         return "mla" if self.use_mla else "attn"
 
-    def is_moe_layer(self, i: int) -> bool:
-        """Layer ``i``'s MLP is the MoE (the reference's ``moe_period`` is
-        1 for every ported config)."""
-        return self.n_experts > 0 and i >= self.n_dense_layers
+    def mlp_of(self, i: int) -> str:
+        """Layer ``i``'s MLP: ``"moe"``, ``"swiglu"``, or ``"none"`` (the
+        ``ssm`` family; a hybrid's Mamba layers have an MLP)."""
+        if self.family == "ssm":
+            return "none"
+        return "moe" if self.is_moe_layer(i) else "swiglu"
 
 
 def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family variant for CPU tests (the reference's
-    ``reduced_config`` for the fields this slice has)."""
+    ``reduced_config``; a hybrid keeps one whole period)."""
     small = dict(
-        n_layers=min(cfg.n_layers, 4),
+        n_layers=min(cfg.n_layers, cfg.attn_period or 4),
         d_model=128,
         n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads
@@ -291,14 +320,19 @@ def init_swiglu(pb: ParamBuilder, cfg: ModelConfig, d_ff: int,
 
 
 def init_moe(pb: ParamBuilder, cfg: ModelConfig):
-    """The router (scale 0.02), the experts' stacked SwiGLU weights
-    (``we_gate``/``we_up`` (E, d, f), ``we_down`` (E, f, d)) and the
-    shared experts' ``shared_*`` SwiGLU, as the reference's ``init_moe``
-    draws them (fan-in is the leading dim, as there)."""
-    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
-    p = {"router": pb.dense((d, e), scale=0.02),
-         "we_gate": pb.dense((e, d, f)), "we_up": pb.dense((e, d, f)),
-         "we_down": pb.dense((e, f, d))}
+    """The router over all ``n_experts`` (scale 0.02), the held experts'
+    stacked SwiGLU weights (``we_gate``/``we_up`` (E, d, f), ``we_down``
+    (E, f, d), E the count of ``cfg.held_experts``) and the shared
+    experts' ``shared_*`` SwiGLU, as the reference's ``init_moe`` draws
+    them: the stacks' fan-in is their leading dim there, the whole
+    layer's ``n_experts``, whatever share a card holds."""
+    d, f = cfg.d_model, cfg.moe_d_ff
+    e = cfg.held_experts[1]
+    scale = 1.0 / math.sqrt(cfg.n_experts)
+    p = {"router": pb.dense((d, cfg.n_experts), scale=0.02),
+         "we_gate": pb.dense((e, d, f), scale),
+         "we_up": pb.dense((e, d, f), scale),
+         "we_down": pb.dense((e, f, d), scale)}
     if cfg.n_shared_experts:
         p.update(init_swiglu(pb, cfg, f * cfg.n_shared_experts, "shared_"))
     return p
@@ -348,17 +382,18 @@ INIT_MIXER = {"attn": init_attention, "mla": init_mla, "mamba": init_mamba}
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     """Random LM weights from a seed (:class:`ParamBuilder`), with the
     reference's shapes and scales, in the layout ``models/lm.py``
-    describes: each layer's mixer by ``cfg.mixer``, then a SwiGLU MLP, or
-    the MoE where ``cfg.is_moe_layer``; a Mamba layer has no MLP (the
-    reference's lm.py:80-97)."""
+    describes: each layer's mixer by ``cfg.mixer_of``, then its MLP by
+    ``cfg.mlp_of`` (the reference's lm.py:80-97)."""
     pb = ParamBuilder(np.random.default_rng(seed), cfg.dtype, device)
     d = cfg.d_model
     params = {"embed": pb.dense((cfg.vocab, d), scale=0.02), "layers": []}
     for i in range(cfg.n_layers):
-        layer = {"ln1": pb.ones((d,)), "mixer": INIT_MIXER[cfg.mixer](pb, cfg)}
-        if cfg.mixer != "mamba":
+        layer = {"ln1": pb.ones((d,)),
+                 "mixer": INIT_MIXER[cfg.mixer_of(i)](pb, cfg)}
+        mlp = cfg.mlp_of(i)
+        if mlp != "none":
             layer["ln2"] = pb.ones((d,))
-            layer["mlp"] = (init_moe(pb, cfg) if cfg.is_moe_layer(i)
+            layer["mlp"] = (init_moe(pb, cfg) if mlp == "moe"
                             else init_swiglu(pb, cfg, cfg.d_ff))
         params["layers"].append(layer)
     params["ln_f"] = pb.ones((d,))

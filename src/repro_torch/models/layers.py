@@ -1,5 +1,6 @@
-"""Attention, MLA, RMSNorm+SwiGLU, MoE and Mamba2 layers of the torch
-port: the port of ``repro.models.layers`` (all but jamba's parts).
+"""Attention, MLA, RMSNorm+SwiGLU, MoE (and one chip's share of an
+expert-parallel MoE layer) and Mamba2 layers of the torch port: the port
+of ``repro.models.layers`` (all but ``_moe_apply_sharded``'s exchange).
 
 ``cfg.attn_impl`` / ``cfg.mlp_impl`` pick the implementation:
 
@@ -52,10 +53,58 @@ def _n_blocks(size: int, target: int = 128) -> int:
     return cnt
 
 
-def _pipeline_dims_blocks(sizes):
-    dims = {d: _n_blocks(s) for d, s in sizes.items()}
+#: the row blocks (``M``: attention's query rows, the SwiGLU's token rows)
+#: the ``cuda`` backend tries past 32 rows, widest first
+#: (:func:`_compile_blocked`)
+CUDA_ROW_BLOCKS = (128, 64, 32)
+
+
+def _pipeline_dims_blocks(sizes, row_target: int = 128):
+    dims = {d: _n_blocks(s, row_target if d == "M" else 128)
+            for d, s in sizes.items()}
     blocks = {d: sizes[d] // n for d, n in dims.items()}
     return dims, blocks
+
+
+def _lowers_whole(g, dims, options, device) -> bool:
+    """Whether ``g`` lowers on its requested rung with every planned group
+    one kernel: a compile that may neither demote nor open a breaker, its
+    warnings kept quiet."""
+    import warnings
+    from repro_torch import pipeline as PL
+    from repro_torch import resilience as RZ
+    probe = RZ.ResiliencePolicy(max_rung=RZ.start_rung(options.backend,
+                                                       options.group),
+                                breaker_threshold=0)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            kern = PL.compile(g, dims, options=options.replace(
+                resilience=probe), device=device)
+    except RZ.LadderError:
+        return False
+    return not kern.lowering_report.degraded
+
+
+def _compile_blocked(g, sizes, options, device, stack=None):
+    """``pipeline.compile`` of ``g`` at ``sizes``, each dim in blocks of up
+    to 128 (the reference's), the ``stack`` dims (name: count) in blocks of
+    1.  The ``cuda`` emitter holds a block's row tiles in shared memory
+    (``codegen_cuda.SMEM_LIMIT``), which 128 rows overrun from
+    smollm-135m's widths up (its attention at 128 query rows 396,288 B,
+    jamba's SwiGLU gate/up 262,144 B): past 32 rows the row dim takes the
+    widest block of :data:`CUDA_ROW_BLOCKS` that lowers whole on its rung,
+    by the emitter's own count (:func:`_lowers_whole`)."""
+    from repro_torch import pipeline as PL
+    targets = ((128,) if options.backend != "cuda"
+               or sizes["M"] <= CUDA_ROW_BLOCKS[-1] else CUDA_ROW_BLOCKS)
+    for target in targets:
+        dims, blocks = _pipeline_dims_blocks(sizes, target)
+        for d, n in (stack or {}).items():
+            dims[d], blocks[d] = n, 1
+        opts = options.replace(blocks=blocks)
+        if target == targets[-1] or _lowers_whole(g, dims, opts, device):
+            return PL.compile(g, dims, options=opts, device=device)
 
 
 def _pipeline_options(src):
@@ -80,32 +129,25 @@ def attention_kernel(s: int, dh: int, sk: int, dv: int, group: int,
     a decode step at any cache position, scalar or ragged, reuses the
     same kernel.  ``device`` is where it will run: on ``"cuda"`` its
     compile never demotes to a plain version."""
-    from repro_torch import pipeline as PL
     from repro_torch.core import array_program as AP
-    dims, blocks = _pipeline_dims_blocks(
-        {"M": s, "D": dh, "N": sk, "L": dv})
     if group > 1:
         g = AP.gqa_attention_program(scale, causal=causal)
-        dims["H"] = group
-        blocks["H"] = 1  # the head-group dim is a stack axis
     elif causal:
         g = AP.causal_attention_program(scale)
     else:
         g = AP.attention_program(scale)
-    return PL.compile(g, dims, options=options.replace(blocks=blocks),
-                      device=device)
+    # the head-group dim is a stack axis
+    return _compile_blocked(g, {"M": s, "D": dh, "N": sk, "L": dv}, options,
+                            device, {"H": group} if group > 1 else None)
 
 
 @functools.lru_cache(maxsize=256)
 def swiglu_kernel(t: int, d: int, d_ff: int, eps: float, options,
                   device: str = "cuda"):
-    from repro_torch import pipeline as PL
     from repro_torch.core import array_program as AP
-    dims, blocks = _pipeline_dims_blocks(
-        {"M": t, "D": d, "K": d_ff, "N": d})
-    return PL.compile(
-        AP.rmsnorm_ffn_swiglu_program(float(d), eps=eps), dims,
-        options=options.replace(blocks=blocks), device=device)
+    return _compile_blocked(AP.rmsnorm_ffn_swiglu_program(float(d), eps=eps),
+                            {"M": t, "D": d, "K": d_ff, "N": d}, options,
+                            device)
 
 
 def _attention_pipeline(q, k, v, scale: float, cfg: ModelConfig, *,
@@ -423,8 +465,9 @@ def rmsnorm_swiglu_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# MoE (qwen3-moe): top-k routing with capacity, scatter dispatch into
-# per-expert buffers, the experts' SwiGLU as batched products
+# MoE (qwen3-moe, deepseek-v3, jamba): top-k routing with capacity,
+# scatter dispatch into per-expert buffers, the experts' SwiGLU as batched
+# products; on one chip of an expert-parallel layer, its experts' share
 # ---------------------------------------------------------------------------
 
 def _route(xn, p, cfg: ModelConfig):
@@ -440,7 +483,8 @@ def _shared_experts(p, xn):
 
 
 def moe_capacity(t: int, cfg: ModelConfig) -> int:
-    """Slots an expert has for ``t`` tokens."""
+    """Slots an expert has for ``t`` tokens (of all ``n_experts``, held
+    here or not)."""
     return int(min(t, max(1, math.ceil(t * cfg.top_k * cfg.capacity_factor
                                        / cfg.n_experts))))
 
@@ -461,21 +505,39 @@ def moe_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
     reference's unsharded ``moe_apply``.  Each expert takes at most
     :func:`moe_capacity` of the T = B S tokens (:func:`moe_dispatch`); a
     dropped assignment scatters zeros and gets weight 0.  Padding tokens
-    and free decode slots route like any other, as in the reference."""
+    and free decode slots route like any other, as in the reference.
+
+    ``cfg.held_experts`` = (first, count): the experts whose weights
+    ``p["we_*"]`` hold, as the reference's mesh gives a chip ``e_base``
+    and ``e_local`` (layers.py:566, 600).  The router, the capacity and
+    the drops are the whole layer's; the output is the part the held
+    experts give (plus the shared experts), what one chip of an
+    expert-parallel layer adds to the layer's sum before the exchange.
+    Holding every expert, this is the unsharded layer."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    base, count = cfg.held_experts
+    if p["we_gate"].shape[0] != count or not 0 <= base <= e - count:
+        raise ValueError(f"experts {base}..{base + count - 1} of {e}: the "
+                         f"weights hold {p['we_gate'].shape[0]}")
     t = b * s
     xn = rms_norm(x, gamma, cfg.norm_eps).reshape(t, d)
     top_w, top_ids = _route(xn, p, cfg)
     capacity = moe_capacity(t, cfg)
     keep, slot = moe_dispatch(top_ids, capacity, e)
+    if count < e:
+        # rows of the held experts' buffer; another chip's assignment
+        # points at row 0 and scatters zeros there, as a dropped one does
+        held = (top_ids >= base) & (top_ids < base + count)
+        keep = keep & held
+        slot = torch.where(held, slot - base * capacity, 0)
     slot = slot.reshape(-1)
     updates = xn.repeat_interleave(k, 0) * keep.reshape(-1, 1).to(xn.dtype)
-    buf = torch.zeros(e * capacity, d, dtype=xn.dtype, device=x.device)
+    buf = torch.zeros(count * capacity, d, dtype=xn.dtype, device=x.device)
     buf.index_add_(0, slot, updates)   # kept slots are distinct: exact
-    eb = buf.reshape(e, capacity, d)
+    eb = buf.reshape(count, capacity, d)
     h = R.swish(torch.bmm(eb, p["we_gate"])) * torch.bmm(eb, p["we_up"])
-    eo = torch.bmm(h, p["we_down"]).reshape(e * capacity, d)
+    eo = torch.bmm(h, p["we_down"]).reshape(count * capacity, d)
     routed = eo[slot].reshape(t, k, d)
     w = (top_w * keep).to(routed.dtype)
     out = torch.einsum("tkd,tk->td", routed, w)
@@ -677,18 +739,23 @@ def mamba_decode(p, x, gamma, cache, cfg: ModelConfig):
 def pipeline_kernels(cfg: ModelConfig, *, prefill_lens=(),
                      decode_batch: Optional[int] = None,
                      max_len: Optional[int] = None,
-                     device: str = "cuda") -> Dict[str, object]:
+                     device: str = "cuda",
+                     prefill_batch: int = 1) -> Dict[str, object]:
     """Compile (without running) the pipeline kernels a serving run on
     ``device`` (a device type) touches, by name: one attention and one
-    SwiGLU kernel per prefill length (``attention_prefill8``...), plus
-    the ragged decode pair (``attention_decode``, ``swiglu_decode``).
-    MLA never takes the attention pipeline (:func:`mla_apply`), a model
-    of MoE layers only has no SwiGLU kernel, and a Mamba2 model neither."""
+    SwiGLU kernel per prefill length (``attention_prefill8``...; the
+    SwiGLU over ``prefill_batch`` sequences of that length), plus the
+    ragged decode pair (``attention_decode``, ``swiglu_decode``).  Only
+    the mixers and MLPs some layer has are compiled: MLA never takes the
+    attention pipeline (:func:`mla_apply`), a model of MoE layers only has
+    no SwiGLU kernel, and a Mamba2 model neither; a hybrid has both."""
     opts = _pipeline_options(cfg)
     d, eps = cfg.d_model, float(cfg.norm_eps)
-    attn = cfg.attn_impl == "pipeline" and cfg.mixer == "attn"
-    mlp = (cfg.mlp_impl == "pipeline" and cfg.mixer != "mamba"
-           and not all(cfg.is_moe_layer(i) for i in range(cfg.n_layers)))
+    layers = range(cfg.n_layers)
+    attn = cfg.attn_impl == "pipeline" and any(
+        cfg.mixer_of(i) == "attn" for i in layers)
+    mlp = cfg.mlp_impl == "pipeline" and any(
+        cfg.mlp_of(i) == "swiglu" for i in layers)
     if attn:
         scale = 1.0 / cfg.d_head ** 0.5
         group = cfg.n_heads // cfg.n_kv_heads
@@ -699,8 +766,8 @@ def pipeline_kernels(cfg: ModelConfig, *, prefill_lens=(),
             out[f"attention_prefill{s}"] = attention_kernel(
                 s, dh, s, dh, group, True, scale, opts, device)
         if mlp:
-            out[f"swiglu_prefill{s}"] = swiglu_kernel(s, d, cfg.d_ff, eps,
-                                                      opts, device)
+            out[f"swiglu_prefill{s}"] = swiglu_kernel(
+                prefill_batch * s, d, cfg.d_ff, eps, opts, device)
     if decode_batch is not None:
         if attn:
             out["attention_decode"] = attention_kernel(

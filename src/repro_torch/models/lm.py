@@ -1,30 +1,40 @@
 """Decoder-only LM of the torch port (``family`` ``"dense"``, ``"moe"``,
-``"ssm"`` or ``"vlm"``): the port of ``repro.models.lm``.
+``"ssm"``, ``"hybrid"`` or ``"vlm"``): the port of ``repro.models.lm``.
 
 Parameters are a dict: ``embed`` (vocab, d), ``ln_f`` (d,), ``head``
 (d, vocab) when embeddings are untied, and ``layers``, one dict per layer
-with ``ln1`` and ``mixer``, the layer's token mixer by ``cfg.mixer``:
+with ``ln1`` and ``mixer``, layer ``i``'s token mixer by
+``cfg.mixer_of(i)``:
 
 * ``attn``: ``wq``/``wk``/``wv``/``wo``, plus ``bq``/``bk``/``bv`` with
   ``qkv_bias`` and ``q_norm``/``k_norm`` with ``qk_norm``;
 * ``mla`` (``use_mla``, deepseek-v3): ``wq_a``/``q_norm``/``wq_b`` (or
   ``wq``), ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``;
-* ``mamba`` (``family="ssm"``, mamba2): ``w_in``, ``conv_w``/``conv_b``,
-  ``A_log``, ``dt_bias``, ``D``, ``ssm_norm``, ``w_out``.
+* ``mamba`` (the ``ssm`` family, a hybrid's non-attention layers):
+  ``w_in``, ``conv_w``/``conv_b``, ``A_log``, ``dt_bias``, ``D``,
+  ``ssm_norm``, ``w_out``.
 
-An attention or MLA layer also has ``ln2`` and ``mlp``:
-``w_gate``/``w_up``/``w_down`` for a SwiGLU layer,
-``router``/``we_gate``/``we_up``/``we_down`` (and ``shared_*``) for an MoE
-layer.  As in the reference's ``plan_stages``, an MoE model has
-``n_dense_layers`` SwiGLU layers, then MoE layers
-(``ModelConfig.is_moe_layer``); a Mamba2 layer has no MLP.  The
-reference stacks each stage's layers on a leading axis and scans them;
-the port loops over the list.  The cache is a dict of tensors stacked on
-a leading layer axis, by mixer: ``{"k", "v"}`` (n_layers, batch, kv
-heads, max_len, d_head); ``{"ckv", "krope"}`` (n_layers, batch, max_len,
-kv_lora_rank | qk_rope_dim); ``{"h", "conv"}`` (n_layers, batch, heads,
-head_dim, state) in float32 and (n_layers, batch, ssm_conv - 1, d_inner
-+ 2 state).  :meth:`LM.decode_step` updates it in place.
+A layer with an MLP (``cfg.mlp_of(i)``: every layer but the ``ssm``
+family's) also has ``ln2`` and ``mlp``: ``w_gate``/``w_up``/``w_down``
+for a SwiGLU layer, ``router``/``we_gate``/``we_up``/``we_down`` (and
+``shared_*``) for an MoE layer, the expert stacks holding the experts of
+``cfg.held_experts``.  The layer plan is the reference's ``plan_stages``:
+an MoE model has ``n_dense_layers`` SwiGLU layers, then MoE layers; a
+hybrid (jamba) repeats a period of ``attn_period`` layers, attention at
+``period // 2`` and Mamba2 elsewhere, the MLP the MoE every
+``moe_period``-th layer.  The reference stacks each stage's super-layers
+on a leading axis and scans them; the port loops over the list of
+layers.
+
+The cache is one flat dict of tensors by name, each stacked over the
+layers of its mixer: ``{"k", "v"}`` (attention layers, batch, kv heads,
+max_len, d_head); ``{"ckv", "krope"}`` (MLA layers, batch, max_len,
+kv_lora_rank | qk_rope_dim); ``{"h", "conv"}`` (Mamba2 layers, batch,
+heads, head_dim, state) in float32 and (Mamba2 layers, batch, ssm_conv -
+1, d_inner + 2 state).  ``LM.slots[i]`` is layer ``i``'s index in its
+mixer's stack (a hybrid's one attention layer a period is slot ``s`` of
+``k``/``v``, its seven Mamba2 layers slots ``7 s`` to ``7 s + 6`` of
+``h``/``conv``).  :meth:`LM.decode_step` updates the cache in place.
 
 With ``attn_impl="cuda"`` and ``mlp_impl="cuda"`` the forward pass and
 prefill run the paper's hand-written kernels (``kernels/ops.py``), as the
@@ -52,14 +62,27 @@ from repro_torch.models.common import (ModelConfig, init_params, remat,
                                        rms_norm, softmax_xent)
 
 #: the families :class:`LM` runs
-FAMILIES = ("dense", "moe", "ssm", "vlm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+#: the cache tensors of each mixer
+CACHE_NAMES = {"attn": ("k", "v"), "mla": ("ckv", "krope"),
+               "mamba": ("h", "conv")}
 
 
 class LM:
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in FAMILIES:
             raise ValueError(f"family {cfg.family!r} is not ported yet")
+        if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_period:
+            raise ValueError(f"a hybrid holds whole periods: {cfg.n_layers} "
+                             f"layers, period {cfg.attn_period}")
         self.cfg = cfg
+        self.mixers = tuple(cfg.mixer_of(i) for i in range(cfg.n_layers))
+        seen: Dict[str, int] = {}
+        slots = []
+        for m in self.mixers:
+            slots.append(seen.get(m, 0))
+            seen[m] = slots[-1] + 1
+        self.slots = tuple(slots)
 
     # -- params ---------------------------------------------------------------
     def init_params(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
@@ -68,24 +91,35 @@ class LM:
 
     def from_jax_params(self, tree, device="cuda") -> Dict[str, Any]:
         """The port's parameters from the reference's ``LM.init_params``
-        tree (arrays converted to numpy; each ``stageN/sub0/...`` stacked
-        on a leading layer axis, the stages in layer order, reference
-        lm.py:166-186), whatever the layer's mixer and MLP hold."""
+        tree (arrays converted to numpy), or a gradient tree of the same
+        layout: layer ``s * P + j`` of a stage of ``P`` sub-layers is
+        ``stageN/sub{j}`` at index ``s`` of its leading axis (reference
+        lm.py:166-186), the stages in layer order.  The expert stacks are
+        cut to ``cfg.held_experts``."""
         dtype = self.cfg.dtype
+        base, count = self.cfg.held_experts
 
         def t(a):
             return torch.from_numpy(np.array(a, dtype=np.float32)).to(
                 device=device, dtype=dtype)
 
+        def sub(name, a, i):
+            a = a[i]
+            if name.startswith("we_"):
+                a = a[base:base + count]
+            return t(a)
+
         def layer(stack, i):
-            return {name: ({k: t(a[i]) for k, a in sub.items()}
-                           if isinstance(sub, dict) else t(sub[i]))
-                    for name, sub in stack.items()}
+            return {name: ({k: sub(k, a, i) for k, a in part.items()}
+                           if isinstance(part, dict) else t(part[i]))
+                    for name, part in stack.items()}
 
         layers = []
         for si in sorted(int(k[5:]) for k in tree if k.startswith("stage")):
-            stack = tree[f"stage{si}"]["sub0"]
-            layers += [layer(stack, i) for i in range(len(stack["ln1"]))]
+            stage = tree[f"stage{si}"]
+            subs = [stage[f"sub{j}"] for j in range(len(stage))]
+            layers += [layer(st, i) for i in range(len(subs[0]["ln1"]))
+                       for st in subs]
         if len(layers) != self.cfg.n_layers:
             raise ValueError(f"the tree holds {len(layers)} layers, the "
                              f"config {self.cfg.n_layers}")
@@ -109,18 +143,19 @@ class LM:
         return x @ head
 
     def _mlp(self, p, x, i):
-        """Layer ``i``'s MLP residual step (none in a Mamba2 layer)."""
-        if self.cfg.mixer == "mamba":
+        """Layer ``i``'s MLP residual step (none in an ``ssm`` layer)."""
+        if self.cfg.mlp_of(i) == "none":
             return x
         return x + L.mlp_apply(p["mlp"], x, p["ln2"], self.cfg, i)
 
     def _layer(self, p, x, i):
         """Layer ``i``: its mixer, then its MLP, each a residual step."""
         cfg = self.cfg
-        if cfg.mixer == "mamba":
+        if self.mixers[i] == "mamba":
             x = x + L.mamba_apply(p["mixer"], x, p["ln1"], cfg)
         else:
-            mix = L.mla_apply if cfg.mixer == "mla" else L.attention_apply
+            mix = (L.mla_apply if self.mixers[i] == "mla"
+                   else L.attention_apply)
             x = x + mix(p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps),
                         cfg, causal=True)
         return self._mlp(p, x, i)
@@ -142,79 +177,90 @@ class LM:
 
     # -- caches ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device="cuda"):
-        """Zeros of the cache layout of ``cfg.mixer`` (module docstring)."""
+        """Zeros of the cache layout (module docstring): each mixer's
+        tensors stacked over that mixer's layers."""
         cfg = self.cfg
-        if cfg.mixer == "mamba":
-            one = L.mamba_init_cache(cfg, batch, cfg.dtype, device)
-        elif cfg.mixer == "mla":
-            one = L.mla_init_cache(cfg, batch, max_len, cfg.dtype, device)
-        else:
-            one = L.attention_init_cache(cfg, batch, max_len, cfg.dtype,
-                                         device)
-        return {name: t.new_zeros((cfg.n_layers, *t.shape))
-                for name, t in one.items()}
+        out = {}
+        for m in dict.fromkeys(self.mixers):
+            if m == "mamba":
+                one = L.mamba_init_cache(cfg, batch, cfg.dtype, device)
+            elif m == "mla":
+                one = L.mla_init_cache(cfg, batch, max_len, cfg.dtype, device)
+            else:
+                one = L.attention_init_cache(cfg, batch, max_len, cfg.dtype,
+                                             device)
+            n = self.mixers.count(m)
+            out.update({name: t.new_zeros((n, *t.shape))
+                        for name, t in one.items()})
+        return out
 
     # -- prefill / decode -----------------------------------------------------
+    def _prefill_mixer(self, p, x, i, max_len: int):
+        """Layer ``i``'s mixer over the prompt ``x`` (B, S, d): its residual
+        increment and its cache entries, each sequence axis padded to
+        ``max_len``."""
+        cfg = self.cfg
+        b, s = x.shape[:2]
+        pad = (0, 0, 0, max_len - s)
+        pos = torch.arange(s, device=x.device)
+        if self.mixers[i] == "mamba":
+            return L.mamba_prefill(p["mixer"], x, p["ln1"], cfg)
+        xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if self.mixers[i] == "mla":
+            # the reference's lm.py:307-319: the layer, then the cache from
+            # the compressed projections of the same input
+            y = L.mla_apply(p["mixer"], xn, cfg)
+            ckv, krope = L.mla_kv_compressed(p["mixer"], xn, cfg, pos)
+            return y, {"ckv": F.pad(ckv, pad).to(cfg.dtype),
+                       "krope": F.pad(krope, pad).to(cfg.dtype)}
+        q, k, v = L.qkv(p["mixer"], xn, cfg,
+                        pos if cfg.rope_theta > 0 else None)
+        y = L._attend(q, k, v, cfg, causal=True)
+        y = y.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
+        return y @ p["mixer"]["wo"], {"k": F.pad(k, pad).to(cfg.dtype),
+                                      "v": F.pad(v, pad).to(cfg.dtype)}
+
     def prefill(self, params, tokens, max_len: Optional[int] = None,
                 vision_embeds=None):
         """Run the prompt (after a VLM's vision embeddings); returns logits
         and a cache filled to the prompt length, its sequence axis padded to
         ``max_len`` for later decode steps (a Mamba2 cache has no sequence
         axis)."""
-        cfg = self.cfg
         x = self._embed(params, tokens, vision_embeds)
-        b, s = x.shape[:2]
-        max_len = max_len or s
-        pad = (0, 0, 0, max_len - s)
-        pos = torch.arange(s, device=x.device)
-        caches = []
+        max_len = max_len or x.shape[1]
+        caches: Dict[str, list] = {}
         for i, p in enumerate(params["layers"]):
-            if cfg.mixer == "mamba":
-                y, cache = L.mamba_prefill(p["mixer"], x, p["ln1"], cfg)
-                x = x + y
-            elif cfg.mixer == "mla":
-                # the reference's lm.py:307-319: the layer, then the cache
-                # from the compressed projections of the same input
-                xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-                x = x + L.mla_apply(p["mixer"], xn, cfg)
-                ckv, krope = L.mla_kv_compressed(p["mixer"], xn, cfg, pos)
-                cache = {"ckv": F.pad(ckv, pad).to(cfg.dtype),
-                         "krope": F.pad(krope, pad).to(cfg.dtype)}
-            else:
-                xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-                q, k, v = L.qkv(p["mixer"], xn, cfg,
-                                pos if cfg.rope_theta > 0 else None)
-                y = L._attend(q, k, v, cfg, causal=True)
-                y = y.transpose(1, 2).reshape(b, s,
-                                              cfg.n_heads * cfg.d_head)
-                x = x + y @ p["mixer"]["wo"]
-                cache = {"k": F.pad(k, pad).to(cfg.dtype),
-                         "v": F.pad(v, pad).to(cfg.dtype)}
-            caches.append(cache)
-            x = self._mlp(p, x, i)
+            y, cache = self._prefill_mixer(p, x, i, max_len)
+            for name, t in cache.items():
+                caches.setdefault(name, []).append(t)
+            x = self._mlp(p, x + y, i)
         return self._logits(params, x), {
-            name: torch.stack([c[name] for c in caches])
-            for name in caches[0]}
+            name: torch.stack(ts) for name, ts in caches.items()}
+
+    def _decode_mixer(self, p, x, i, cache, pos):
+        """Layer ``i``'s mixer for one token ``x`` (B, 1, d): its residual
+        increment.  ``cache`` is the layer's own entry of each of its
+        mixer's tensors (``caches[name][slots[i]]``), updated in place."""
+        cfg = self.cfg
+        if self.mixers[i] == "mamba":
+            y, new = L.mamba_decode(p["mixer"], x, p["ln1"], cache, cfg)
+            for name, t in new.items():
+                cache[name].copy_(t)
+            return y
+        dec = L.mla_decode if self.mixers[i] == "mla" else L.attention_decode
+        return dec(p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps), cache,
+                   pos, cfg)[0]
 
     def decode_step(self, params, caches, tokens, pos):
         """tokens: (B, 1); pos: the filled cache length, a scalar or a
         (B,) vector (ragged continuous batching; a Mamba2 step takes no
         position).  Writes the new cache entries into ``caches`` in place
         and returns ``(logits, caches)``."""
-        cfg = self.cfg
         x = self._embed(params, tokens)
         for i, p in enumerate(params["layers"]):
-            cache = {name: t[i] for name, t in caches.items()}
-            if cfg.mixer == "mamba":
-                y, new = L.mamba_decode(p["mixer"], x, p["ln1"], cache, cfg)
-                for name, t in new.items():
-                    cache[name].copy_(t)
-            else:
-                dec = (L.mla_decode if cfg.mixer == "mla"
-                       else L.attention_decode)
-                y, _ = dec(p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                           cache, pos, cfg)
-            x = self._mlp(p, x + y, i)
+            cache = {name: caches[name][self.slots[i]]
+                     for name in CACHE_NAMES[self.mixers[i]]}
+            x = self._mlp(p, x + self._decode_mixer(p, x, i, cache, pos), i)
         return self._logits(params, x), caches
 
 

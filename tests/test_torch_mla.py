@@ -47,7 +47,8 @@ ARCH = "deepseek-v3-671b"
 FN_TOL = 1e-5
 TOL = 1e-4
 N_LAYERS = 2
-RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend")
+RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend",
+           "expert_share")
 #: parameters the reference initialises to ones, with their init
 TRIVIAL = {"q_norm": 1.0, "kv_norm": 1.0, "ln1": 1.0, "ln2": 1.0,
            "ln_f": 1.0}
@@ -65,7 +66,7 @@ def test_config_matches_reference(get):
         assert value == getattr(ref, name), (get, name)
     assert [port.is_moe_layer(i) for i in range(port.n_layers)] == [
         ref.is_moe_layer(i) for i in range(ref.n_layers)]
-    assert port.mixer == "mla"
+    assert {port.mixer_of(i) for i in range(port.n_layers)} == {"mla"}
 
 
 def _nontrivial(tree, seed):
@@ -327,7 +328,7 @@ def test_pipeline_kernels_skip_a_model_of_moe_layers_only(arch, mixer):
     all; qwen3-moe keeps its attention programs and has no SwiGLU."""
     mc = S.model_config(S.ServeConfig(arch=arch, reduced=True, n_layers=1,
                                       backend="torch", device="cpu"))
-    assert mc.mixer == mixer and mc.is_moe_layer(0)
+    assert mc.mixer_of(0) == mixer and mc.is_moe_layer(0)
     progs = TL.pipeline_kernels(mc, prefill_lens=(8,), decode_batch=2,
                                 max_len=16, device="cpu")
     assert sorted(progs) == ([] if mixer == "mla" else
@@ -351,14 +352,23 @@ def test_depth_cut_keeps_the_layer_mix(arch, n_layers, moe):
 def test_step_bound_counts_the_compressed_cache():
     """``profile_decode.step_cost`` reads the engine's own caches: MLA's
     rows are ``kv_lora_rank + qk_rope_dim`` values a layer, not
-    ``2 n_kv_heads d_head``."""
+    ``2 n_kv_heads d_head``; the untied embedding's unread rows are left
+    out, and the MoE layer's experts multiply only their capacity's
+    rows."""
     cfg = S.ServeConfig(arch=ARCH, reduced=True, n_layers=2,
                         backend="torch", device="cpu", max_batch=3,
                         max_len=48, prompt_buckets=(8, 16))
     engine = S.build_engine(cfg)
     mc = engine.cfg
+    assert not mc.tie_embeddings and mc.is_moe_layer(1)
     weights = sum(t.numel() for t in PD._tensors(engine.params))
-    step_bytes, step_flops = PD.step_cost(engine, prompt_len=10)
+    read = weights - (mc.vocab - 3) * mc.d_model
+    experts = sum(t.numel() for k, t in engine.params["layers"][1][
+        "mlp"].items() if k.startswith("we_"))
+    step_bytes, step_flops = PD.step_cost(
+        mc, engine.params, engine.caches, engine.max_batch, 10,
+        engine.max_len)
     rows = mc.n_layers * 3 * 11 * (mc.kv_lora_rank + mc.qk_rope_dim)
-    assert step_bytes == 4 * (weights + rows + 3 * mc.vocab)
-    assert step_flops == 2 * 3 * weights
+    assert step_bytes == 4 * (read + rows + 3 * mc.vocab)
+    assert step_flops == 2 * (3 * (read - experts)
+                              + TL.moe_capacity(3, mc) * experts)

@@ -41,7 +41,8 @@ ARCH = "mamba2-2.7b"
 FN_TOL = 1e-5
 TOL = 1e-4
 N_LAYERS = 2
-RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend")
+RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend",
+           "expert_share")
 #: parameters the reference initialises to zeros or ones: their init and
 #: the spread of the seeded values set in their place
 TRIVIAL = {"conv_b": (0.0, 0.1), "A_log": (0.0, 0.5),
@@ -61,7 +62,7 @@ def test_config_matches_reference(get):
         assert value == getattr(ref, name), (get, name)
     assert (port.d_inner, port.n_ssm_heads) == (ref.d_inner,
                                                 ref.n_ssm_heads)
-    assert port.mixer == "mamba"
+    assert {port.mixer_of(i) for i in range(port.n_layers)} == {"mamba"}
 
 
 def _nontrivial(tree, seed):

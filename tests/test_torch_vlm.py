@@ -30,7 +30,8 @@ from repro_torch.models.lm import LM as TLM
 TOL = 1e-4
 ARCH = "internvl2-26b"
 N_LAYERS = 2
-RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend")
+RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend",
+           "expert_share")
 
 
 def test_config_matches_reference():

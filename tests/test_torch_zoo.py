@@ -36,7 +36,8 @@ from repro_torch.models.lm import LM as TLM
 TOL = 1e-4
 N_LAYERS = 2
 ARCHS = ["llama3.2-1b", "qwen2-7b", "qwen3-32b", "qwen3-moe-30b-a3b"]
-RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend")
+RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend",
+           "expert_share")
 #: parameters the reference initialises to zeros or ones
 TRIVIAL = ("bq", "bk", "bv", "q_norm", "k_norm", "ln1", "ln2", "ln_f")
 
