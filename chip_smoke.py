@@ -189,13 +189,37 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    earlier phases, and only the children take ``:4096:8``.  Each run's
    step time, tokens/s, bound and peak memory are printed beside the
    card;
-13. the serving records, the paths' times (path E's record among
+13. the multi-device runtime on the one card, in a child process (this
+   script with ``--mesh``, which runs it alone), whose NCCL process group
+   (a world of one; no fallback to gloo or the CPU) lives and dies with
+   it, on a (1, 1) ``data`` x ``model`` debug mesh: **13a** the
+   expert-parallel MoE layer (``moe_impl="shard_map"``) at
+   qwen3-moe-30b-a3b's published widths (``MESH_MOE``: 128 experts of d
+   2048 and d_ff 768, top-8, capacity factor 1.25, 4 x 512 tokens from
+   seed 0) against the dense ``moe_apply`` on the same weights: at world
+   size one they differ only by the bfloat16 rounding of the partials,
+   so each output element within ``BF16_ROUNDING`` (2^-8) of its
+   magnitude and the input gradient within it in relative L2, both
+   timed with CUDA events beside the expert weights' read bound; **13b**
+   ``distributed_decode_attention`` at jamba-1.5-large-398b's attention
+   widths over ``long_500k``'s 524,288 positions (K and V 2.15 GB each)
+   against ``attention_ref`` (``DECODE_TOL``) and on the reference test's
+   case (``DECODE_CASE_TOL``), timed beside its bytes bound; **13c**
+   ``compressed_psum_mean`` over smollm-135m's gradients, bit for bit
+   the int8 round trip and its residual; **13d** ``launch/train.py
+   --mesh debug`` against ``--mesh none`` (``MESH_TRAIN``: smollm-135m, 3
+   steps of 8 x 512 on the hand kernels), parameters equal bit for bit,
+   exact launches (counted as the paths ``13d none`` and ``13d debug``).
+   NCCL's seconds to its first all-reduce and each part's seconds are
+   printed;
+14. the serving records, the paths' times (path E's record among
    them), the compile driver's record,
-   the ``resilience`` and ``training`` records (with the card), each
+   the ``resilience``, ``training`` and ``multi-device`` records (with
+   the card), each
    phase's seconds, a ``kernels`` JSON line (the emitted kernels'
    launches on their serving path or path E, the hand kernels' launches
-   by path, phase 12's runs among them, and each case's launches by path
-   at its shape), the card line, and the result line.
+   by path, phase 12's and 13's runs among them, and each case's
+   launches by path at its shape), the card line, and the result line.
 """
 
 from __future__ import annotations
@@ -2984,6 +3008,313 @@ def train_phase(kernels, card, root, phase_s):
     return out
 
 
+#: phase 13, the multi-device runtime on a world of one over NCCL: (a) the
+#: expert-parallel MoE layer at qwen3-moe-30b-a3b's published widths (d
+#: 2048, 128 experts, top-8, moe_d_ff 768, capacity factor 1.25) on
+#: ``batch`` x ``seq`` tokens; (b) sequence-parallel decode attention at
+#: jamba-1.5-large-398b's attention widths (64 query heads over 8 KV
+#: heads of 128) and ``long_500k``'s cache; (d) ``launch/train.py
+#: --mesh debug`` against ``--mesh none`` on the hand kernels
+MESH_MOE = dict(arch="qwen3-moe-30b-a3b", batch=4, seq=512)
+MESH_DECODE = dict(arch="jamba-1.5-large-398b", shape="long_500k")
+MESH_TRAIN = dict(TRAIN_STEPS, steps=3)
+#: (a): a bfloat16 rounding, relative (8 significant bits)
+BF16_ROUNDING = 2.0 ** -8
+DECODE_TOL = 1e-4           # (b) against attention_ref on the valid prefix
+DECODE_CASE_TOL = 2e-5      # (b) the reference test's case, its tolerance
+
+
+def mesh_moe(mesh, gen):
+    """13a: ``moe_impl="shard_map"`` under the (1, 1) mesh against the
+    dense ``moe_apply`` on the same weights and input.  At world size one
+    the local capacity is the whole layer's, so the layers differ only by
+    the bfloat16 rounding of the partials before their sum: each output
+    element within ``BF16_ROUNDING`` of the dense one's magnitude (plus
+    1e-6 of the largest, for float32 order), the input gradient within
+    ``BF16_ROUNDING`` relative L2 (the cotangent of the expert path is
+    rounded to bfloat16, as the reference's is)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.common import ParamBuilder, init_moe
+    from repro_torch.runtime.sharding import use_mesh
+    cfg = dataclasses.replace(get_config(MESH_MOE["arch"]),
+                              dtype=torch.float32)
+    sharded = dataclasses.replace(cfg, moe_impl="shard_map")
+    p = init_moe(ParamBuilder(np.random.default_rng(0), torch.float32,
+                              "cuda"), cfg)
+    shape = (MESH_MOE["batch"], MESH_MOE["seq"], cfg.d_model)
+    x = torch.randn(shape, device="cuda", generator=gen)
+    gamma = 1 + 0.1 * torch.randn(cfg.d_model, device="cuda", generator=gen)
+    ct = torch.randn(shape, device="cuda", generator=gen)
+
+    def dense():
+        return L.moe_apply(p, x, gamma, cfg)
+
+    def ep():
+        with use_mesh(mesh):
+            return L.moe_apply(p, x, gamma, sharded)
+
+    def grad(fn):
+        xg = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            with use_mesh(mesh):
+                y = L.moe_apply(p, xg, gamma, cfg if fn is dense
+                                else sharded)
+            (y * ct).sum().backward()
+        return xg.grad
+
+    with torch.no_grad():
+        want, got = dense(), ep()
+    gap = (got - want).abs()
+    limit = BF16_ROUNDING * want.abs() + 1e-6 * want.abs().max()
+    if not bool(torch.isfinite(got).all()) or bool((gap > limit).any()):
+        fail(f"13a: the expert-parallel MoE layer lies {gap.max().item():.4g}"
+             f" from the dense one, past the bfloat16 rounding of its "
+             f"magnitude ({BF16_ROUNDING:.4g} relative)")
+    gx_d, gx_s = grad(dense), grad(ep)
+    g_rel = rel_l2(gx_s, gx_d)
+    if not g_rel <= BF16_ROUNDING:
+        fail(f"13a: the input gradient lies {g_rel:.4g} (relative L2) from "
+             f"the dense layer's, past {BF16_ROUNDING:.4g}")
+    weights = nbytes(p["we_gate"], p["we_up"], p["we_down"])
+    cap = L.moe_capacity(shape[0] * shape[1], cfg)
+    flops = 2.0 * 3 * cfg.n_experts * cap * cfg.d_model * cfg.moe_d_ff
+    with torch.no_grad():
+        ms = {"dense_ms": time_ms(dense, 10), "sharded_ms": time_ms(ep, 10)}
+    b_ms, b_by, fma_ms = bound(weights, flops)
+    rec = {"shape": list(shape), "experts": cfg.n_experts,
+           "top_k": cfg.top_k, "moe_d_ff": cfg.moe_d_ff, "capacity": cap,
+           "expert_weight_bytes": weights, **ms,
+           "bytes_bound_ms": weights / HBM_BYTES_PER_S * 1e3,
+           "bound_ms": b_ms, "bound_by": b_by, "fma_bound_ms": fma_ms,
+           "max_abs_diff": gap.max().item(),
+           "max_rel_diff": (gap / want.abs().clamp_min(1e-30)).max().item(),
+           "out_max_abs": want.abs().max().item(),
+           "grad_rel_l2": g_rel,
+           "grad_max_abs_diff": (gx_s - gx_d).abs().max().item()}
+    print(f"13a expert-parallel MoE ({MESH_MOE['arch']}, "
+          f"{shape[0]} x {shape[1]} tokens): " + json.dumps(rec), flush=True)
+    del p, x, ct, gx_d, gx_s
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_decode(mesh, gen):
+    """13b: ``distributed_decode_attention`` over the mesh's ``data`` axis
+    (one shard: the whole cache) at jamba's attention widths against
+    ``attention_ref`` on the valid prefix (``DECODE_TOL``), and on the
+    reference test's case (``DECODE_CASE_TOL``); timed beside its bytes
+    bound (K and V read once) and the plain oracle."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.runtime.collectives import distributed_decode_attention
+    small = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(shp, device="cuda", generator=small)
+               for shp in ((2, 4, 1, 32), (2, 2, 64, 32), (2, 2, 64, 32)))
+    got = distributed_decode_attention(q, k, v, 45, mesh)
+    want = attention_ref(q, k[:, :, :46], v[:, :, :46])
+    if not torch.allclose(got, want, rtol=DECODE_CASE_TOL,
+                          atol=DECODE_CASE_TOL):
+        fail("13b: the reference test's decode case misses "
+             f"{DECODE_CASE_TOL}: {(got - want).abs().max().item():.4g}")
+    cfg = get_config(MESH_DECODE["arch"])
+    s = SHAPES[MESH_DECODE["shape"]].seq_len
+    q = torch.randn(1, cfg.n_heads, 1, cfg.d_head, device="cuda",
+                    generator=gen)
+    k, v = (torch.randn(1, cfg.n_kv_heads, s, cfg.d_head, device="cuda",
+                        generator=gen) for _ in range(2))
+    pos = s - 1
+
+    def call():
+        return distributed_decode_attention(q, k, v, pos, mesh)
+
+    got, want = call(), attention_ref(q, k[:, :, :pos + 1],
+                                      v[:, :, :pos + 1])
+    err = (got - want).abs().max().item()
+    if not bool(torch.isfinite(got).all()) or not torch.allclose(
+            got, want, rtol=DECODE_TOL, atol=DECODE_TOL):
+        fail(f"13b: decode attention at {s} positions lies {err:.4g} from "
+             f"attention_ref, past {DECODE_TOL}")
+    byts = nbytes(q, k, v, got)
+    flops = 4.0 * cfg.n_heads * s * cfg.d_head
+    b_ms, b_by, _ = bound(byts, flops)
+    # where the time goes: the partial's two products alone, and SDPA on
+    # the same inputs as context
+    qf = q.reshape(1, cfg.n_kv_heads, -1, cfg.d_head)
+    probs = torch.softmax(torch.einsum("bhgd,bhkd->bhgk", qf, k), -1)
+    rec = {"q": list(q.shape), "kv": list(k.shape), "pos": pos,
+           "kv_bytes": nbytes(k, v), "max_abs_diff": err,
+           "ms": time_ms(call, 10),
+           "plain_ms": time_ms(lambda: attention_ref(q, k, v), 10),
+           "scores_ms": time_ms(lambda: torch.einsum(
+               "bhgd,bhkd->bhgk", qf, k), 10),
+           "pv_ms": time_ms(lambda: torch.einsum(
+               "bhgk,bhkd->bhgd", probs, v), 10),
+           "sdpa_ms": time_ms(lambda: torch.nn.functional.
+                              scaled_dot_product_attention(
+                                  q, k, v, enable_gqa=True), 10),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"13b decode attention ({MESH_DECODE['arch']} widths, "
+          f"{MESH_DECODE['shape']}): " + json.dumps(rec), flush=True)
+    del q, k, v, probs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_compressed(mesh):
+    """13c: ``compressed_psum_mean`` over smollm-135m's whole gradient
+    tree (full width, float32, plain impls, 2 x 128 tokens), two steps
+    (the second with the first's error feedback): at world size one each
+    synced leaf must equal the int8 round trip of gradient plus error bit
+    for bit, and each new error the residual."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.compression import (compressed_psum_mean,
+                                               dequantize_int8,
+                                               quantize_int8)
+    cfg = dataclasses.replace(get_config("smollm-135m"), dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init_params(seed=0, device="cuda")
+    data = SyntheticLMData(cfg.vocab, 128, 2, seed=0)
+    errors, leaves, grad_s, mean_s = None, 0, 0.0, 0.0
+    for step in range(2):
+        t0 = time.perf_counter()
+        _, grads = value_and_grad(model, params, data.batch(step, "cuda"))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        synced, new = compressed_psum_mean(grads, mesh, ("data",), errors)
+        torch.cuda.synchronize()
+        grad_s, mean_s = grad_s + t1 - t0, mean_s + time.perf_counter() - t1
+        flat_e = (pytree.tree_leaves(errors) if errors is not None
+                  else [torch.zeros_like(g) for g in
+                        pytree.tree_leaves(grads)])
+        for g, e, got, err in zip(pytree.tree_leaves(grads), flat_e,
+                                  pytree.tree_leaves(synced),
+                                  pytree.tree_leaves(new)):
+            corrected = g + e
+            back = dequantize_int8(*quantize_int8(corrected))
+            if not (torch.equal(got, back)
+                    and torch.equal(err, corrected - back)):
+                fail(f"13c: step {step}: a synced leaf or its error is not "
+                     "the int8 round trip bit for bit")
+            leaves += 1
+        errors = new
+    n = sum(g.numel() for g in pytree.tree_leaves(grads))
+    rec = {"leaves_checked": leaves, "values": n, "bitwise": True,
+           "gradient_s": grad_s, "mean_s": mean_s}
+    print("13c compressed gradient mean (smollm-135m): " + json.dumps(rec),
+          flush=True)
+    del params, grads, synced, new, errors
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_train(kernels):
+    """13d: ``launch/train.py`` on the hand kernels, ``MESH_TRAIN``'s 3
+    steps with ``--mesh none`` and then ``--mesh debug`` (data parallel
+    over the world of one): every parameter equal bit for bit, each run
+    with exact launches (twice a layer a step)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.launch import train as TT
+    per_step = {k: 2 * n for k, n in forward_launches(
+        train_model_config(MESH_TRAIN["arch"])).items()}
+    runs = {}
+    for kind in ("none", "debug"):
+        t0 = time.perf_counter()
+        res, counts, shapes = counted(kernels, lambda: TT.main(
+            train_argv(MESH_TRAIN) + ["--mesh", kind], dtype=torch.float32,
+            **HAND_IMPLS))
+        want = {k: MESH_TRAIN["steps"] * n for k, n in per_step.items()}
+        if counts != want:
+            fail(f"13d --mesh {kind}: launched {counts}, expected {want}")
+        runs[kind] = (res, counts, shapes, time.perf_counter() - t0)
+    a, b = (pytree.tree_leaves(runs[k][0]["params"])
+            for k in ("none", "debug"))
+    differ = sum(not torch.equal(x, y) for x, y in zip(a, b))
+    if differ or len(a) != len(b):
+        fail(f"13d: --mesh debug's parameters differ from --mesh none's "
+             f"in {differ} of {len(a)} leaves")
+    rec = {"steps": MESH_TRAIN["steps"], "leaves": len(a), "equal": True,
+           "losses": {k: r[0]["losses"] for k, r in runs.items()},
+           "run_s": {k: r[3] for k, r in runs.items()},
+           "launches": {f"13d {k}": r[1] for k, r in runs.items()},
+           "launch_shapes": {f"13d {k}": r[2] for k, r in runs.items()}}
+    print(f"13d train.py --mesh debug against --mesh none "
+          f"({MESH_TRAIN['arch']}, {MESH_TRAIN['steps']} steps, hand "
+          f"kernels): {len(a)} leaves equal bit for bit; "
+          + json.dumps({k: rec[k] for k in ("losses", "run_s")}), flush=True)
+    return rec
+
+
+def mesh_phase():
+    """Phase 13 in this (child) process: NCCL's process group over a world
+    of one and a (1, 1) debug mesh, then 13a-13d; the group is destroyed
+    at the end.  Any NCCL or collective error fails the phase: there is no
+    fallback to gloo or the CPU."""
+    # cuBLAS reads its workspace setting at its first use in the process:
+    # set it before any product, so that 13d's runs are deterministic
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    t0 = time.perf_counter()
+    M.init_distributed("cuda")
+    mesh = M.make_debug_mesh((1, 1))
+    one = torch.ones(1, device="cuda")
+    dist.all_reduce(one)                  # NCCL makes its communicator
+    torch.cuda.synchronize()
+    if dist.get_backend() != "nccl" or one.item() != 1.0:
+        fail(f"13: the process group runs {dist.get_backend()!r}, not NCCL")
+    rec = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "nccl_init_s": time.perf_counter() - t0}
+    print(f"13 NCCL: world {rec['world']}, mesh {rec['mesh']}, "
+          f"{rec['nccl_init_s']:.3f} s to the first all-reduce", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    steps = {}
+    for name, fn in (("a", lambda: mesh_moe(mesh, gen)),
+                     ("b", lambda: mesh_decode(mesh, gen)),
+                     ("c", lambda: mesh_compressed(mesh)),
+                     ("d", lambda: mesh_train(
+                         {n: m.KERNEL for n, m in hand_modules().items()}))):
+        t1 = time.perf_counter()
+        rec[name] = fn()
+        steps[name] = time.perf_counter() - t1
+    rec["seconds"] = steps
+    rec["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    dist.destroy_process_group()
+    return rec
+
+
+def mesh_in_child():
+    """Phase 13 in a process of its own (this script with ``--mesh``), so
+    that its NCCL group lives and dies with it, on this process's nvcc
+    build directory, where phase 2 built the hand kernels."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh"],
+        capture_output=True, text=True, timeout=900, cwd=ROOT)
+    lines = out.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if out.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        fail(f"phase 13 (child process, rc {out.returncode}): "
+             f"{out.stderr.strip()[-3000:]}")
+    rec = json.loads(lines[-1])
+    rec["process_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3012,6 +3343,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--path-e"]:       # path E's child
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps(run_path_e()))
+        return 0
+    if sys.argv[1:2] == ["--mesh"]:         # phase 13's child
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(mesh_phase()))
         return 0
     if sys.argv[1:2] == ["--resilience"]:   # a phase 11 child
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3143,6 +3478,11 @@ def main() -> int:
     training = train_phase(hand, card, cache_root, phase_s)
     phase_s["12 training"] = time.perf_counter() - t0
 
+    # -- 13. the multi-device runtime over NCCL ------------------------------
+    t0 = time.perf_counter()
+    mesh = mesh_in_child()
+    phase_s["13 multi-device"] = time.perf_counter() - t0
+
     for arch, rec in serving.items():
         for name, n in rec["launches"].items():
             rows[name]["launches"] = n
@@ -3151,12 +3491,15 @@ def main() -> int:
     path_shapes = {p: s for p, (_, _, _, s) in paths.items()}
     path_shapes.update({p: r["launch_shapes"] for p, r in training.items()
                         if "launch_shapes" in r})
+    path_shapes.update(mesh["d"]["launch_shapes"])
     for name, row in hand_rows.items():
         row["launches_by_path"] = {p: c[name] for p, (c, _, _, _) in
                                    paths.items()}
         row["launches_by_path"].update(
             {p: r["launches"][name] for p, r in training.items()
              if "launches" in r})
+        row["launches_by_path"].update(
+            {p: c[name] for p, c in mesh["d"]["launches"].items()})
         row["launches"] = sum(row["launches_by_path"].values())
         held = {case["key"] for case in row["cases"]}
         for case in row["cases"]:
@@ -3185,6 +3528,10 @@ def main() -> int:
                  if k not in ("tokens", "kernel_launches", "rungs")}
            for run, rec in res.items()}}))
     print("training: " + json.dumps({"card": card, **training}))
+    print("multi-device: " + json.dumps({
+        "card": card, **{k: v for k, v in mesh.items() if k != "d"},
+        "d": {k: v for k, v in mesh["d"].items()
+              if k not in ("launch_shapes",)}}))
     print("weights route: " + json.dumps({"card": card, **route}))
     print("phase seconds: " + json.dumps(phase_s))
     print(json.dumps({"kernels": list(rows.values())

@@ -9,9 +9,16 @@
   cannot reach the saved values), and written on a background thread,
   so that training goes on; ``wait()`` joins it (the next ``save`` and
   ``restore`` do) and re-raises its error;
-* **restore onto a device**: ``restore(step, device=...)`` loads each
-  tensor onto ``device`` (the port's stand-in for the reference's
-  ``shardings``; the card unless the caller asks for the CPU);
+* **resharding restore**: checkpoints hold global tensors;
+  ``restore(step, shardings=..., device=...)`` loads each onto ``device``
+  (the card unless the caller asks for the CPU) and, where ``shardings``
+  (a tree of ``runtime.sharding.NamedSharding``s, or None, laid out as
+  the state) gives one, lays it out as a DTensor on that sharding's mesh,
+  each rank keeping its own slice: a job comes back on another mesh than
+  it saved from;
+* **one writer under a mesh**: with ``mesh``, rank 0 alone writes (every
+  rank gathers a DTensor leaf, so ``save`` is called on every rank), and
+  every rank waits for the publish in ``wait()``;
 * **auto-resume**: ``latest_step()`` and the step-keyed data pipeline
   give a bitwise-identical replay after a failure;
 * **retention**: the last ``keep`` checkpoints.
@@ -30,24 +37,45 @@ import threading
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
+
+from repro_torch.runtime.sharding import distribute
 
 STATE_FILE = "state.pt"
 
 
 def _to_host(leaf):
     if isinstance(leaf, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         return leaf.detach().to("cpu", copy=True)
     return torch.as_tensor(leaf)
 
 
+def _place(tree, shardings):
+    """``tree`` with each leaf laid out by its sharding in ``shardings``
+    (a tree of the same layout, or None for a whole subtree)."""
+    if shardings is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place(v, s) for v, s in zip(tree, shardings))
+    return distribute(tree, shardings)
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, mesh=None):
         self.dir = directory
         self.keep = keep
+        self.mesh = mesh
+        self._writer = mesh is None or dist.get_rank() == 0
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False
 
     # -- discovery ------------------------------------------------------------
     def steps(self) -> List[int]:
@@ -69,6 +97,11 @@ class CheckpointManager:
              blocking: bool = False) -> None:
         self.wait()
         host_state = pytree.tree_map(_to_host, state)
+        self._pending = True
+        if not self._writer:
+            if blocking:
+                self.wait()
+            return
 
         def _write():
             try:
@@ -93,9 +126,14 @@ class CheckpointManager:
             self._thread.start()
 
     def wait(self) -> None:
+        """Join the save in flight; under a mesh every rank waits here
+        until rank 0 has published it."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending and self.mesh is not None:
+            dist.barrier()
+        self._pending = False
         if self._error:
             err, self._error = self._error, None
             raise err
@@ -106,13 +144,15 @@ class CheckpointManager:
                           ignore_errors=True)
 
     # -- restore --------------------------------------------------------------
-    def restore(self, step: Optional[int] = None,
-                device="cuda") -> Dict[str, Any]:
+    def restore(self, step: Optional[int] = None, shardings: Optional[Any]
+                = None, device="cuda") -> Dict[str, Any]:
         """The checkpoint of ``step`` (the latest if None), every leaf a
-        tensor of its saved dtype on ``device``."""
+        tensor of its saved dtype on ``device``, laid out by its sharding
+        where ``shardings`` gives one (reference manager.py:123-143)."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = os.path.join(self.dir, f"step_{step}", STATE_FILE)
-        return torch.load(path, map_location=device, weights_only=True)
+        state = torch.load(path, map_location=device, weights_only=True)
+        return _place(state, shardings)

@@ -12,7 +12,23 @@ On the card unless ``--device cpu``.  What it exercises:
   atomically;
 * an injected failure (``--fail-at N``: exit 42 after step N, once the
   checkpoint in flight is published) to drill the crash and the restart;
-* ``--n-layers``, the depth cut of ``launch/serve.py`` (full width kept).
+* ``--n-layers``, the depth cut of ``launch/serve.py`` (full width kept);
+* ``--mesh debug|single|multi``: data parallel over the mesh's batch axes
+  (``pod``, ``data``) of ``launch.mesh``'s debug mesh (every rank on
+  ``data``), the (16, 16) production mesh or the (2, 16, 16) one, which
+  raise on a world under 256 or 512 ranks.  Each rank trains on its
+  ``SyntheticLMData.host_slice``; parameters and optimizer state are
+  replicated; the loss and gradients are the whole batch's, each rank's
+  weighted by its tokens, so the optimizer's global-norm clip sees the
+  global gradient.  A resume restores each leaf onto its logical
+  sharding (``param_specs``, ``AdamW.state_specs``) and gathers it for
+  the replicated step.  Rank 0 alone logs and writes checkpoints.  The
+  ranks come from torchrun (NCCL on ``cuda``, gloo on ``cpu``) or from a
+  process group the caller opened; ``--mesh none`` is the one-process
+  run.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --reduced --device cpu --mesh debug --steps 20
 
 On a CUDA device it runs under :func:`deterministic`, so that a resumed
 run's parameters equal an uninterrupted run's bit for bit; the embedding's
@@ -21,9 +37,8 @@ there.
 
 ``main(argv, **cfg_overrides)`` replaces fields of the model configuration
 after the flags (e.g. ``attn_impl="cuda", mlp_impl="cuda", dtype=
-torch.float32`` to train on the hand-written kernels in float32); the
-reference's ``--mesh`` and its TPU compiler flags wait for the port's
-multi-device slice.
+torch.float32`` to train on the hand-written kernels in float32).  The
+reference's TPU compiler flags have no counterpart on the card.
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ import sys
 import time
 
 import torch
+from torch.utils import _pytree as pytree
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -57,6 +73,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="inject a crash after this step (fault drill)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "debug", "single", "multi"])
     return ap.parse_args(argv)
 
 
@@ -99,44 +117,99 @@ def main(argv=None, **cfg_overrides) -> dict:
     logged step's include the card's work, since its loss is read)."""
     args = parse_args(argv)
     device = torch.device(args.device)
-    with deterministic(device):
-        return _train(args, device, model_config(args, **cfg_overrides))
+    with deterministic(device), mesh_of(args.mesh, device) as mesh:
+        return _train(args, device, model_config(args, **cfg_overrides),
+                      mesh)
 
 
-def _train(args, device, cfg) -> dict:
+@contextlib.contextmanager
+def mesh_of(kind: str, device):
+    """The mesh ``--mesh`` names (None for ``none``), joining the process
+    group for ``device`` where none is open, and closing the group it
+    opened on exit."""
+    if kind == "none":
+        yield None
+        return
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    created = M.init_distributed(device)
+    try:
+        if kind == "debug":
+            yield M.make_debug_mesh((dist.get_world_size(), 1))
+        else:
+            yield M.make_production_mesh(multi_pod=kind == "multi")
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _gathered(tree):
+    from torch.distributed.tensor import DTensor
+    return pytree.tree_map(
+        lambda x: x.full_tensor() if isinstance(x, DTensor) else x, tree)
+
+
+def _train(args, device, cfg, mesh) -> dict:
+    import torch.distributed as dist
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data import SyntheticLMData
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.lm import build_model
     from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime.collectives import axis_index, batch_axes
+    from repro_torch.runtime.sharding import axis_size, tree_shardings
 
     model = build_model(cfg)
     optimizer = AdamW(lr=cosine_schedule(args.lr, 20, args.steps))
     data = SyntheticLMData(cfg.vocab, args.seq, args.batch, seed=args.seed)
+    lead = mesh is None or dist.get_rank() == 0
+    if mesh is None:
+        def batch(step):
+            return data.batch(step, device)
+    else:
+        index, count = (axis_index(mesh, batch_axes(mesh)),
+                        axis_size(mesh, batch_axes(mesh)))
+        if args.batch % count:
+            raise ValueError(f"batch {args.batch} does not split over "
+                             f"{count} data-parallel ranks")
+
+        def batch(step):
+            return data.host_slice(step, index, count, device)
     params = model.init_params(seed=args.seed, device=device)
     opt_state = optimizer.init(params)
     start_step = 0
 
-    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    mgr = (CheckpointManager(args.ckpt_dir, mesh=mesh) if args.ckpt_dir
+           else None)
     if mgr and args.resume == "auto" and mgr.latest_step() is not None:
-        state = mgr.restore(device=device)
-        params, opt_state = state["params"], state["opt"]
+        shardings = None
+        if mesh is not None:
+            specs = model.param_specs()
+            shardings = {"params": tree_shardings(specs, mesh),
+                         "opt": tree_shardings(
+                             optimizer.state_specs(specs), mesh),
+                         "step": None}
+        state = mgr.restore(shardings=shardings, device=device)
+        params, opt_state = _gathered(state["params"]), _gathered(
+            state["opt"])
         start_step = int(state["step"])
-        print(f"resumed from step {start_step}", flush=True)
+        if lead:
+            print(f"resumed from step {start_step}", flush=True)
 
-    train_step = make_train_step(model, optimizer)
+    train_step = make_train_step(model, optimizer, mesh)
     losses, step_s = [], []
     t0 = last = time.perf_counter()
     for step in range(start_step, args.steps):
         params, opt_state, metrics = train_step(params, opt_state,
-                                                data.batch(step, device))
+                                                batch(step))
         if step % args.log_every == 0 or step == args.steps - 1:
             loss = float(metrics["loss"])
             losses.append((step, loss))
             rate = (step - start_step + 1) / (time.perf_counter() - t0)
-            print(f"step {step:5d} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"({rate:.2f} it/s)", flush=True)
+            if lead:
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"({rate:.2f} it/s)", flush=True)
         now = time.perf_counter()
         step_s.append(now - last)
         last = now
@@ -146,7 +219,8 @@ def _train(args, device, cfg) -> dict:
         if args.fail_at >= 0 and step == args.fail_at:
             if mgr:
                 mgr.wait()
-            print("injected failure!", flush=True)
+            if lead:
+                print("injected failure!", flush=True)
             sys.exit(42)
     if mgr:
         mgr.save(args.steps, {"params": params, "opt": opt_state,

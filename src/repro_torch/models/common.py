@@ -86,6 +86,9 @@ class ModelConfig:
     remat_policy: str = "full"   # full | dots (dots: keep the outputs of
                                  # the matrix products; the hand kernels
                                  # are recomputed under either)
+    moe_impl: str = "dense"      # dense | shard_map (the expert-parallel
+                                 # layer under a mesh with data and model
+                                 # axes: layers._moe_apply_sharded)
 
     @property
     def d_inner(self) -> int:
@@ -258,7 +261,9 @@ def remat(fn: Callable, cfg: ModelConfig, *args):
 
 class ParamBuilder:
     """Seeded parameter init, laid out like the reference's
-    ``ParamBuilder`` trees (dense weights ~ N(0, 1/fan_in)).
+    ``ParamBuilder`` trees (dense weights ~ N(0, 1/fan_in)).  Each
+    creator takes the leaf's logical axes (``runtime.sharding``), as the
+    reference's do; :class:`SpecBuilder` returns them in its place.
 
     On the CPU numpy's ``rng`` draws every value.  On a CUDA device a
     ``torch.Generator`` on that device, seeded once from ``rng``, draws
@@ -266,7 +271,9 @@ class ParamBuilder:
     values in 15 s on the host, and one of deepseek-v3's expert stacks
     alone holds 3.8 x 10^9 (PERF.md).  So one seed gives one set of weights
     per device type; the tests that hold the port against the reference
-    load the reference's own weights (``LM.from_jax_params``)."""
+    load the reference's own weights (``LM.from_jax_params``).  On the
+    ``meta`` device nothing is drawn: each leaf has its shape and dtype
+    and no memory, as the reference's ``jax.eval_shape`` gives them."""
 
     def __init__(self, rng: np.random.Generator, dtype, device):
         self.rng, self.dtype = rng, dtype
@@ -280,43 +287,70 @@ class ParamBuilder:
         return torch.as_tensor(arr, dtype=torch.float32).to(
             device=self.device, dtype=self.dtype)
 
-    def dense(self, shape: Tuple[int, ...],
+    def dense(self, shape: Tuple[int, ...], axes=None,
               scale: Optional[float] = None) -> torch.Tensor:
         fan_in = shape[0] if len(shape) >= 2 else 1
         scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=self.dtype, device=self.device)
         if self._gen is not None:
             w = torch.empty(shape, dtype=torch.float32, device=self.device)
             return w.normal_(0.0, scale, generator=self._gen).to(self.dtype)
         w = self.rng.standard_normal(shape, dtype=np.float32) * scale
         return self._t(w)
 
-    def ones(self, shape: Tuple[int, ...]) -> torch.Tensor:
+    def ones(self, shape: Tuple[int, ...], axes=None) -> torch.Tensor:
         return torch.ones(shape, dtype=self.dtype, device=self.device)
 
-    def zeros(self, shape: Tuple[int, ...]) -> torch.Tensor:
+    def zeros(self, shape: Tuple[int, ...], axes=None) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+
+class SpecBuilder:
+    """Stands in for :class:`ParamBuilder`: each creator returns the
+    leaf's logical axes, so the init functions give the spec tree of the
+    parameters they lay out (the reference's ``ParamBuilder.specs``)."""
+
+    @staticmethod
+    def _axes(shape, axes) -> Tuple[Optional[str], ...]:
+        if axes is None or len(axes) != len(shape):
+            raise ValueError(f"a leaf of shape {shape} needs one logical "
+                             f"axis a dim, got {axes}")
+        return tuple(axes)
+
+    def dense(self, shape, axes=None, scale=None):
+        return self._axes(shape, axes)
+
+    def ones(self, shape, axes=None):
+        return self._axes(shape, axes)
+
+    def zeros(self, shape, axes=None):
+        return self._axes(shape, axes)
 
 
 def init_attention(pb: ParamBuilder, cfg: ModelConfig):
     """The q/k/v/o projections, with qwen2's q/k/v biases (zeros) and
     qwen3's per-head q/k RMSNorm gains (ones) where the config has them."""
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    p = {"wq": pb.dense((d, h * dh)), "wk": pb.dense((d, hkv * dh)),
-         "wv": pb.dense((d, hkv * dh)), "wo": pb.dense((h * dh, d))}
+    col, row = ("fsdp", "tensor"), ("tensor", "fsdp")
+    p = {"wq": pb.dense((d, h * dh), col), "wk": pb.dense((d, hkv * dh), col),
+         "wv": pb.dense((d, hkv * dh), col), "wo": pb.dense((h * dh, d), row)}
     if cfg.qkv_bias:
-        p.update(bq=pb.zeros((h * dh,)), bk=pb.zeros((hkv * dh,)),
-                 bv=pb.zeros((hkv * dh,)))
+        p.update(bq=pb.zeros((h * dh,), ("tensor",)),
+                 bk=pb.zeros((hkv * dh,), ("tensor",)),
+                 bv=pb.zeros((hkv * dh,), ("tensor",)))
     if cfg.qk_norm:
-        p.update(q_norm=pb.ones((dh,)), k_norm=pb.ones((dh,)))
+        p.update(q_norm=pb.ones((dh,), (None,)),
+                 k_norm=pb.ones((dh,), (None,)))
     return p
 
 
 def init_swiglu(pb: ParamBuilder, cfg: ModelConfig, d_ff: int,
                 prefix: str = ""):
     d = cfg.d_model
-    return {prefix + "w_gate": pb.dense((d, d_ff)),
-            prefix + "w_up": pb.dense((d, d_ff)),
-            prefix + "w_down": pb.dense((d_ff, d))}
+    return {prefix + "w_gate": pb.dense((d, d_ff), ("fsdp", "tensor")),
+            prefix + "w_up": pb.dense((d, d_ff), ("fsdp", "tensor")),
+            prefix + "w_down": pb.dense((d_ff, d), ("tensor", "fsdp"))}
 
 
 def init_moe(pb: ParamBuilder, cfg: ModelConfig):
@@ -329,10 +363,10 @@ def init_moe(pb: ParamBuilder, cfg: ModelConfig):
     d, f = cfg.d_model, cfg.moe_d_ff
     e = cfg.held_experts[1]
     scale = 1.0 / math.sqrt(cfg.n_experts)
-    p = {"router": pb.dense((d, cfg.n_experts), scale=0.02),
-         "we_gate": pb.dense((e, d, f), scale),
-         "we_up": pb.dense((e, d, f), scale),
-         "we_down": pb.dense((e, f, d), scale)}
+    p = {"router": pb.dense((d, cfg.n_experts), (None, None), scale=0.02),
+         "we_gate": pb.dense((e, d, f), ("expert", "fsdp", None), scale),
+         "we_up": pb.dense((e, d, f), ("expert", "fsdp", None), scale),
+         "we_down": pb.dense((e, f, d), ("expert", None, "fsdp"), scale)}
     if cfg.n_shared_experts:
         p.update(init_swiglu(pb, cfg, f * cfg.n_shared_experts, "shared_"))
     return p
@@ -349,15 +383,16 @@ def init_mla(pb: ParamBuilder, cfg: ModelConfig):
     qd = cfg.qk_nope_dim + cfg.qk_rope_dim
     r = cfg.kv_lora_rank
     if cfg.q_lora_rank:
-        p = {"wq_a": pb.dense((d, cfg.q_lora_rank)),
-             "q_norm": pb.ones((cfg.q_lora_rank,)),
-             "wq_b": pb.dense((cfg.q_lora_rank, h * qd))}
+        p = {"wq_a": pb.dense((d, cfg.q_lora_rank), ("fsdp", None)),
+             "q_norm": pb.ones((cfg.q_lora_rank,), (None,)),
+             "wq_b": pb.dense((cfg.q_lora_rank, h * qd), (None, "tensor"))}
     else:
-        p = {"wq": pb.dense((d, h * qd))}
-    p.update(wkv_a=pb.dense((d, r + cfg.qk_rope_dim)),
-             kv_norm=pb.ones((r,)),
-             wkv_b=pb.dense((r, h * (cfg.qk_nope_dim + cfg.v_head_dim))),
-             wo=pb.dense((h * cfg.v_head_dim, d)))
+        p = {"wq": pb.dense((d, h * qd), ("fsdp", "tensor"))}
+    p.update(wkv_a=pb.dense((d, r + cfg.qk_rope_dim), ("fsdp", None)),
+             kv_norm=pb.ones((r,), (None,)),
+             wkv_b=pb.dense((r, h * (cfg.qk_nope_dim + cfg.v_head_dim)),
+                            (None, "tensor")),
+             wo=pb.dense((h * cfg.v_head_dim, d), ("tensor", "fsdp")))
     return p
 
 
@@ -369,11 +404,15 @@ def init_mamba(pb: ParamBuilder, cfg: ModelConfig):
     ``w_out``."""
     d, di, n, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     conv_ch = di + 2 * n
-    return {"w_in": pb.dense((d, 2 * di + 2 * n + nh)),
-            "conv_w": pb.dense((cfg.ssm_conv, conv_ch), scale=0.5),
-            "conv_b": pb.zeros((conv_ch,)), "A_log": pb.zeros((nh,)),
-            "dt_bias": pb.zeros((nh,)), "D": pb.zeros((nh,)),
-            "ssm_norm": pb.ones((di,)), "w_out": pb.dense((di, d))}
+    ten = ("tensor",)
+    return {"w_in": pb.dense((d, 2 * di + 2 * n + nh), ("fsdp", "tensor")),
+            "conv_w": pb.dense((cfg.ssm_conv, conv_ch), (None, "tensor"),
+                               scale=0.5),
+            "conv_b": pb.zeros((conv_ch,), ten),
+            "A_log": pb.zeros((nh,), ten),
+            "dt_bias": pb.zeros((nh,), ten), "D": pb.zeros((nh,), ten),
+            "ssm_norm": pb.ones((di,), ten),
+            "w_out": pb.dense((di, d), ("tensor", "fsdp"))}
 
 
 INIT_MIXER = {"attn": init_attention, "mla": init_mla, "mamba": init_mamba}
@@ -384,19 +423,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     reference's shapes and scales, in the layout ``models/lm.py``
     describes: each layer's mixer by ``cfg.mixer_of``, then its MLP by
     ``cfg.mlp_of`` (the reference's lm.py:80-97)."""
-    pb = ParamBuilder(np.random.default_rng(seed), cfg.dtype, device)
+    return build_params(cfg, ParamBuilder(np.random.default_rng(seed),
+                                          cfg.dtype, device))
+
+
+def build_params(cfg: ModelConfig, pb):
+    """The LM's parameter tree from the builder ``pb``: tensors from a
+    :class:`ParamBuilder`, logical axes from a :class:`SpecBuilder`."""
     d = cfg.d_model
-    params = {"embed": pb.dense((cfg.vocab, d), scale=0.02), "layers": []}
+    params = {"embed": pb.dense((cfg.vocab, d), ("tensor", "fsdp"),
+                                scale=0.02),
+              "layers": []}
     for i in range(cfg.n_layers):
-        layer = {"ln1": pb.ones((d,)),
+        layer = {"ln1": pb.ones((d,), (None,)),
                  "mixer": INIT_MIXER[cfg.mixer_of(i)](pb, cfg)}
         mlp = cfg.mlp_of(i)
         if mlp != "none":
-            layer["ln2"] = pb.ones((d,))
+            layer["ln2"] = pb.ones((d,), (None,))
             layer["mlp"] = (init_moe(pb, cfg) if mlp == "moe"
                             else init_swiglu(pb, cfg, cfg.d_ff))
         params["layers"].append(layer)
-    params["ln_f"] = pb.ones((d,))
+    params["ln_f"] = pb.ones((d,), (None,))
     if not cfg.tie_embeddings:
-        params["head"] = pb.dense((d, cfg.vocab), scale=0.02)
+        params["head"] = pb.dense((d, cfg.vocab), ("fsdp", "tensor"),
+                                  scale=0.02)
     return params

@@ -32,20 +32,23 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
 from repro_torch.models.common import (ModelConfig, ParamBuilder,
-                                       init_attention, layer_norm, remat,
-                                       softmax_xent)
+                                       SpecBuilder, init_attention,
+                                       layer_norm, remat, softmax_xent)
 
 
 def _ln(pb: ParamBuilder, name: str, d: int) -> Dict[str, torch.Tensor]:
-    return {name + "_g": pb.ones((d,)), name + "_b": pb.zeros((d,))}
+    return {name + "_g": pb.ones((d,), (None,)),
+            name + "_b": pb.zeros((d,), (None,))}
 
 
 def _init_enc_layer(pb: ParamBuilder, cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
     return {**_ln(pb, "ln1", d), "attn": init_attention(pb, cfg),
             **_ln(pb, "ln2", d),
-            "fc1": pb.dense((d, f)), "fc1_b": pb.zeros((f,)),
-            "fc2": pb.dense((f, d)), "fc2_b": pb.zeros((d,))}
+            "fc1": pb.dense((d, f), ("fsdp", "tensor")),
+            "fc1_b": pb.zeros((f,), ("tensor",)),
+            "fc2": pb.dense((f, d), ("tensor", "fsdp")),
+            "fc2_b": pb.zeros((d,), (None,))}
 
 
 def _init_dec_layer(pb: ParamBuilder, cfg: ModelConfig):
@@ -118,10 +121,20 @@ class EncDec:
     # -- params ---------------------------------------------------------------
     def init_params(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
         """Random weights from a seeded numpy generator, with the
-        reference's shapes and scales."""
+        reference's shapes and scales (shapes alone on ``meta``)."""
+        return self._build(ParamBuilder(np.random.default_rng(seed),
+                                        self.cfg.dtype, device))
+
+    def param_specs(self) -> Dict[str, Any]:
+        """Each parameter's logical axes, in the parameters' layout: the
+        reference's spec tree, a layer's leaves without the stacked
+        layer axis."""
+        return self._build(SpecBuilder())
+
+    def _build(self, pb) -> Dict[str, Any]:
         cfg = self.cfg
-        pb = ParamBuilder(np.random.default_rng(seed), cfg.dtype, device)
-        params = {"embed": pb.dense((cfg.vocab, cfg.d_model), scale=0.02)}
+        params = {"embed": pb.dense((cfg.vocab, cfg.d_model),
+                                    ("tensor", "fsdp"), scale=0.02)}
         params["enc"] = [_init_enc_layer(pb, cfg)
                          for _ in range(cfg.n_enc_layers)]
         params["dec"] = [_init_dec_layer(pb, cfg)
@@ -206,6 +219,15 @@ class EncDec:
 
         return {"self": {"k": zeros(max_len), "v": zeros(max_len)},
                 "cross": {"k": zeros(cfg.enc_seq), "v": zeros(cfg.enc_seq)}}
+
+    def cache_specs(self):
+        """The cache's logical axes, in its layout (reference
+        encdec.py:193): the layer axis, then batch, heads, sequence."""
+        att = {"k": (None, "batch", "tensor", "kv_seq", None),
+               "v": (None, "batch", "tensor", "kv_seq", None)}
+        return {"self": att,
+                "cross": {n: (None, "batch", "tensor", None, None)
+                          for n in ("k", "v")}}
 
     def prefill(self, params, tokens, frames, max_len: Optional[int] = None):
         """Encode the frames and run the decoder prompt; returns logits and

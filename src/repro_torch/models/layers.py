@@ -1,6 +1,7 @@
 """Attention, MLA, RMSNorm+SwiGLU, MoE (and one chip's share of an
 expert-parallel MoE layer) and Mamba2 layers of the torch port: the port
-of ``repro.models.layers`` (all but ``_moe_apply_sharded``'s exchange).
+of ``repro.models.layers``, the expert-parallel ``_moe_apply_sharded``
+included.
 
 ``cfg.attn_impl`` / ``cfg.mlp_impl`` pick the implementation:
 
@@ -35,6 +36,8 @@ from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as R
 from repro_torch.models.common import (ModelConfig, apply_rope,
                                        compute_dtype, rms_norm)
+from repro_torch.runtime.collectives import axis_group, copy_to, sum_over
+from repro_torch.runtime.sharding import active_mesh, axis_names, axis_size
 
 
 # ---------------------------------------------------------------------------
@@ -500,6 +503,32 @@ def moe_dispatch(top_ids, capacity: int, n_experts: int):
     return pos < capacity, top_ids * capacity + pos.clamp(max=capacity - 1)
 
 
+def _held_experts_out(p, xn, top_w, top_ids, capacity: int, base: int,
+                      count: int, n_experts: int) -> torch.Tensor:
+    """The routed output (T, d) the experts ``base`` .. ``base + count -
+    1`` give, ``p["we_*"]`` holding their weights: each expert takes at
+    most ``capacity`` of the T tokens (:func:`moe_dispatch` over all
+    ``n_experts``); a dropped assignment, or one to an expert held
+    elsewhere, points at row 0, scatters zeros there and gets weight 0."""
+    t, d = xn.shape
+    k = top_ids.shape[1]
+    keep, slot = moe_dispatch(top_ids, capacity, n_experts)
+    if count < n_experts:
+        held = (top_ids >= base) & (top_ids < base + count)
+        keep = keep & held
+        slot = torch.where(held, slot - base * capacity, 0)
+    slot = slot.reshape(-1)
+    updates = xn.repeat_interleave(k, 0) * keep.reshape(-1, 1).to(xn.dtype)
+    buf = torch.zeros(count * capacity, d, dtype=xn.dtype, device=xn.device)
+    buf.index_add_(0, slot, updates)   # kept slots are distinct: exact
+    eb = buf.reshape(count, capacity, d)
+    h = R.swish(torch.bmm(eb, p["we_gate"])) * torch.bmm(eb, p["we_up"])
+    eo = torch.bmm(h, p["we_down"]).reshape(count * capacity, d)
+    routed = eo[slot].reshape(t, k, d)
+    w = (top_w * keep).to(routed.dtype)
+    return torch.einsum("tkd,tk->td", routed, w)
+
+
 def moe_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, d).  RMSNorm -> router -> top-k experts (+ shared): the
     reference's unsharded ``moe_apply``.  Each expert takes at most
@@ -513,9 +542,18 @@ def moe_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
     the drops are the whole layer's; the output is the part the held
     experts give (plus the shared experts), what one chip of an
     expert-parallel layer adds to the layer's sum before the exchange.
-    Holding every expert, this is the unsharded layer."""
+    Holding every expert, this is the unsharded layer.
+
+    With ``cfg.moe_impl == "shard_map"`` under an active mesh that has
+    ``data`` and ``model`` axes, the expert-parallel layer runs instead
+    (:func:`_moe_apply_sharded`), as in the reference (layers.py:472-476).
+    """
+    mesh = active_mesh()
+    if (cfg.moe_impl == "shard_map" and mesh is not None
+            and {"data", "model"} <= set(axis_names(mesh))):
+        return _moe_apply_sharded(p, x, gamma, cfg, mesh)
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
+    e = cfg.n_experts
     base, count = cfg.held_experts
     if p["we_gate"].shape[0] != count or not 0 <= base <= e - count:
         raise ValueError(f"experts {base}..{base + count - 1} of {e}: the "
@@ -523,26 +561,61 @@ def moe_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
     t = b * s
     xn = rms_norm(x, gamma, cfg.norm_eps).reshape(t, d)
     top_w, top_ids = _route(xn, p, cfg)
-    capacity = moe_capacity(t, cfg)
-    keep, slot = moe_dispatch(top_ids, capacity, e)
-    if count < e:
-        # rows of the held experts' buffer; another chip's assignment
-        # points at row 0 and scatters zeros there, as a dropped one does
-        held = (top_ids >= base) & (top_ids < base + count)
-        keep = keep & held
-        slot = torch.where(held, slot - base * capacity, 0)
-    slot = slot.reshape(-1)
-    updates = xn.repeat_interleave(k, 0) * keep.reshape(-1, 1).to(xn.dtype)
-    buf = torch.zeros(count * capacity, d, dtype=xn.dtype, device=x.device)
-    buf.index_add_(0, slot, updates)   # kept slots are distinct: exact
-    eb = buf.reshape(count, capacity, d)
-    h = R.swish(torch.bmm(eb, p["we_gate"])) * torch.bmm(eb, p["we_up"])
-    eo = torch.bmm(h, p["we_down"]).reshape(count * capacity, d)
-    routed = eo[slot].reshape(t, k, d)
-    w = (top_w * keep).to(routed.dtype)
-    out = torch.einsum("tkd,tk->td", routed, w)
+    out = _held_experts_out(p, xn, top_w, top_ids, moe_capacity(t, cfg),
+                            base, count, e)
     if cfg.n_shared_experts:
         out = out + _shared_experts(p, xn)
+    return out.reshape(b, s, d).to(x.dtype)
+
+
+def _moe_apply_sharded(p, x, gamma, cfg: ModelConfig, mesh
+                       ) -> torch.Tensor:
+    """The expert-parallel MoE layer on one rank of ``mesh`` (the
+    reference's ``_moe_apply_sharded``, layers.py:533-620).
+
+    ``x`` (B, S, d) is this rank's data shard of the tokens, the same on
+    every rank of its ``model`` group; ``p["we_*"]`` hold this rank's
+    ``e_local = n_experts / |model|`` experts, ``model`` index ``j``
+    holding ``j e_local`` on (an expert stack's ``fsdp`` axis is storage
+    only: the rank computes on the whole ``d``).
+
+      1. routing on the rank's tokens (float32 softmax, top-k);
+      2. dispatch with the capacity of a data shard, ``cap_local`` =
+         :func:`moe_capacity` of its T_local tokens, not the whole
+         layer's; the rank fills its own experts' rows only;
+      3. its experts' SwiGLU, then the combine of their rows, weighted by
+         ``top_w`` in ``xn``'s dtype;
+      4. the partials summed over the ``model`` group in bfloat16, as the
+         reference's ``psum(out.astype(bfloat16), "model")``; then the
+         shared experts.
+
+    The tokens need no exchange: the ``model`` group holds the same
+    shard.  The sum is :func:`~repro_torch.runtime.collectives.sum_over`
+    and the experts' inputs pass :func:`~repro_torch.runtime.collectives.
+    copy_to`, so the gradients of ``x`` and of the router are whole on
+    every rank of the group; each weight's gradient is its data shard's
+    part, to be summed over ``data`` as any data-parallel gradient is."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    t = b * s
+    e_local = e // axis_size(mesh, "model")
+    base = mesh.get_local_rank("model") * e_local
+    if p["we_gate"].shape[0] != e_local:
+        raise ValueError(f"this model rank holds {e_local} experts from "
+                         f"{base}; the weights hold "
+                         f"{p['we_gate'].shape[0]}")
+    if cfg.expert_share not in (None, (base, e_local)):
+        raise ValueError(f"expert_share {cfg.expert_share} is not the "
+                         f"mesh's ({base}, {e_local})")
+    xn = rms_norm(x, gamma, cfg.norm_eps).reshape(t, d)
+    top_w, top_ids = _route(xn, p, cfg)
+    group = axis_group(mesh, "model")
+    out = _held_experts_out(p, copy_to(xn, group),
+                            copy_to(top_w.to(xn.dtype), group), top_ids,
+                            moe_capacity(t, cfg), base, e_local, e)
+    out = sum_over(out.to(torch.bfloat16), group)
+    if cfg.n_shared_experts:
+        out = out.to(xn.dtype) + _shared_experts(p, xn)
     return out.reshape(b, s, d).to(x.dtype)
 
 

@@ -58,7 +58,8 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.encdec import EncDec
-from repro_torch.models.common import (ModelConfig, init_params, remat,
+from repro_torch.models.common import (ModelConfig, SpecBuilder,
+                                       build_params, init_params, remat,
                                        rms_norm, softmax_xent)
 
 #: the families :class:`LM` runs
@@ -66,6 +67,14 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 #: the cache tensors of each mixer
 CACHE_NAMES = {"attn": ("k", "v"), "mla": ("ckv", "krope"),
                "mamba": ("h", "conv")}
+#: the logical axes of each cache tensor past its stacked layer axis
+#: (reference layers.py:239, 360, 764)
+CACHE_AXES = {"k": ("batch", "tensor", "kv_seq", None),
+              "v": ("batch", "tensor", "kv_seq", None),
+              "ckv": ("batch", "kv_seq", None),
+              "krope": ("batch", "kv_seq", None),
+              "h": ("batch", "tensor", None, None),
+              "conv": ("batch", None, "tensor")}
 
 
 class LM:
@@ -86,8 +95,16 @@ class LM:
 
     # -- params ---------------------------------------------------------------
     def init_params(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
-        """Random weights from a seed (``models.common.init_params``)."""
+        """Random weights from a seed (``models.common.init_params``);
+        shapes alone on the ``meta`` device."""
         return init_params(self.cfg, seed, device)
+
+    def param_specs(self) -> Dict[str, Any]:
+        """Each parameter's logical axes (``runtime.sharding``), in the
+        parameters' layout: the reference's spec tree laid out as
+        :meth:`from_jax_params` lays out its arrays, a layer's leaves
+        without the stacked layer axis."""
+        return build_params(self.cfg, SpecBuilder())
 
     def from_jax_params(self, tree, device="cuda") -> Dict[str, Any]:
         """The port's parameters from the reference's ``LM.init_params``
@@ -193,6 +210,13 @@ class LM:
             out.update({name: t.new_zeros((n, *t.shape))
                         for name, t in one.items()})
         return out
+
+    def cache_specs(self) -> Dict[str, tuple]:
+        """The cache's logical axes by name (reference lm.py:236): the
+        stacked layer axis (replicated), then the mixer's own."""
+        return {name: (None,) + CACHE_AXES[name]
+                for m in dict.fromkeys(self.mixers)
+                for name in CACHE_NAMES[m]}
 
     # -- prefill / decode -----------------------------------------------------
     def _prefill_mixer(self, p, x, i, max_len: int):

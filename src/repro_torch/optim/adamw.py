@@ -62,8 +62,10 @@ class AdamW:
                 "step": torch.zeros((), dtype=torch.int32, device=device)}
 
     def state_specs(self, param_specs) -> Dict[str, Any]:
-        """The state's layout beside the parameters' (the reference's
-        sharding specs; the port's stand-in for a mesh is one device)."""
+        """The state's logical axes from the parameters' (``param_specs``):
+        each moment laid out as its parameter, the step replicated; on a
+        mesh, ``runtime.sharding.tree_shardings`` of it gives the state's
+        shardings, as the reference's does."""
         return {"m": param_specs, "v": param_specs, "step": ()}
 
     @torch.no_grad()
