@@ -212,10 +212,26 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    exact launches (counted as the paths ``13d none`` and ``13d debug``).
    NCCL's seconds to its first all-reduce and each part's seconds are
    printed;
-14. the serving records, the paths' times (path E's record among
+14. the step analysis, the dry-run and the examples, in a process of
+   its own (this script with ``--analysis``, which also runs it
+   alone): **14a**
+   ``runtime.op_analysis.analyze_step`` of a smollm-135m train step (8 x
+   512, all 30 layers) and a llama3.2-1b decode step (batch 4 over
+   ``decode_32k``'s 32,768 positions), bfloat16 on the plain impls,
+   counted on ``meta`` and on the card: FLOPs, bytes, argument and
+   output bytes must be equal, and each step (CUDA events, median of
+   ``ANALYSIS_REPEATS`` after a warmup) no faster than its bound; the
+   analysis's arguments + temporaries printed beside the allocator's
+   peak; **14b** the dry-run CLI (``launch/dryrun.py``, a child each) on
+   ``DRYRUN_CELLS`` on both production meshes under the ``fake``
+   backend, every cell ``ok``, its per-rank FLOPs, bytes, collective
+   bytes by kind, bottleneck and ``fits_80g_hbm`` printed; **14c** the
+   four ``examples/torch_*.py`` on the
+   card, each a process (the trained loss must fall);
+15. the serving records, the paths' times (path E's record among
    them), the compile driver's record,
-   the ``resilience``, ``training`` and ``multi-device`` records (with
-   the card), each
+   the ``resilience``, ``training``, ``multi-device`` and ``analysis``
+   records (with the card), each
    phase's seconds, a ``kernels`` JSON line (the emitted kernels'
    launches on their serving path or path E, the hand kernels' launches
    by path, phase 12's and 13's runs among them, and each case's
@@ -3314,6 +3330,227 @@ def mesh_in_child():
     rec["process_s"] = time.perf_counter() - t0
     return rec
 
+# -- phase 14: the step analysis, the dry-run and the examples --------------
+
+#: (a)'s cells at world 1 on the card, plain impls in bfloat16: (label,
+#: arch, batch, sequence (a decode cell's cache positions), kind)
+ANALYSIS_CELLS = (("smollm-135m train 8x512", "smollm-135m", 8, 512,
+                   "train"),
+                  ("llama3.2-1b decode 4x32768", "llama3.2-1b", 4, 32768,
+                   "decode"))
+ANALYSIS_IMPLS = dict(attn_impl="chunked", mlp_impl="fused_ref")
+ANALYSIS_REPEATS = 5
+#: (b)'s dry-run cells, each on both meshes, in a child of its own
+DRYRUN_CELLS = (("qwen3-moe-30b-a3b", "train_4k"),
+                ("qwen2-7b", "decode_32k"))
+#: (c)'s examples and their arguments
+EXAMPLES = (("torch_quickstart.py", []),
+            ("torch_fusion_megakernels.py", []),
+            ("torch_serve_lm.py", ["--arch", "smollm-135m"]),
+            ("torch_train_lm.py", ["--full", "--steps", "40"]))
+
+
+def analysis_inputs(model, args, gen, pos=None):
+    """``make_step``'s ``meta`` arguments as tensors on the card: seeded
+    weights, token ids, zeros elsewhere (the optimizer's state, a
+    cache), and a decode step's ``pos``."""
+    import torch
+    from torch.utils import _pytree as pytree
+    params = model.init_params(seed=0, device="cuda")
+
+    def fill(t):
+        if t.dtype in (torch.int32, torch.int64) and t.dim() == 2:
+            return torch.randint(0, model.cfg.vocab, t.shape, generator=gen,
+                                 device="cuda", dtype=t.dtype)
+        return torch.zeros(t.shape, dtype=t.dtype, device="cuda")
+    rest = pytree.tree_map(fill, args[1:])
+    if pos is not None:
+        rest[-1]["pos"] = torch.tensor(pos, dtype=torch.int32,
+                                       device="cuda")
+    return (params, *rest)
+
+
+def analysis_cell(label, arch, batch, seq, kind, gen):
+    """(a) one cell: the op analysis of the step on ``meta`` and on the
+    card's tensors (FLOPs and bytes equal, exactly), the step timed (CUDA
+    events, median of ``ANALYSIS_REPEATS`` after a warmup) against its
+    bound, and the analysis's memory against the allocator's peak."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.steps import make_step
+    from repro_torch.runtime.op_analysis import analyze_step
+    cfg = dc.replace(get_config(arch), **ANALYSIS_IMPLS)
+    step, args, _ = make_step(cfg, ShapeSpec(label, seq, batch, kind))
+    meta = analyze_step(step, args)
+    from repro_torch.models.lm import build_model
+    real = analysis_inputs(build_model(cfg), args, gen,
+                           seq - 768 if kind == "decode" else None)
+    step(*real)                                   # warmup
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    card = analyze_step(step, real)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("flops", "hbm_bytes"):
+        a, b = getattr(meta.roofline, name), getattr(card.roofline, name)
+        if a != b or not a > 0:
+            fail(f"14a {label}: {name} on meta {a} against {b} on the card")
+    for name in ("argument_size_in_bytes", "output_size_in_bytes"):
+        if getattr(meta, name) != getattr(card, name):
+            fail(f"14a {label}: {name} on meta {getattr(meta, name)} "
+                 f"against {getattr(card, name)} on the card")
+    times = []
+    for _ in range(ANALYSIS_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(*real)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    roof = card.roofline
+    bound_ms = roof.t_bound * 1e3
+    if ms < bound_ms:
+        fail(f"14a {label}: the step took {ms:.4f} ms, under its bound "
+             f"{bound_ms:.4f} ms: the count misses work")
+    rec = {"flops": roof.flops, "hbm_bytes": roof.hbm_bytes,
+           "t_compute_ms": roof.t_compute * 1e3,
+           "t_memory_ms": roof.t_memory * 1e3, "bound_ms": bound_ms,
+           "bottleneck": roof.bottleneck, "ms": ms, "ms_all": times,
+           "ratio": ms / bound_ms, "n_ops": card.n_ops,
+           **card.memory(),
+           "meta_temp_size_in_bytes": meta.temp_size_in_bytes,
+           "analysis_peak_bytes": card.argument_size_in_bytes
+           + card.temp_size_in_bytes,
+           "allocator_peak_bytes": peak, "allocated_before_bytes": base}
+    print(f"14a {label}: {roof.flops:.6e} FLOPs, {roof.hbm_bytes:.6e} B "
+          f"(meta = card), bound {bound_ms:.4f} ms ({roof.bottleneck}), "
+          f"step {ms:.4f} ms = {rec['ratio']:.3f} x bound; arguments + "
+          f"temp {rec['analysis_peak_bytes'] / 1e9:.3f} GB, allocator "
+          f"peak {peak / 1e9:.3f} GB", flush=True)
+    return rec
+
+
+def _child_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
+def analysis_phase():
+    """Phase 14 in this (child) process: (b)'s dry-run children and (c)'s
+    examples start first, each a process of its own, then (a) runs here;
+    every child must exit 0, every dry-run cell be ``ok`` and the trained
+    loss fall."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (ROOT / "build").mkdir(exist_ok=True)
+    out_dir = Path(tempfile.mkdtemp(prefix="phase14-", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    procs = {}
+
+    def start(name, dest, argv):
+        # each child's output to files: nothing blocks on a full pipe
+        # while (a) runs here
+        log = out_dir / f"{len(procs)}"
+        with open(f"{log}.out", "w") as out, open(f"{log}.err", "w") as err:
+            procs[name] = (dest, log, subprocess.Popen(
+                argv, stdout=out, stderr=err, cwd=ROOT, env=_child_env()))
+
+    for arch, shape in DRYRUN_CELLS:
+        dest = out_dir / f"dryrun_{arch}_{shape}.json"
+        start(f"dryrun {arch} {shape}", dest,
+              [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", "both", "--out",
+               str(dest)])
+    for name, argv in EXAMPLES:
+        start(f"example {name}", None,
+              [sys.executable, str(ROOT / "examples" / name), *argv])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec = {"a": {}}
+    for cell in ANALYSIS_CELLS:
+        t1 = time.perf_counter()
+        rec["a"][cell[0]] = analysis_cell(*cell, gen)
+        rec["a"][cell[0]]["seconds"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    rec["a_s"] = time.perf_counter() - t0
+    rec["b"], rec["c"] = {}, {}
+    failures = []
+    for name, (dest, log, proc) in procs.items():
+        try:
+            proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            for _, _, p in procs.values():
+                p.kill()
+            fail(f"14 {name}: no exit within 600 s")
+        stdout = Path(f"{log}.out").read_text()
+        stderr = Path(f"{log}.err").read_text()
+        if proc.returncode != 0:
+            failures.append(f"14 {name} (rc {proc.returncode}): "
+                            f"{(stdout[-1500:] + stderr[-2000:]).strip()}")
+            if dest is None or not dest.exists():
+                continue
+        if dest is not None:
+            cells = json.loads(dest.read_text())
+            for c in cells:
+                if c["status"] != "ok":
+                    failures.append(f"14b {name}: {c}")
+                    continue
+                key = f"{c['arch']} {c['shape']} {c['mesh']}"
+                rec["b"][key] = {k: c[k] for k in (
+                    "n_chips", "compile_s", "flops_per_chip",
+                    "hbm_bytes_per_chip", "coll_bytes_per_chip",
+                    "t_compute_s", "t_memory_s", "t_collective_s",
+                    "bottleneck", "argument_size_in_bytes",
+                    "temp_size_in_bytes", "fits_80g_hbm")}
+                print(f"14b {key}: {c['flops_per_chip']:.6e} FLOPs/rank, "
+                      f"{c['hbm_bytes_per_chip']:.6e} HBM B/rank, "
+                      f"collectives {json.dumps(c['coll_bytes_per_chip'])}"
+                      f", bottleneck {c['bottleneck']}, fits_80g_hbm "
+                      f"{c['fits_80g_hbm']}", flush=True)
+        else:
+            lines = stdout.strip().splitlines()
+            rec["c"][name] = lines[-3:]
+            print(f"14c {name}: " + " | ".join(lines[-3:]), flush=True)
+            if name.endswith("torch_train_lm.py"):
+                loss = re.search(r"loss: ([\d.]+) -> ([\d.]+)", stdout)
+                if not loss or float(loss[2]) >= float(loss[1]):
+                    failures.append(f"14c {name}: the loss did not fall: "
+                                    f"{lines[-1:]}")
+                    continue
+                rec["c"]["train_loss"] = [float(loss[1]), float(loss[2])]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if failures:
+        fail("\n".join(failures))
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def analysis_in_child():
+    """Phase 14 in a process of its own (this script with
+    ``--analysis``), so that its cells' weights and caches, and its
+    children, end with it."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--analysis"],
+        capture_output=True, text=True, timeout=900, cwd=ROOT)
+    lines = out.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if out.returncode != 0 or not lines or not lines[-1].startswith("{"):
+        fail(f"phase 14 (child process, rc {out.returncode}): "
+             f"{out.stderr.strip()[-3000:]}")
+    rec = json.loads(lines[-1])
+    rec["process_s"] = time.perf_counter() - t0
+    return rec
+
 
 def main() -> int:
     import torch
@@ -3347,6 +3584,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--mesh"]:         # phase 13's child
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps(mesh_phase()))
+        return 0
+    if sys.argv[1:2] == ["--analysis"]:     # phase 14's child
+        print(json.dumps(analysis_phase()))
         return 0
     if sys.argv[1:2] == ["--resilience"]:   # a phase 11 child
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3483,6 +3723,11 @@ def main() -> int:
     mesh = mesh_in_child()
     phase_s["13 multi-device"] = time.perf_counter() - t0
 
+    # -- 14. the step analysis, the dry-run and the examples ----------------
+    t0 = time.perf_counter()
+    analysis = analysis_in_child()
+    phase_s["14 analysis"] = time.perf_counter() - t0
+
     for arch, rec in serving.items():
         for name, n in rec["launches"].items():
             rows[name]["launches"] = n
@@ -3532,6 +3777,7 @@ def main() -> int:
         "card": card, **{k: v for k, v in mesh.items() if k != "d"},
         "d": {k: v for k, v in mesh["d"].items()
               if k not in ("launch_shapes",)}}))
+    print("analysis: " + json.dumps({"card": card, **analysis}))
     print("weights route: " + json.dumps({"card": card, **route}))
     print("phase seconds: " + json.dumps(phase_s))
     print(json.dumps({"kernels": list(rows.values())

@@ -17,9 +17,11 @@ implementation, the backward is autograd of the plain oracle, recomputed
 
 The ``block_*`` arguments are the reference's TPU tile sizes.  They are
 accepted for signature parity and steer only ``impl="chunked"``
-(``block_kv``); the CUDA kernels choose their own tiles (PERF.md).  The
-reference's ``unroll`` and ``p_half`` knobs of its XLA scan are not
-ported: PyTorch runs eagerly and the port keeps float32 probabilities.
+(``block_kv``); the CUDA kernels choose their own tiles (PERF.md).
+``p_half`` steers ``impl="chunked"`` alone, as the reference's steers its
+``"xla"``.  The reference's ``unroll`` knob of its XLA scan is not
+ported: it exists because XLA's ``cost_analysis`` counts a scan body
+once, and PyTorch runs every chunk eagerly.
 """
 
 from __future__ import annotations
@@ -72,11 +74,14 @@ def _impl(impl: Optional[str], allowed) -> str:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None, causal: bool = False,
                     q_offset=0, impl: Optional[str] = None,
-                    block_q: int = 128, block_kv: int = 512) -> torch.Tensor:
+                    block_q: int = 128, block_kv: int = 512,
+                    p_half: bool = False) -> torch.Tensor:
     """Attention of q (B, Hq, Sq, Dh) over k, v (B, Hkv, Skv, Dh), GQA
     when Hq > Hkv.  ``q_offset`` places the queries for the causal mask:
     a static int for ``"cuda"`` (as for the reference's kernel); a scalar
-    or a ``(B,)`` tensor for ``"ref"``/``"chunked"``."""
+    or a ``(B,)`` tensor for ``"ref"``/``"chunked"``.  ``p_half``: the
+    chunked PV product takes the probabilities rounded to q's dtype
+    (reference kernels/ref.py:107-109)."""
     impl = _impl(impl, ("cuda", "ref", "chunked"))
     ref_fn = functools.partial(R.attention_ref, scale=scale, causal=causal,
                                q_offset=q_offset)
@@ -85,7 +90,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     elif impl == "chunked":
         fused = functools.partial(R.attention_chunked, scale=scale,
                                   causal=causal, q_offset=q_offset,
-                                  block_kv=block_kv)
+                                  block_kv=block_kv, p_half=p_half)
     else:
         fused = functools.partial(flash_attention_cuda, scale=scale,
                                   causal=causal, q_offset=q_offset)

@@ -51,11 +51,15 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       scale: Optional[float] = None, causal: bool = False,
-                      q_offset=0, k_start: int = 0, block_kv: int = 512):
+                      q_offset=0, k_start: int = 0, block_kv: int = 512,
+                      p_half: bool = False):
     """The online softmax of the paper's appendix over the keys ``k``, ``v``
     (positions ``k_start`` on), in chunks of ``block_kv`` keys: the carry
     ``(m, l, acc)``, each ``(B, Hkv, group, Sq, .)``, unnormalised.  No keys
-    give the exact-zero carry ``(NEG_INF, 0, 0)``."""
+    give the exact-zero carry ``(NEG_INF, 0, 0)``.  ``p_half``: the PV
+    product takes the probabilities rounded to q's dtype, the accumulator
+    float32 (the reference's ``attention_xla_flash(p_half=True)``,
+    kernels/ref.py:107-109: half-precision operands, float32 sums)."""
     b, hq, sq, dh = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
     group = hq // hkv
@@ -78,6 +82,8 @@ def attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
+        if p_half:
+            p = p.to(q.dtype).float()
         acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vc)
         m = m_new
     return m, l, acc
@@ -85,14 +91,17 @@ def attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       scale: Optional[float] = None, causal: bool = False,
-                      q_offset=0, block_kv: int = 512) -> torch.Tensor:
+                      q_offset=0, block_kv: int = 512,
+                      p_half: bool = False) -> torch.Tensor:
     """Flash-attention semantics in plain PyTorch (the reference's
     ``attention_xla_flash``): a loop over KV chunks of ``block_kv`` keys
     with the running-max carry of the paper's appendix, so memory stays
-    O(Sq * Dh + block_kv * Dh) per head."""
+    O(Sq * Dh + block_kv * Dh) per head.  ``p_half``: see
+    :func:`attention_partial`."""
     _, l, acc = attention_partial(q, k, v, scale=scale, causal=causal,
                                   q_offset=q_offset,
-                                  block_kv=min(block_kv, k.shape[2]))
+                                  block_kv=min(block_kv, k.shape[2]),
+                                  p_half=p_half)
     return (acc / l).reshape(*q.shape[:3], v.shape[-1]).to(q.dtype)
 
 

@@ -68,7 +68,7 @@ def _mesh_device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def _mesh(shape, axes, what: str):
+def _mesh(shape, axes, what: str, device_type: Optional[str] = None):
     from torch.distributed.device_mesh import DeviceMesh
     n = math.prod(shape)
     have = dist.get_world_size() if dist.is_initialized() else 1
@@ -80,16 +80,22 @@ def _mesh(shape, axes, what: str):
     if not dist.is_initialized():
         raise RuntimeError(f"the {what} needs a process group: join one "
                            "with init_distributed")
-    return DeviceMesh(_mesh_device_type(),
+    return DeviceMesh(device_type or _mesh_device_type(),
                       torch.arange(n).reshape(shape), mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None):
     """(16, 16) ``("data", "model")``, or (2, 16, 16) ``("pod", "data",
-    "model")`` with ``multi_pod``, over the first 256 or 512 ranks."""
+    "model")`` with ``multi_pod``, over the first 256 or 512 ranks.  The
+    mesh's device type is the process group's (``cuda`` over NCCL, else
+    ``cpu``) unless ``device_type`` names one: the dry-run asks for
+    ``cuda``, the card's layout, under the ``fake`` backend, where DTensor
+    then exchanges shards with an all-to-all as it does on the card (on a
+    ``cpu`` mesh it gathers and chunks instead)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh(shape, axes, "production mesh")
+    return _mesh(shape, axes, "production mesh", device_type)
 
 
 def make_debug_mesh(shape=(1, 1), axes=("data", "model")):

@@ -26,8 +26,9 @@ from torch.utils import _pytree as pytree
 from repro_torch.configs import ShapeSpec
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import AdamW, cosine_schedule
-from repro_torch.runtime.sharding import (NamedSharding, Spec, axis_size,
-                                          logical_to_spec, tree_shardings)
+from repro_torch.runtime.sharding import (NamedSharding, Spec, constrain,
+                                          fit_spec, logical_to_spec,
+                                          tree_shardings)
 
 
 def default_optimizer(total_steps: int = 10000) -> AdamW:
@@ -92,7 +93,10 @@ def make_serve_step(model):
     def serve_step(params, batch):
         logits, cache = model.decode_step(params, batch["cache"],
                                           batch["tokens"], batch["pos"])
-        return torch.argmax(logits[:, -1], dim=-1), cache
+        # under a mesh, each row's whole vocabulary on its rank (a
+        # vocabulary-sharded argmax splits rows it cannot, at batch 1)
+        last = constrain(logits[:, -1], "batch", None)
+        return torch.argmax(last, dim=-1), cache
     return serve_step
 
 
@@ -109,26 +113,7 @@ def sanitize_shardings(shardings, abstract, mesh):
     def fix(sh, ab):
         if sh is None or not hasattr(ab, "shape"):
             return sh
-        spec = list(sh.spec) + [None] * (len(ab.shape) - len(sh.spec))
-        new = []
-        for i, ax in enumerate(spec):
-            if ax is None:
-                new.append(None)
-                continue
-            axes = list(ax) if isinstance(ax, tuple) else [ax]
-            while axes:
-                if ab.shape[i] % axis_size(mesh, axes) == 0:
-                    break
-                axes.pop()
-            if not axes:
-                new.append(None)
-            elif len(axes) == 1:
-                new.append(axes[0])
-            else:
-                new.append(tuple(axes))
-        while new and new[-1] is None:
-            new.pop()
-        return NamedSharding(mesh, Spec(*new))
+        return NamedSharding(mesh, fit_spec(sh.spec, ab.shape, mesh))
 
     def walk(sh, ab):
         if isinstance(sh, dict):

@@ -89,6 +89,9 @@ class ModelConfig:
     moe_impl: str = "dense"      # dense | shard_map (the expert-parallel
                                  # layer under a mesh with data and model
                                  # axes: layers._moe_apply_sharded)
+    attn_p_half: bool = False    # attn_impl "chunked": the PV product takes
+                                 # the probabilities in the model dtype,
+                                 # float32 sums (reference common.py:89)
 
     @property
     def d_inner(self) -> int:
@@ -222,12 +225,35 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     logsumexp minus the gold logit (the reference's ``softmax_xent``,
     common.py:248).  The gold logit is gathered; ``onehot=True`` takes it
     by the reference's one-hot reduction instead, which it uses only to
-    keep vocabulary-sharded logits sharded."""
+    keep vocabulary-sharded logits sharded.  On DTensor logits under a
+    mesh the gold logit is a masked sum over each rank's vocabulary
+    slice."""
+    from repro_torch.runtime.sharding import (constrain, is_distributed,
+                                              replicate)
     lf = logits.to(compute_dtype(logits.dtype))
-    logz = torch.logsumexp(lf, dim=-1)
+    if is_distributed(lf):
+        # the logsumexp by its parts, so that a vocabulary-sharded row is
+        # reduced where it lies (a max and a sum over the ranks), not
+        # gathered
+        m = lf.detach().amax(-1, keepdim=True)
+        logz = (torch.log(torch.exp(lf - m).sum(-1, keepdim=True))
+                + m)[..., 0]
+    else:
+        logz = torch.logsumexp(lf, dim=-1)
     labels = labels.long()
     if onehot:
         gold = (lf * F.one_hot(labels, lf.shape[-1]).to(lf.dtype)).sum(-1)
+    elif is_distributed(lf):
+        # vocabulary-sharded logits: each rank sums its own slice of the
+        # vocabulary where it holds the label (Megatron's vocab-parallel
+        # cross entropy), then the ranks add
+        ids = constrain(replicate(torch.arange(lf.shape[-1],
+                                               device=lf.device), lf),
+                        "tensor")
+        gold = torch.where(ids == labels[..., None], lf, 0.0).sum(-1)
+        # laid out by rows, so that the mean's gradient reaches each
+        # rank's rows as they are split (not the whole batch)
+        return constrain(logz - gold, "batch", None).mean()
     else:
         gold = lf.gather(-1, labels[..., None])[..., 0]
     return (logz - gold).mean()

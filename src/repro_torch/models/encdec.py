@@ -34,6 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.common import (ModelConfig, ParamBuilder,
                                        SpecBuilder, init_attention,
                                        layer_norm, remat, softmax_xent)
+from repro_torch.runtime.sharding import constrain
 
 
 def _ln(pb: ParamBuilder, name: str, d: int) -> Dict[str, torch.Tensor]:
@@ -61,17 +62,19 @@ def _mlp(p, x, cfg: ModelConfig):
     (``jax.nn.gelu`` defaults to the tanh approximation)."""
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
+    fc1 = constrain(p["fc1"], None, "tensor")
     if cfg.mlp_impl == "unfused":
-        h = layer_norm(x2, p["ln2_g"], p["ln2_b"], cfg.norm_eps) @ p["fc1"]
+        h = layer_norm(x2, p["ln2_g"], p["ln2_b"], cfg.norm_eps) @ fc1
     elif cfg.mlp_impl in L.FUSED_MLP_IMPLS:
-        h = K.layernorm_matmul(x2, p["fc1"], p["ln2_g"], p["ln2_b"],
+        h = K.layernorm_matmul(x2, fc1, p["ln2_g"], p["ln2_b"],
                                eps=cfg.norm_eps,
                                impl=L.FUSED_MLP_IMPLS[cfg.mlp_impl])
     else:
         raise ValueError(f"mlp_impl {cfg.mlp_impl!r} is not ported for "
                          "the encoder-decoder")
     h = F.gelu(h + p["fc1_b"], approximate="tanh")
-    return (h @ p["fc2"] + p["fc2_b"]).reshape(b, s, d)
+    out = h @ constrain(p["fc2"], "tensor", None) + p["fc2_b"]
+    return constrain(out.reshape(b, s, d), "batch", None, None)
 
 
 def _attn_block(p, x, cfg: ModelConfig, ln: str, causal: bool, kv=None):
@@ -82,18 +85,24 @@ def _attn_block(p, x, cfg: ModelConfig, ln: str, causal: bool, kv=None):
     # cross attention: q from x, k/v given (the encoder memory)
     b, s, _ = xn.shape
     h, dh = cfg.n_heads, cfg.d_head
-    q = (xn @ p[name]["wq"]).reshape(b, s, h, dh).transpose(1, 2)
-    o = K.flash_attention(q, kv["k"], kv["v"], causal=False,
-                          impl=cfg.attn_impl)
-    return o.transpose(1, 2).reshape(b, s, h * dh) @ p[name]["wo"]
+    q = (xn @ constrain(p[name]["wq"], None, L._heads(h))).reshape(
+        b, s, h, dh).transpose(1, 2)
+    q = constrain(q, "batch", "tensor", None, None)
+    o = L._attend(q, kv["k"], kv["v"], cfg, causal=False)
+    return L.out_proj(o.transpose(1, 2).reshape(b, s, h * dh),
+                      p[name]["wo"], h)
 
 
 def _cross_kv(p, mem, cfg: ModelConfig):
     b, s, _ = mem.shape
     hkv, dh = cfg.n_kv_heads, cfg.d_head
-    k = (mem @ p["xattn"]["wk"]).reshape(b, s, hkv, dh).transpose(1, 2)
-    v = (mem @ p["xattn"]["wv"]).reshape(b, s, hkv, dh).transpose(1, 2)
-    return {"k": k, "v": v}
+    ka = L._heads(hkv)
+    k = (mem @ constrain(p["xattn"]["wk"], None, ka)).reshape(
+        b, s, hkv, dh).transpose(1, 2)
+    v = (mem @ constrain(p["xattn"]["wv"], None, ka)).reshape(
+        b, s, hkv, dh).transpose(1, 2)
+    return {"k": constrain(k, "batch", "tensor", None, None),
+            "v": constrain(v, "batch", "tensor", None, None)}
 
 
 def _sinusoid_at(pos, d: int, device=None) -> torch.Tensor:
@@ -167,13 +176,15 @@ class EncDec:
 
     # -- forward --------------------------------------------------------------
     def _embed(self, params, tokens, pos):
-        x = params["embed"][tokens].to(self.cfg.dtype)
-        return x + _sinusoid_at(pos, self.cfg.d_model, x.device).to(x.dtype)
+        x = L.embed(params["embed"], tokens).to(self.cfg.dtype)
+        x = x + _sinusoid_at(pos, self.cfg.d_model, x.device).to(x.dtype)
+        return constrain(x, "batch", None, None)
 
     def _logits(self, params, x):
         x = layer_norm(x, params["ln_f_g"], params["ln_f_b"],
                        self.cfg.norm_eps)
-        return x @ params["embed"].T
+        logits = x @ constrain(params["embed"], "tensor", None).T
+        return constrain(logits, "batch", None, "tensor")
 
     def _enc_layer(self, lp, x):
         x = x + _attn_block(lp, x, self.cfg, "ln1", causal=False)
@@ -190,6 +201,7 @@ class EncDec:
         cfg = self.cfg
         x = frames.to(cfg.dtype)
         x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(cfg.dtype)
+        x = constrain(x, "batch", None, None)
         for lp in params["enc"]:
             x = remat(self._enc_layer, cfg, lp, x)
         return layer_norm(x, params["ln_enc_f_g"], params["ln_enc_f_b"],
@@ -244,13 +256,13 @@ class EncDec:
             q, k, v = L.qkv(lp["attn"], xn, cfg, None)
             y = L._attend(q, k, v, cfg, causal=True)
             y = y.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
-            x = x + y @ lp["attn"]["wo"]
+            x = x + L.out_proj(y, lp["attn"]["wo"], cfg.n_heads)
             kv_cross = _cross_kv(lp, mem, cfg)
             x = x + _attn_block(lp, x, cfg, "ln_x", causal=False,
                                 kv=kv_cross)
             x = x + _mlp(lp, x, cfg)
-            caches["self"]["k"].append(F.pad(k, pad).to(cfg.dtype))
-            caches["self"]["v"].append(F.pad(v, pad).to(cfg.dtype))
+            caches["self"]["k"].append(L.pad_seq(k, pad).to(cfg.dtype))
+            caches["self"]["v"].append(L.pad_seq(v, pad).to(cfg.dtype))
             for n in ("k", "v"):
                 caches["cross"][n].append(kv_cross[n].to(cfg.dtype))
         caches = {c: {n: torch.stack(ts) for n, ts in d.items()}

@@ -20,6 +20,22 @@ The projections, ``wo``, the head and the MoE experts stay
 either (its unsharded ``moe_apply`` runs ``einsum`` outside any kernel).
 Nor are MLA's attention and Mamba2's SSD: the reference runs both as
 plain XLA whatever the impls say, and the port as plain torch.
+
+Under a mesh (``runtime.sharding.use_mesh``), on DTensors, the layers
+carry the reference's ``constrain`` sites; a weight stored
+``fsdp``-sharded is gathered over ``data`` where it is used.  The
+uneven-heads rule: the ``tensor`` axis splits a projection's heads only
+where it divides their count (:func:`_heads`), q's heads and the KV
+heads decided apart.  Where q's heads split and the KV heads do not, a
+one-token step gathers q's heads and attends replicated, as its cache
+is, and a longer step repeats each KV head over its group and splits the
+copy as q (:func:`_gqa_layout`); where q's heads do not split, the
+attention runs replicated over ``model``, its weights gathered there.
+The reference's GSPMD pads such heads to a multiple of the axis and
+splits them instead; DTensor cannot view a dim it splits unevenly.
+Attention, the SSD, the cache writes and the embedding run on each
+rank's own shard under DTensor's ``local_map``.  On plain tensors none
+of this changes a value.
 """
 
 from __future__ import annotations
@@ -36,8 +52,11 @@ from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as R
 from repro_torch.models.common import (ModelConfig, apply_rope,
                                        compute_dtype, rms_norm)
-from repro_torch.runtime.collectives import axis_group, copy_to, sum_over
-from repro_torch.runtime.sharding import active_mesh, axis_names, axis_size
+from repro_torch.runtime.collectives import (axis_group, axis_index,
+                                            copy_to, sum_over)
+from repro_torch.runtime.sharding import (active_mesh, axis_names, axis_size,
+                                          constrain, divides, is_distributed,
+                                          on_whole, placements)
 
 
 # ---------------------------------------------------------------------------
@@ -238,12 +257,65 @@ def _swiglu_pipeline(x2, wg, wu, wd, gamma, cfg: ModelConfig
 # GQA attention
 # ---------------------------------------------------------------------------
 
-def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset=0):
+def _heads(n: int) -> Optional[str]:
+    """The logical axis of a projection's ``n`` heads: ``"tensor"`` where
+    the active mesh's tensor axes divide ``n``, else None, the heads
+    replicated (the uneven-heads rule, module docstring)."""
+    return "tensor" if divides(n, "tensor") else None
+
+
+def _gqa_layout(q, k, v):
+    """q, k, v laid out for attention under a mesh where the tensor axes
+    split q's heads but not the KV heads (GQA): a one-query step gathers
+    q's heads and attends replicated, as its cache is; a longer one
+    repeats each KV head over its query group, as the reference's
+    ``attention_xla_flash`` does, and splits the copy as q (a local
+    slice, no collective).  Plain tensors pass as they are."""
+    hq, hkv = q.shape[1], k.shape[1]
+    if (not is_distributed(q) or hq == hkv or _heads(hkv)
+            or not _heads(hq)):
+        return q, k, v
+    if q.shape[2] == 1:
+        return constrain(q, "batch", None, None, None), k, v
+    g = hq // hkv
+    k, v = (constrain(t.repeat_interleave(g, 1), "batch", "tensor", None,
+                      None) for t in (k, v))
+    return q, k, v
+
+
+def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset=0,
+            p_half: bool = False):
+    """Attention by ``cfg.attn_impl``; ``p_half`` (``impl="chunked"``
+    only, the reference's ``attn_p_half``) feeds the PV product
+    probabilities rounded to q's dtype."""
     if cfg.attn_impl == "pipeline":
         return _attention_pipeline(q, k, v, 1.0 / cfg.d_head ** 0.5, cfg,
                                    causal=causal, q_offset=q_offset)
-    return K.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
-                             impl=cfg.attn_impl)
+    return on_local_heads(
+        lambda q, k, v, off: K.flash_attention(
+            q, k, v, causal=causal, q_offset=off, impl=cfg.attn_impl,
+            p_half=p_half), *_gqa_layout(q, k, v), q_offset)
+
+
+def on_local_heads(fn, q, k, v, q_offset=0):
+    """``fn(q, k, v, q_offset)``, attention over (b, heads, s, d) tensors.
+    Under a mesh, on DTensors, it runs on each rank's own (batch, heads)
+    shard under DTensor's ``local_map``, k and v laid out as q, as a
+    fused kernel runs per shard: its ops are plain tensor ops, counted at
+    the shard's shapes.  Plain tensors go straight to ``fn``."""
+    if not is_distributed(q):
+        return fn(q, k, v, q_offset)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+    q = constrain(q, "batch", "tensor", None, None)
+    pl = list(q.placements)
+    k, v = (t.redistribute(t.device_mesh, pl) for t in (k, v))
+    off_pl = (placements((), q.device_mesh)
+              if isinstance(q_offset, DTensor) else None)
+    out = local_map(fn, out_placements=pl, in_placements=(pl, pl, pl,
+                                                          off_pl),
+                    device_mesh=q.device_mesh)(q, k, v, q_offset)
+    return constrain(out, "batch", "tensor", None, None)
 
 
 def qkv(p, x, cfg: ModelConfig, positions):
@@ -252,9 +324,13 @@ def qkv(p, x, cfg: ModelConfig, positions):
     reference's ``_qkv`` order)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    qa, ka = _heads(h), _heads(hkv)
+    q = x @ constrain(p["wq"], None, qa)
+    k = x @ constrain(p["wk"], None, ka)
+    v = x @ constrain(p["wv"], None, ka)
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = (q + constrain(p["bq"], qa), k + constrain(p["bk"], ka),
+                   v + constrain(p["bv"], ka))
     q = q.reshape(b, s, h, dh).transpose(1, 2)
     k = k.reshape(b, s, hkv, dh).transpose(1, 2)
     v = v.reshape(b, s, hkv, dh).transpose(1, 2)
@@ -264,7 +340,17 @@ def qkv(p, x, cfg: ModelConfig, positions):
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return (constrain(q, "batch", "tensor", None, None),
+            constrain(k, "batch", "tensor", None, None),
+            constrain(v, "batch", "tensor", None, None))
+
+
+def out_proj(o, w, n_heads: int):
+    """``o @ w``, the heads' output projection, laid out as the residual
+    stream (``w`` gathered over ``fsdp``, and over ``tensor`` where the
+    heads are replicated)."""
+    return constrain(o @ constrain(w, _heads(n_heads), None), "batch", None,
+                     None)
 
 
 def attention_apply(p, x, cfg: ModelConfig, *, causal: bool = True,
@@ -273,9 +359,9 @@ def attention_apply(p, x, cfg: ModelConfig, *, causal: bool = True,
     if positions is None and cfg.rope_theta > 0:
         positions = torch.arange(s, device=x.device)
     q, k, v = qkv(p, x, cfg, positions)
-    o = _attend(q, k, v, cfg, causal=causal)
+    o = _attend(q, k, v, cfg, causal=causal, p_half=cfg.attn_p_half)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
-    return o @ p["wo"]
+    return out_proj(o, p["wo"], cfg.n_heads)
 
 
 def attention_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -283,6 +369,76 @@ def attention_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     shape = (batch, cfg.n_kv_heads, max_len, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def pad_seq(t, pad):
+    """``F.pad(t, pad)``; ``t`` as it is where ``pad`` adds nothing (the
+    dry-run's prefill fills its cache to the prompt's length, and DTensor
+    has no rule for the pad op in every version)."""
+    return F.pad(t, pad) if any(pad) else t
+
+
+def embed(table, tokens):
+    """The rows of ``table`` (vocab, d) at ``tokens``.  Under a mesh, on
+    DTensors, each rank looks its tokens up in its own slice of the
+    vocabulary (``local_map``; the table gathered over ``fsdp``): a token
+    outside the slice gives zeros, and the slices' results add over the
+    ``tensor`` axis (a pending sum the caller's ``constrain`` resolves),
+    Megatron's vocabulary-parallel embedding."""
+    if not is_distributed(tokens):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    table = constrain(table, "tensor", None)
+    mesh = table.device_mesh
+    split = [i for i, pl in enumerate(table.placements)
+             if isinstance(pl, Shard)]
+    out_pl = [Partial() if i in split else
+              (pl if isinstance(pl, Shard) else Replicate())
+              for i, pl in enumerate(tokens.placements)]
+
+    def lookup(t_l, tok_l):
+        if not split:
+            return t_l[tok_l]
+        rows = t_l.shape[0]
+        first = rows * axis_index(mesh, [mesh.mesh_dim_names[i]
+                                         for i in split])
+        ids = tok_l.long() - first
+        inside = (ids >= 0) & (ids < rows)
+        return t_l[ids.clamp(0, rows - 1)] * inside[..., None].to(t_l.dtype)
+
+    # the table's gradient: each rank's rows of its own tokens, to be
+    # summed over the ranks the tokens are split over
+    grad_pl = [Shard(0) if i in split else
+               (Partial() if isinstance(pl, Shard) else Replicate())
+               for i, pl in enumerate(tokens.placements)]
+    return local_map(lookup, out_placements=out_pl,
+                     in_placements=(list(table.placements),
+                                    list(tokens.placements)),
+                     in_grad_placements=(grad_pl, list(tokens.placements)),
+                     device_mesh=mesh)(table, tokens)
+
+
+def write_at(buf, dim: int, pos, val) -> None:
+    """Write ``val`` (size 1 along ``dim``) into the cache ``buf`` at the
+    scalar position ``pos``, in place (``index_copy_``: a tensor position,
+    no ``.item()``, as the reference's ``dynamic_update_slice``).  Under a
+    mesh, on DTensors, each rank writes its own shard (DTensor's
+    ``local_map``, ``val`` laid out as ``buf``): the write moves nothing
+    between ranks."""
+    at = pos.reshape(1)
+    if not is_distributed(buf):
+        buf.index_copy_(dim, at, val.to(buf.dtype))
+        return
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+    pl = list(buf.placements)
+    val = val.to(buf.dtype).redistribute(buf.device_mesh, pl)
+    at_pl = (placements((), buf.device_mesh) if isinstance(at, DTensor)
+             else None)
+    local_map(lambda b, a, v: b.index_copy_(dim, a, v), out_placements=pl,
+              in_placements=(pl, at_pl, pl), device_mesh=buf.device_mesh)(
+        buf, at, val)
 
 
 def attention_decode(p, x, cache, pos, cfg: ModelConfig):
@@ -316,11 +472,11 @@ def attention_decode(p, x, cache, pos, cfg: ModelConfig):
         ck[rows, :, pos] = k[:, :, 0].to(ck.dtype)
         cv[rows, :, pos] = v[:, :, 0].to(cv.dtype)
     else:
-        ck[:, :, pos] = k[:, :, 0].to(ck.dtype)
-        cv[:, :, pos] = v[:, :, 0].to(cv.dtype)
+        write_at(ck, 2, pos, k)
+        write_at(cv, 2, pos, v)
     o = _attend(q, ck, cv, cfg, causal=True, q_offset=pos)
     o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.d_head)
-    return o @ p["wo"], cache
+    return out_proj(o, p["wo"], cfg.n_heads), cache
 
 
 # ---------------------------------------------------------------------------
@@ -335,9 +491,10 @@ def mla_q(p, x, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     qd = cfg.qk_nope_dim + cfg.qk_rope_dim
     if cfg.q_lora_rank:
-        q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
+        q = rms_norm(x @ constrain(p["wq_a"], None, None), p["q_norm"],
+                     cfg.norm_eps) @ p["wq_b"]
     else:
-        q = x @ p["wq"]
+        q = x @ constrain(p["wq"], None, "tensor")
     q = q.reshape(b, s, cfg.n_heads, qd).transpose(1, 2)
     q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -347,7 +504,7 @@ def mla_kv_compressed(p, x, cfg: ModelConfig, positions):
     """The compressed KV latent (b, s, kv_lora_rank), RMS-normalised, and
     the RoPE key every head shares (b, s, qk_rope_dim): what MLA's cache
     holds (the reference's ``_mla_kv_compressed``)."""
-    ckv, k_rope = (x @ p["wkv_a"]).split(
+    ckv, k_rope = (x @ constrain(p["wkv_a"], None, None)).split(
         [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
     ckv = rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta)[:, 0]
@@ -376,12 +533,16 @@ def mla_apply(p, x, cfg: ModelConfig, *, causal: bool = True,
         b, s, h, cfg.qk_nope_dim + cfg.v_head_dim).transpose(1, 2)
     k_nope, v = kv.split([cfg.qk_nope_dim, cfg.v_head_dim], dim=-1)
     k_rope_h = k_rope[:, None].expand(b, h, s, cfg.qk_rope_dim)
-    q = torch.cat([q_nope, q_rope], -1)
-    k = torch.cat([k_nope, k_rope_h], -1)
+    q = constrain(torch.cat([q_nope, q_rope], -1), "batch", "tensor", None,
+                  None)
+    k = constrain(torch.cat([k_nope, k_rope_h], -1), "batch", "tensor", None,
+                  None)
     scale = 1.0 / (cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5
     impl = "ref" if cfg.attn_impl == "ref" else "chunked"
-    o = K.flash_attention(q, k, v, scale=scale, causal=causal, impl=impl)
-    return o.transpose(1, 2).reshape(b, s, h * cfg.v_head_dim) @ p["wo"]
+    o = on_local_heads(lambda q, k, v, _: K.flash_attention(
+        q, k, v, scale=scale, causal=causal, impl=impl), q, k, v)
+    return out_proj(o.transpose(1, 2).reshape(b, s, h * cfg.v_head_dim),
+                    p["wo"], h)
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -415,8 +576,8 @@ def mla_decode(p, x, cache, pos, cfg: ModelConfig):
         ckv[rows, pos] = ckv_t[:, 0].to(ckv.dtype)
         krope[rows, pos] = krope_t[:, 0].to(krope.dtype)
     else:
-        ckv[:, pos] = ckv_t[:, 0].to(ckv.dtype)
-        krope[:, pos] = krope_t[:, 0].to(krope.dtype)
+        write_at(ckv, 1, pos, ckv_t)
+        write_at(krope, 1, pos, krope_t)
     f32 = torch.float32
     wkv_b = p["wkv_b"].to(f32).reshape(r, h,
                                        cfg.qk_nope_dim + cfg.v_head_dim)
@@ -435,7 +596,7 @@ def mla_decode(p, x, cache, pos, cfg: ModelConfig):
     ctx = torch.einsum("bhqs,bsr->bhqr", pr, ckv_f)
     o = torch.einsum("bhqr,rhv->bhqv", ctx, w_uv)
     o = o.transpose(1, 2).reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)
-    return o @ p["wo"], cache
+    return out_proj(o, p["wo"], h), cache
 
 
 # ---------------------------------------------------------------------------
@@ -451,20 +612,27 @@ def rmsnorm_swiglu_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
     """O = (swish(RMS_g(x) @ Wg) * (RMS_g(x) @ Wu)) @ Wd."""
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
+    wg, wu, wd = swiglu_weights(p)
     if cfg.mlp_impl == "pipeline":
-        out = _swiglu_pipeline(x2, p["w_gate"], p["w_up"], p["w_down"],
-                               gamma, cfg)
+        out = _swiglu_pipeline(x2, wg, wu, wd, gamma, cfg)
     elif cfg.mlp_impl == "unfused":
         xn = rms_norm(x2, gamma, cfg.norm_eps)
-        gate = xn @ p["w_gate"]
-        out = (gate * torch.sigmoid(gate) * (xn @ p["w_up"])) @ p["w_down"]
+        gate = xn @ wg
+        out = (gate * torch.sigmoid(gate) * (xn @ wu)) @ wd
     elif cfg.mlp_impl in FUSED_MLP_IMPLS:
-        out = K.rmsnorm_swiglu(x2, p["w_gate"], p["w_up"], p["w_down"],
-                               gamma, eps=cfg.norm_eps,
+        out = K.rmsnorm_swiglu(x2, wg, wu, wd, gamma, eps=cfg.norm_eps,
                                impl=FUSED_MLP_IMPLS[cfg.mlp_impl])
     else:
         raise ValueError(f"mlp_impl {cfg.mlp_impl!r} is not ported")
-    return out.reshape(b, s, d)
+    return constrain(out.reshape(b, s, d), "batch", None, None)
+
+
+def swiglu_weights(p, prefix: str = ""):
+    """A SwiGLU's gate, up and down weights, gathered over ``fsdp`` where
+    they are used."""
+    return (constrain(p[prefix + "w_gate"], None, "tensor"),
+            constrain(p[prefix + "w_up"], None, "tensor"),
+            constrain(p[prefix + "w_down"], "tensor", None))
 
 
 # ---------------------------------------------------------------------------
@@ -481,8 +649,8 @@ def _route(xn, p, cfg: ModelConfig):
 
 
 def _shared_experts(p, xn):
-    return (R.swish(xn @ p["shared_w_gate"]) * (xn @ p["shared_w_up"])
-            ) @ p["shared_w_down"]
+    wg, wu, wd = swiglu_weights(p, "shared_")
+    return (R.swish(xn @ wg) * (xn @ wu)) @ wd
 
 
 def moe_capacity(t: int, cfg: ModelConfig) -> int:
@@ -512,19 +680,35 @@ def _held_experts_out(p, xn, top_w, top_ids, capacity: int, base: int,
     elsewhere, points at row 0, scatters zeros there and gets weight 0."""
     t, d = xn.shape
     k = top_ids.shape[1]
-    keep, slot = moe_dispatch(top_ids, capacity, n_experts)
-    if count < n_experts:
-        held = (top_ids >= base) & (top_ids < base + count)
-        keep = keep & held
-        slot = torch.where(held, slot - base * capacity, 0)
-    slot = slot.reshape(-1)
-    updates = xn.repeat_interleave(k, 0) * keep.reshape(-1, 1).to(xn.dtype)
-    buf = torch.zeros(count * capacity, d, dtype=xn.dtype, device=xn.device)
-    buf.index_add_(0, slot, updates)   # kept slots are distinct: exact
-    eb = buf.reshape(count, capacity, d)
-    h = R.swish(torch.bmm(eb, p["we_gate"])) * torch.bmm(eb, p["we_up"])
-    eo = torch.bmm(h, p["we_down"]).reshape(count * capacity, d)
-    routed = eo[slot].reshape(t, k, d)
+
+    def dispatch(xn, top_ids):
+        keep, slot = moe_dispatch(top_ids, capacity, n_experts)
+        if count < n_experts:
+            held = (top_ids >= base) & (top_ids < base + count)
+            keep = keep & held
+            slot = torch.where(held, slot - base * capacity, 0)
+        slot = slot.reshape(-1)
+        updates = xn.repeat_interleave(k, 0) * keep.reshape(-1, 1).to(
+            xn.dtype)
+        buf = xn.new_zeros(count * capacity, d)
+        buf.index_add_(0, slot, updates)   # kept slots are distinct: exact
+        return buf, keep, slot
+
+    # under a mesh the dispatch and the combine's gather run on the whole
+    # batch on every rank (``on_whole``); the experts' products are split
+    buf, keep, slot = on_whole(dispatch, xn, top_ids)
+    # experts over the model axis and capacity over the data axes (the
+    # reference's layers.py:509-517), the stacks gathered over fsdp
+    eb = constrain(buf.reshape(count, capacity, d), "expert", "capacity",
+                   None)
+    wg, wu, wd = (constrain(p[n], "expert", None, None)
+                  for n in ("we_gate", "we_up", "we_down"))
+    h = R.swish(constrain(torch.bmm(eb, wg), "expert", "capacity", None)
+                ) * constrain(torch.bmm(eb, wu), "expert", "capacity", None)
+    eo = constrain(torch.bmm(h, wd), "expert", "capacity", None)
+    eo = constrain(eo, None, None, None).reshape(count * capacity, d)
+    routed = constrain(on_whole(lambda e, i: e[i].reshape(t, k, d), eo,
+                                slot), "batch", None, None)
     w = (top_w * keep).to(routed.dtype)
     return torch.einsum("tkd,tk->td", routed, w)
 
@@ -551,6 +735,8 @@ def moe_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
     mesh = active_mesh()
     if (cfg.moe_impl == "shard_map" and mesh is not None
             and {"data", "model"} <= set(axis_names(mesh))):
+        if is_distributed(x):
+            return _moe_apply_local_map(p, x, gamma, cfg, x.device_mesh)
         return _moe_apply_sharded(p, x, gamma, cfg, mesh)
     b, s, d = x.shape
     e = cfg.n_experts
@@ -560,12 +746,15 @@ def moe_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
                          f"weights hold {p['we_gate'].shape[0]}")
     t = b * s
     xn = rms_norm(x, gamma, cfg.norm_eps).reshape(t, d)
-    top_w, top_ids = _route(xn, p, cfg)
-    out = _held_experts_out(p, xn, top_w, top_ids, moe_capacity(t, cfg),
+    # under a mesh the dispatch is the whole batch's (one capacity over
+    # every token): the tokens are gathered for it, as GSPMD does
+    xg = constrain(xn, None, None)
+    top_w, top_ids = _route(xg, p, cfg)
+    out = _held_experts_out(p, xg, top_w, top_ids, moe_capacity(t, cfg),
                             base, count, e)
     if cfg.n_shared_experts:
         out = out + _shared_experts(p, xn)
-    return out.reshape(b, s, d).to(x.dtype)
+    return constrain(out.reshape(b, s, d).to(x.dtype), "batch", None, None)
 
 
 def _moe_apply_sharded(p, x, gamma, cfg: ModelConfig, mesh
@@ -619,6 +808,40 @@ def _moe_apply_sharded(p, x, gamma, cfg: ModelConfig, mesh
     return out.reshape(b, s, d).to(x.dtype)
 
 
+def _moe_apply_local_map(p, x, gamma, cfg: ModelConfig, mesh
+                         ) -> torch.Tensor:
+    """:func:`_moe_apply_sharded` on DTensors, under DTensor's
+    ``local_map`` with the placements of the reference's ``shard_map``
+    specs (layers.py:575-610): the tokens split over the batch axes and
+    whole on each ``model`` rank, the expert stacks split over ``model``
+    (gathered over ``fsdp``: the rank computes on the whole d), the router
+    and the shared experts whole; the output split as the tokens."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.runtime.sharding import logical_to_spec
+    names = sorted(p)
+    weights = [constrain(p[n], "expert", None, None) if n.startswith("we_")
+               else constrain(p[n], *([None] * p[n].dim())) for n in names]
+    rows = placements(logical_to_spec(("batch",), mesh), mesh)
+    whole = placements((), mesh)
+    in_pl = tuple(placements(logical_to_spec(("expert",), mesh), mesh)
+                  if n.startswith("we_") else whole for n in names)
+    # each weight's (and gamma's) gradient is its data shard's part, to be
+    # summed over the batch axes; x's is its own rows'
+    grad_pl = tuple([Partial() if isinstance(r, Shard) else w
+                     for r, w in zip(rows, pl)] for pl in (whole,) + in_pl)
+
+    def local(x_l, g_l, *ws):
+        return _moe_apply_sharded(dict(zip(names, ws)), x_l, g_l, cfg, mesh)
+
+    fn = local_map(local, out_placements=rows,
+                   in_placements=(rows, whole) + in_pl,
+                   in_grad_placements=(rows,) + grad_pl, device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(constrain(x, "batch", None, None), constrain(gamma, None),
+              *weights)
+
+
 def moe_ref(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
     """Dense per-expert loop oracle (tests only; no capacity drops)."""
     b, s, d = x.shape
@@ -653,7 +876,8 @@ def mlp_apply(p, x, gamma, cfg: ModelConfig, layer: int) -> torch.Tensor:
 def _mamba_proj(p, x, cfg: ModelConfig):
     """z, the conv channels (x_in, B, C) and dt of ``w_in``."""
     di, n = cfg.d_inner, cfg.ssm_state
-    return (x @ p["w_in"]).split([di, di + 2 * n, cfg.n_ssm_heads], dim=-1)
+    return (x @ constrain(p["w_in"], None, "tensor")).split(
+        [di, di + 2 * n, cfg.n_ssm_heads], dim=-1)
 
 
 def _causal_conv(xbc, p, cfg: ModelConfig):
@@ -661,7 +885,10 @@ def _causal_conv(xbc, p, cfg: ModelConfig):
     axis of (b, s, channels), then SiLU."""
     w = p["conv_w"]                                      # (W, C)
     width, s = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    if is_distributed(xbc):       # zeros before the sequence, as F.pad
+        pad = torch.cat([torch.zeros_like(xbc[:, :width - 1]), xbc], 1)
+    else:
+        pad = F.pad(xbc, (0, 0, width - 1, 0))
     out = sum(pad[:, i:i + s] * w[i] for i in range(width))
     return F.silu(out + p["conv_b"])
 
@@ -734,6 +961,34 @@ def _ssd_chunked(xh, dt, A, B, C, cfg: ModelConfig, h0=None):
     return y, h
 
 
+def _ssd(xh, dt, A, B, C, cfg: ModelConfig):
+    """:func:`_ssd_chunked`.  Under a mesh, on DTensors, each rank runs it
+    on its own (batch, heads) shard (DTensor's ``local_map``; B and C,
+    shared by the heads, whole on the rank): the recurrence is
+    independent per sequence and head, so no rank needs another's."""
+    if not is_distributed(xh):
+        return _ssd_chunked(xh, dt, A, B, C, cfg)
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    xh = constrain(xh, "batch", None, "tensor", None)
+    dt = constrain(dt, "batch", None, "tensor")
+    A = constrain(A, "tensor")
+    B, C = (constrain(t, "batch", None, None) for t in (B, C))
+    split = xh.placements
+    ins = [list(t.placements) for t in (xh, dt, A, B, C)]
+    # an input whole along a mesh dim the work is split over gets a
+    # partial gradient there
+    grads = [[pl if isinstance(pl, Shard) else
+              Partial() if isinstance(sp, Shard) else pl
+              for pl, sp in zip(t_pl, split)] for t_pl in ins]
+    h_pl = [Shard(1) if isinstance(sp, Shard) and sp.dim == 2 else sp
+            for sp in split]
+    return local_map(lambda *a: _ssd_chunked(*a, cfg),
+                     out_placements=(list(split), h_pl),
+                     in_placements=tuple(ins), in_grad_placements=tuple(grads),
+                     device_mesh=xh.device_mesh)(xh, dt, A, B, C)
+
+
 def _mamba_inner(p, xn, cfg: ModelConfig):
     """The block's body after its norm: returns the output before ``w_out``,
     the raw conv channels and the final SSM state."""
@@ -747,18 +1002,24 @@ def _mamba_inner(p, xn, cfg: ModelConfig):
     xh = xin.reshape(b, s, nh, hd)
     dt = F.softplus(dt.to(ct) + p["dt_bias"].to(ct))
     A = -torch.exp(p["A_log"].to(ct))
-    y, h = _ssd_chunked(xh, dt, A, B, C, cfg)
+    y, h = _ssd(xh, dt, A, B, C, cfg)
     y = y + xh.to(ct) * p["D"].to(ct)[None, None, :, None]
     y = y.reshape(b, s, di).to(xn.dtype)
     y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
     return y, xbc_raw, h
 
 
+def _mamba_out(y, p):
+    """``y @ w_out``, laid out as the residual stream."""
+    return constrain(y @ constrain(p["w_out"], "tensor", None), "batch",
+                     None, None)
+
+
 def mamba_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
     """Pre-norm Mamba2 block on the residual stream ``x`` (returns the
     residual delta)."""
     y, _, _ = _mamba_inner(p, rms_norm(x, gamma, cfg.norm_eps), cfg)
-    return y @ p["w_out"]
+    return _mamba_out(y, p)
 
 
 def mamba_init_cache(cfg: ModelConfig, batch: int, dtype, device
@@ -779,8 +1040,9 @@ def mamba_prefill(p, x, gamma, cfg: ModelConfig):
     s = x.shape[1]
     y, xbc_raw, h = _mamba_inner(p, rms_norm(x, gamma, cfg.norm_eps), cfg)
     w = cfg.ssm_conv - 1
-    window = F.pad(xbc_raw, (0, 0, max(w - s, 0), 0))[:, -w:]
-    return y @ p["w_out"], {"h": h, "conv": window.to(cfg.dtype)}
+    window = (F.pad(xbc_raw, (0, 0, w - s, 0)) if w > s
+              else xbc_raw)[:, -w:]
+    return _mamba_out(y, p), {"h": h, "conv": window.to(cfg.dtype)}
 
 
 def mamba_decode(p, x, gamma, cache, cfg: ModelConfig):
@@ -806,7 +1068,7 @@ def mamba_decode(p, x, gamma, cache, cfg: ModelConfig):
     y = y + xh * p["D"].to(ct)[None, :, None]
     y = y.reshape(b, 1, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
-    return y @ p["w_out"], {"h": h, "conv": window[:, 1:]}
+    return _mamba_out(y, p), {"h": h, "conv": window[:, 1:]}
 
 
 def pipeline_kernels(cfg: ModelConfig, *, prefill_lens=(),

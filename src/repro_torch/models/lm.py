@@ -54,13 +54,13 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.common import (ModelConfig, SpecBuilder,
                                        build_params, init_params, remat,
                                        rms_norm, softmax_xent)
+from repro_torch.runtime.sharding import constrain
 
 #: the families :class:`LM` runs
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
@@ -148,16 +148,17 @@ class LM:
 
     # -- forward --------------------------------------------------------------
     def _embed(self, params, tokens, vision_embeds=None):
-        x = params["embed"][tokens].to(self.cfg.dtype)
+        x = L.embed(params["embed"], tokens).to(self.cfg.dtype)
         if self.cfg.family == "vlm" and vision_embeds is not None:
             x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
-        return x
+        return constrain(x, "batch", None, None)
 
     def _logits(self, params, x):
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
-        head = (params["embed"].T if self.cfg.tie_embeddings
-                else params["head"])
-        return x @ head
+        head = (constrain(params["embed"], "tensor", None).T
+                if self.cfg.tie_embeddings
+                else constrain(params["head"], None, "tensor"))
+        return constrain(x @ head, "batch", None, "tensor")
 
     def _mlp(self, p, x, i):
         """Layer ``i``'s MLP residual step (none in an ``ssm`` layer)."""
@@ -235,14 +236,15 @@ class LM:
             # the compressed projections of the same input
             y = L.mla_apply(p["mixer"], xn, cfg)
             ckv, krope = L.mla_kv_compressed(p["mixer"], xn, cfg, pos)
-            return y, {"ckv": F.pad(ckv, pad).to(cfg.dtype),
-                       "krope": F.pad(krope, pad).to(cfg.dtype)}
+            return y, {"ckv": L.pad_seq(ckv, pad).to(cfg.dtype),
+                       "krope": L.pad_seq(krope, pad).to(cfg.dtype)}
         q, k, v = L.qkv(p["mixer"], xn, cfg,
                         pos if cfg.rope_theta > 0 else None)
         y = L._attend(q, k, v, cfg, causal=True)
         y = y.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
-        return y @ p["mixer"]["wo"], {"k": F.pad(k, pad).to(cfg.dtype),
-                                      "v": F.pad(v, pad).to(cfg.dtype)}
+        return L.out_proj(y, p["mixer"]["wo"], cfg.n_heads), {
+            "k": L.pad_seq(k, pad).to(cfg.dtype),
+            "v": L.pad_seq(v, pad).to(cfg.dtype)}
 
     def prefill(self, params, tokens, max_len: Optional[int] = None,
                 vision_embeds=None):

@@ -118,6 +118,10 @@ def distributed_decode_attention(q, k_cache, v_cache, pos, mesh, *,
     S / n, Dh), shard ``i`` holding positions ``i S/n`` on; ``pos``: the
     last filled position (global).  Returns (B, H, 1, Dh) in ``q``'s
     dtype, the same on every rank."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(k_cache, DTensor):
+        return _decode_attention_local_map(q, k_cache, v_cache, pos, mesh,
+                                           scale, seq_axis)
     b, h, _, dh = q.shape
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
@@ -134,6 +138,30 @@ def distributed_decode_attention(q, k_cache, v_cache, pos, mesh, *,
     dist.all_reduce(num, group=group)
     dist.all_reduce(den, group=group)
     return (num / den).reshape(b, h, 1, dh).to(q.dtype)
+
+
+def _decode_attention_local_map(q, k_cache, v_cache, pos, mesh, scale,
+                                seq_axis):
+    """:func:`distributed_decode_attention` on DTensors, under DTensor's
+    ``local_map`` with the placements of the reference's ``shard_map``
+    specs: q and ``pos`` whole on every rank, the caches split along their
+    sequence over ``seq_axis``; the output whole."""
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.runtime.sharding import Spec, placements
+    dmesh = k_cache.device_mesh
+    whole = placements((), dmesh)
+    seq = placements(Spec(None, None, seq_axis), dmesh)
+
+    def local(q_l, k_l, v_l, pos_l):
+        return distributed_decode_attention(q_l, k_l, v_l, pos_l, mesh,
+                                            scale=scale, seq_axis=seq_axis)
+
+    from torch.distributed.tensor import DTensor
+    pos_pl = whole if isinstance(pos, DTensor) else None
+    return local_map(local, out_placements=whole,
+                     in_placements=(whole, seq, seq, pos_pl),
+                     device_mesh=dmesh, redistribute_inputs=True)(
+        q, k_cache, v_cache, pos)
 
 
 def batch_axes(mesh) -> tuple:

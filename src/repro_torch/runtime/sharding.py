@@ -19,10 +19,14 @@ the reference's axis names (``pod``, ``data``, ``model``):
 placements (``Shard(i)`` / ``Replicate()``) of each mesh dim, and
 :class:`NamedSharding` pairs it with its mesh.
 
-The model layers compute on local tensors and are not annotated with
-:func:`constrain`: the explicitly parallel layers (the expert-parallel
-MoE, the sequence-parallel decode, the data-parallel gradient mean) make
-their own collectives (``runtime.collectives``).
+The model layers carry the reference's :func:`constrain` sites: on
+DTensors under an active mesh (the dry-run's ``meta`` steps at the
+production mesh) they lay activations out, gather ``fsdp``-sharded
+weights where they are used, and keep heads the ``tensor`` axis does not
+divide replicated (``models.layers``); on plain tensors, or without a
+mesh, they are the identity.  The explicitly parallel layers (the
+expert-parallel MoE, the sequence-parallel decode, the data-parallel
+gradient mean) make their own collectives (``runtime.collectives``).
 """
 
 from __future__ import annotations
@@ -165,17 +169,85 @@ class NamedSharding:
         return placements(self.spec, self.mesh)
 
 
+def fit_spec(spec: Sequence, shape: Sequence[int], mesh) -> Spec:
+    """``spec`` with each dim's trailing mesh axes dropped until their
+    product divides the dim (a dim none divide is replicated): an even
+    split, as DTensor needs to view a sharded dim into others.  The
+    reference's GSPMD pads an uneven dim instead."""
+    out = []
+    for size, entry in zip(shape, list(spec) + [None] * len(shape)):
+        axes = list(_entry_axes(entry))
+        while axes and size % axis_size(mesh, axes):
+            axes.pop()
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else tuple(axes))
+    while out and out[-1] is None:
+        out.pop()
+    return Spec(*out)
+
+
+def is_distributed(x) -> bool:
+    """Is ``x`` a DTensor under an active mesh (what :func:`constrain`
+    lays out)?"""
+    if active_mesh() is None:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def replicate(t: torch.Tensor, like):
+    """``t``, a tensor every rank holds whole, as a DTensor replicated on
+    ``like``'s mesh (no collective)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def on_whole(fn, *tensors):
+    """``fn(*tensors)``.  Under a mesh, on DTensors, each rank runs ``fn``
+    on the whole tensors (each input gathered), and the results come back
+    whole on every rank: the counterpart of DTensor's ``local_map`` with
+    every placement ``Replicate``, for work DTensor has no sharding rule
+    for in every version (the MoE dispatch's scatter and gather)."""
+    if not any(is_distributed(t) for t in tensors):
+        return fn(*tensors)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = next(t.device_mesh for t in tensors if is_distributed(t))
+    whole = [Replicate()] * mesh.ndim
+    local = [t.redistribute(mesh, whole).to_local()
+             if isinstance(t, DTensor) else t for t in tensors]
+    return pytree.tree_map(
+        lambda o: DTensor.from_local(o, mesh, whole, run_check=False)
+        if isinstance(o, torch.Tensor) else o, fn(*local))
+
+
+def divides(n: int, axis: str) -> bool:
+    """Do the mesh axes of the logical ``axis`` split ``n`` evenly under
+    the active mesh and rules (true without a mesh)?"""
+    mesh = active_mesh()
+    if mesh is None:
+        return True
+    spec = logical_to_spec((axis,), mesh)
+    return not spec or n % axis_size(mesh, _entry_axes(spec[0])) == 0
+
+
 def constrain(x, *axes: Optional[str]):
     """Lay ``x`` out by the logical ``axes`` under the active mesh: a
-    DTensor is redistributed to the spec; a plain tensor, or any tensor
-    without an active mesh, comes back as it is."""
-    mesh = active_mesh()
-    from torch.distributed.tensor import DTensor
-    if mesh is None or not isinstance(x, DTensor):
+    DTensor is redistributed to the spec (:func:`fit_spec`: a dim its
+    axes do not divide keeps only the axes that do); a plain tensor, or
+    any tensor without an active mesh, comes back as it is.  On a weight
+    stored ``fsdp``-sharded, the axes without ``fsdp`` are FSDP's
+    all-gather where the weight is used, and its reduce-scatter in the
+    backward pass."""
+    if not is_distributed(x):
         return x
-    return x.redistribute(x.device_mesh,
-                          placements(logical_to_spec(axes, mesh),
-                                     x.device_mesh))
+    mesh = x.device_mesh
+    spec = fit_spec(logical_to_spec(axes, mesh), x.shape, mesh)
+    # redistributed even where the layout holds already: the backward pass
+    # then lays the gradient out as the forward value, whatever layout
+    # DTensor's op-by-op choice gave it
+    return x.redistribute(mesh, placements(spec, mesh))
 
 
 def named_sharding(axes: Sequence[Optional[str]],

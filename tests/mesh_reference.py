@@ -11,6 +11,12 @@ devices) and 8 steps of ``compressed_psum_mean`` (over 4).  ``sharding``
 (256 devices) writes ``sharding.json``: ``logical_to_spec`` under every
 rule set of ``launch.hillclimb.VARIANTS`` on three mesh layouts, and the
 sanitized shardings of ``make_step`` at the (16, 16) production mesh.
+``analysis`` (256 devices) writes ``analysis.json``: the dry-run's
+``active_params`` and ``layer_knobs`` for every arch,
+``attention_intermediate_bytes`` for every cell, ``hillclimb``'s
+``VARIANTS`` and rule sets, and each supported cell's per-device
+argument bytes at the (16, 16) mesh (the sum of ``NamedSharding
+.shard_shape`` bytes over ``make_step``'s arguments; nothing compiles).
 
 The pytest workers' own jax sees one device (``tests/conftest.py``), so
 these run here; the test modules start this script and read its files.
@@ -25,7 +31,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 #: the devices each job needs
-DEVICES = {"collectives": 4, "sharding": 256}
+DEVICES = {"collectives": 4, "sharding": 256, "analysis": 256}
+#: the file each job writes
+OUTPUT = {"collectives": "collectives.npz", "sharding": "sharding.json",
+          "analysis": "analysis.json"}
 
 #: the MoE cases: (arch, capacity factor); reduced configs (4 experts,
 #: top-2, d 128); deepseek-v3 adds a shared expert
@@ -57,8 +66,7 @@ def run(job: str, out_dir) -> Path:
                JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, __file__, job, str(out_dir)],
                    env=env, check=True, timeout=600)
-    return Path(out_dir) / ("collectives.npz" if job == "collectives"
-                            else "sharding.json")
+    return Path(out_dir) / OUTPUT[job]
 
 
 def _collectives(out: Path):
@@ -185,6 +193,50 @@ def _sharding(out: Path):
         {"specs": specs, "steps": steps, "jax_devices": jax.device_count()}))
 
 
+def _analysis(out: Path):
+    import math
+
+    import jax
+    import numpy as np
+
+    from repro.configs import ARCHS, SHAPES, all_cells, cell_supported
+    flags = os.environ["XLA_FLAGS"]
+    from repro.launch import dryrun, hillclimb   # set XLA_FLAGS on import
+    os.environ["XLA_FLAGS"] = flags
+    from repro.launch.mesh import make_production_mesh
+    from repro.launch.steps import make_step
+    from repro.runtime import sharding as SH
+
+    knobs = {}
+    for arch, cfg in ARCHS.items():
+        ks, with_counts = dryrun.layer_knobs(cfg)
+        c = with_counts({k: 2 for k, _ in ks})
+        knobs[arch] = {"knobs": [list(k) for k in ks],
+                       "at_2": [c.n_layers, c.n_dense_layers,
+                                c.n_enc_layers],
+                       "active": dryrun.active_params(cfg)}
+    adj, args = {}, {}
+    mesh = make_production_mesh()
+    for arch, shape in all_cells():
+        adj[f"{arch}/{shape}"] = dryrun.attention_intermediate_bytes(
+            ARCHS[arch], SHAPES[shape])
+        if not cell_supported(arch, shape)[0]:
+            continue
+        with SH.use_mesh(mesh):
+            _, a, shardings = make_step(ARCHS[arch], SHAPES[shape])
+            shs = jax.tree.leaves(shardings(mesh))
+        leaves = jax.tree.leaves(a)
+        args[f"{arch}/{shape}"] = sum(
+            math.prod(sh.shard_shape(x.shape)) * np.dtype(x.dtype).itemsize
+            for x, sh in zip(leaves, shs))
+    rules = {name: v for name, v in vars(hillclimb).items()
+             if name.endswith("_RULES")}
+    (out / "analysis.json").write_text(json.dumps(
+        {"knobs": knobs, "adj": adj, "args": args, "rules": rules,
+         "variants": hillclimb.VARIANTS, "n_devices": jax.device_count()}))
+
+
 if __name__ == "__main__":
     job, out_dir = sys.argv[1], Path(sys.argv[2])
-    {"collectives": _collectives, "sharding": _sharding}[job](out_dir)
+    {"collectives": _collectives, "sharding": _sharding,
+     "analysis": _analysis}[job](out_dir)

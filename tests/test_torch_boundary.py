@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports ``jax`` or anything of the JAX package
-``repro`` (the machine with the card has no JAX)."""
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and not the port's examples (``examples/torch_*.py``)
+imports ``jax`` or anything of the JAX package ``repro`` (the machine
+with the card has no JAX)."""
 
 import ast
 import subprocess
@@ -14,8 +15,13 @@ PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
+def _examples():
+    return sorted((ROOT / "examples").glob("torch_*.py"))
+
+
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + _examples())
 
 
 def _modules():
@@ -44,8 +50,10 @@ def test_no_forbidden_import_in_source(path):
 def test_importing_every_module_leaves_jax_out():
     code = (
         "import importlib, sys\n"
-        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
-        f"for m in {_modules()!r} + ['chip_smoke']:\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}, "
+        f"{str(ROOT / 'examples')!r}]\n"
+        f"for m in {_modules()!r} + ['chip_smoke'] + "
+        f"{[p.stem for p in _examples()]!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
@@ -149,3 +157,15 @@ def test_boundary_covers_the_training_path():
                          text=True, timeout=300, cwd=ROOT / "tests")
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_boundary_covers_the_analysis_and_the_examples():
+    """The dry-run, the hill-climb driver, the step analysis and the four
+    examples are among the files whose imports must leave JAX out."""
+    mods = _modules()
+    for m in ("repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
+              "repro_torch.runtime.op_analysis"):
+        assert m in mods, m
+    assert [p.name for p in _examples()] == [
+        "torch_fusion_megakernels.py", "torch_quickstart.py",
+        "torch_serve_lm.py", "torch_train_lm.py"]
