@@ -1165,28 +1165,31 @@ def path_e_decode_split(model, params, prompt, seq, programs, steps):
     """Path E's decode step by class of work, from
     ``profile_decode.profile_steps`` over ``steps`` decode steps after a
     prefill of ``prompt``: the emitted attention and SwiGLU kernels by
-    name; the torch ops' kernels by the layer function that launched them
-    (``layers.mamba_decode``, ``layers.moe_apply``), the rest (embedding,
-    norms, q/k/v and output projections, residuals, the head) as other
-    torch ops; the card's busy time and the host's idle time, the steps'
-    wall time less the busy time.  Returns ms per step."""
+    name; the torch ops' kernels by the model span they were launched in
+    (``repro_torch.tracing``: ``mamba``, ``moe``), the rest (embedding,
+    attention layers' norms and projections, the SwiGLU layers, the head)
+    as other torch ops; the card's busy time and the host's idle time, the
+    steps' wall time less the busy time.  Returns ms per step."""
     from repro_torch.launch import profile_decode as PD
     p0 = prompt.shape[1]
     _, cache = model.prefill(params, prompt, max_len=seq)
     tok = prompt[:, -1:].contiguous()
     prof = PD.profile_steps(
-        lambda i: model.decode_step(params, cache, tok, p0 + i), steps,
-        classes={"mamba_decode": "mamba", "moe_apply": "moe"})
+        lambda i: model.decode_step(params, cache, tok, p0 + i), steps)
+    classes = {"mamba": {}, "moe": {}, "other": {}}
+    for span, part in prof["device_ms_per_step_by_class"].items():
+        into = classes[span if span in ("mamba", "moe") else "other"]
+        for n, ms in part.items():
+            into[n] = into.get(n, 0.0) + ms
     emitted = {part: {k.kname for k in programs[f"{part}_decode"].kernels}
                for part in ("attention", "swiglu")}
     out = {f"{part} kernels": sum(
         ms for n, ms in prof["device_ms_per_step_by_kernel"].items()
         if kernel_name(n) in names) for part, names in emitted.items()}
     every = set().union(*emitted.values())
-    for cls in ("mamba", "moe", "other"):
+    for cls, part in classes.items():
         out[f"{cls} torch ops"] = sum(
-            ms for n, ms in prof["device_ms_per_step_by_class"].get(
-                cls, {}).items() if kernel_name(n) not in every)
+            ms for n, ms in part.items() if kernel_name(n) not in every)
     missing = [k for k, v in out.items() if v <= 0]
     if missing:
         fail(f"path E: the decode profile saw no device time of {missing}")
@@ -1694,10 +1697,13 @@ def serve_phase(arch, n_layers, warm=False):
     serve_s = (t1 - t0) + (time.perf_counter() - t2)
     launches = {name: k.launches for name, k in kernels.items()}
     label = f"serve {arch} ({mc.n_layers} layers, cuda)"
+    # output tokens (each prefill's first included) over the run, and the
+    # median engine step (its ``tick`` span)
+    output_tok_s = report.decode_tokens / report.wall_s
+    tick_ms = statistics.median(r.wall_ms for r in report.per_step)
     print(f"{label}: {report.n_completed}/{report.n_requests} requests, "
-          f"{report.steps} steps, {report.tokens_per_s:.2f} tok/s, p50 "
-          f"{report.p50_token_ms:.2f} ms, p99 {report.p99_token_ms:.2f} ms, "
-          f"recompiles {report.decode_recompiles}, {serve_s:.1f} s with "
+          f"{report.steps} steps, {output_tok_s:.2f} output tok/s, median "
+          f"tick {tick_ms:.2f} ms, recompiles {report.decode_recompiles}, {serve_s:.1f} s with "
           f"weights and warmup ({weights_s:.2f} s drawing the "
           f"{sum(t.numel() for t in PD._tensors(params))} weights on the "
           f"card), {compile_s:.1f} s compiling and building", flush=True)
@@ -1728,7 +1734,7 @@ def serve_phase(arch, n_layers, warm=False):
     print(f"{label}: kernel cache {json.dumps(rec['cache'])} for "
           f"{len(programs)} programs", flush=True)
     if warm:
-        return dict(rec, serve_s=serve_s, tokens_per_s=report.tokens_per_s)
+        return dict(rec, serve_s=serve_s, output_tok_s=output_tok_s)
 
     plain = S.run(dataclasses.replace(cfg, backend="torch"),
                   params=engine.params)
@@ -1772,9 +1778,8 @@ def serve_phase(arch, n_layers, warm=False):
           flush=True)
     return {**rec, "completed": report.n_completed,
             "requests": report.n_requests,
-            "steps": report.steps, "tokens_per_s": report.tokens_per_s,
-            "p50_token_ms": report.p50_token_ms,
-            "p99_token_ms": report.p99_token_ms,
+            "steps": report.steps, "output_tok_s": output_tok_s,
+            "tick_ms": tick_ms,
             "recompiles": report.decode_recompiles, "serve_s": serve_s,
             "same_tokens": same, "decode_step": step,
             "max_memory_allocated": peak, "launches": launches}
@@ -2297,8 +2302,8 @@ def resilience_run(run, n_layers):
                 "cache_disk_hits", "n_poisoned", "repromotions", "probes",
                 "probe_failures", "decode_backend", "cuda_degraded",
                 "decode_recompiles", "n_completed", "n_rejected",
-                "n_deadline_evicted", "steps", "tokens_per_s",
-                "p50_token_ms", "p99_token_ms", "kernel_launches")},
+                "n_deadline_evicted", "steps", "decode_tokens", "wall_s",
+                "kernel_launches")},
             "failures": [{k: (v[:160] if isinstance(v, str) else v)
                           for k, v in f.items()} for f in report.failures],
             "decode_ticks": [r.step for r in report.per_step
@@ -2703,14 +2708,14 @@ def train_parity(kernels, card):
                "launch_shapes": shapes, "worst_leaf": worst,
                "worst_leaf_rel_l2": dist[worst], "float64": f64,
                "leaves": len(dist), "step_ms": ms, "step_ms_all": times,
-               "text_tokens_per_s": tokens / ms * 1e3,
+               "text_tok_s": tokens / ms * 1e3,
                "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                "bound": bound, "seconds": time.perf_counter() - t0}
         print(f"{label}: loss {lh} (plain {lp}), launches {counts}, "
               f"{len(dist)} gradient leaves, worst {worst} at "
               f"{dist[worst]:.3e} relative L2; loss and gradients step "
               f"median {ms:.2f} ms of {times}, "
-              f"{rec['text_tokens_per_s']:.1f} text tokens/s, bound "
+              f"{rec['text_tok_s']:.1f} text tokens/s, bound "
               f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}; ops "
               f"{bound['ops_ms']:.3f}, bytes {bound['bytes_ms']:.3f}), max "
               f"memory "
@@ -2750,13 +2755,13 @@ def train_record(label, cfg, run, res, counts, card):
     rec = {"losses": [l for _, l in res["losses"]], "launches": counts,
            "step_ms": ms, "step_ms_min": min(steps) * 1e3,
            "step_ms_max": max(steps) * 1e3,
-           "tokens_per_s": tokens / ms * 1e3,
+           "tok_s": tokens / ms * 1e3,
            "max_memory_gb": res["max_memory_gb"], "bound": bound}
     print(f"{label}: losses {rec['losses'][0]:.4f} -> "
           f"{rec['losses'][-1]:.4f} over {len(rec['losses'])} steps, "
           f"launches {counts}, step median {ms:.2f} ms (min "
           f"{rec['step_ms_min']:.2f}, max {rec['step_ms_max']:.2f}), "
-          f"{rec['tokens_per_s']:.1f} tokens/s, bound "
+          f"{rec['tok_s']:.1f} tokens/s, bound "
           f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}; ops "
           f"{bound['ops_ms']:.3f}, bytes {bound['bytes_ms']:.3f}), max "
           f"memory {rec['max_memory_gb']:.2f} GB [{card}]", flush=True)

@@ -89,6 +89,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing as T
 from repro_torch.core import codegen_torch as CT
 from repro_torch.core import cuda_build as CB
 from repro_torch.core import ops as O
@@ -1236,30 +1237,33 @@ class CudaKernel:
         """Launch on CUDA tensors.  A call's signature (shapes, strides,
         types, devices) is validated in full the first time it is seen;
         later calls with it only allocate the outputs and build the
-        pointer array."""
-        sig = (instances, *[(a.dtype, a.get_device(), a.shape, a.stride())
-                            for a in merged])
-        known = self._signatures.get(sig)
-        if known is None:
-            known = self._signatures[sig] = self._signature(merged,
-                                                            instances)
-        dev, out_shapes, strides, ext0, ext1 = known
-        outs = [torch.empty(s, dtype=torch.float32, device=dev)
-                for s in out_shapes]
-        ptrs = [t.data_ptr() for t in merged] + [o.data_ptr() for o in outs]
-        for j in self.aligned:
-            if ptrs[j] % 16:
-                raise ValueError(f"{self.gid}: input {j} is staged by "
-                                 "16-byte copies and must be 16-byte "
-                                 "aligned")
-        if dev.index == current_device():
-            self.launcher.launch(self._ptrs(*ptrs), strides, ext0, ext1,
-                                 current_stream(dev.index))
-        else:
-            with torch.cuda.device(dev):
+        pointer array.  While a profiler records, the launch path is a
+        ``launch`` model span (``repro_torch.tracing``)."""
+        with T.model_span("launch"):
+            sig = (instances, *[(a.dtype, a.get_device(), a.shape,
+                                 a.stride()) for a in merged])
+            known = self._signatures.get(sig)
+            if known is None:
+                known = self._signatures[sig] = self._signature(merged,
+                                                                instances)
+            dev, out_shapes, strides, ext0, ext1 = known
+            outs = [torch.empty(s, dtype=torch.float32, device=dev)
+                    for s in out_shapes]
+            ptrs = ([t.data_ptr() for t in merged]
+                    + [o.data_ptr() for o in outs])
+            for j in self.aligned:
+                if ptrs[j] % 16:
+                    raise ValueError(f"{self.gid}: input {j} is staged by "
+                                     "16-byte copies and must be 16-byte "
+                                     "aligned")
+            if dev.index == current_device():
                 self.launcher.launch(self._ptrs(*ptrs), strides, ext0,
                                      ext1, current_stream(dev.index))
-        return tuple(outs)
+            else:
+                with torch.cuda.device(dev):
+                    self.launcher.launch(self._ptrs(*ptrs), strides, ext0,
+                                         ext1, current_stream(dev.index))
+            return tuple(outs)
 
 
 def build(kernels: Sequence[CudaKernel]) -> float:

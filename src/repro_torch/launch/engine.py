@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch import resilience as RZ
+from repro_torch import tracing as T
 
 
 #: the families continuous batching serves: attention models, whose padded
@@ -121,7 +122,7 @@ class StepRecord:
     occupancy: int
     n_prefill: int
     n_decode: int
-    wall_ms: float
+    wall_ms: float          # the step's ``tick`` span (repro_torch.tracing)
 
 
 @dataclass
@@ -136,11 +137,8 @@ class ServeReport:
     steps: int = 0
     wall_s: float = 0.0
     prefill_tokens: int = 0
-    decode_tokens: int = 0
-    tokens_per_s: float = 0.0
-    decode_tokens_per_s: float = 0.0
-    p50_token_ms: float = 0.0
-    p99_token_ms: float = 0.0
+    decode_tokens: int = 0       # tokens generated (each prefill's first
+                                 # included)
     mean_occupancy: float = 0.0
     max_queue_depth: int = 0
     # the kernel cache (pipeline.default_cache()) from the engine's
@@ -382,8 +380,13 @@ class Engine:
             *self._decode_inputs())
 
     def _decode_once(self):
+        """One serving decode step: its inputs, then ``LM.decode_step``
+        alone as the ``decode.forward`` span (``repro_torch.tracing``)."""
         RZ.check("serve:decode")
-        return self._decode()
+        toks, pos = self._decode_inputs()
+        with T.TRACER.span("decode.forward"):
+            return self.model.decode_step(self.params, self.caches, toks,
+                                          pos)
 
     def _insert(self, cache, slot: int) -> None:
         """Copy a one-sequence prefill cache into ``slot``, every entry
@@ -452,19 +455,24 @@ class Engine:
         satisfied outright), ``"rejected"`` (bad shape: no bucket, or
         prompt + generation past ``max_len``), ``"deadline"`` (its
         deadline passed while it queued) or ``"poisoned"`` (its prefill
-        logits are not finite: the slot stays free)."""
+        logits are not finite: the slot stays free).  An admitted
+        request is an ``admit`` span (``repro_torch.tracing``), ending at
+        its first token."""
         plen = len(req.prompt)
         if req.deadline_step is not None and step > req.deadline_step:
             report.failures.append({
                 "rid": req.rid, "reason": "deadline_queued", "step": step,
                 "deadline": req.deadline_step})
             return "deadline"
+        span = T.TRACER.begin("admit", req.rid, prompt_tokens=plen)
         bucket = self._bucket(plen)
         if bucket is None or plen + req.max_new_tokens > self.max_len:
+            T.TRACER.discard(span)
             report.failures.append({
                 "rid": req.rid, "reason": "bad_shape", "step": step,
                 "prompt_len": plen, "max_new_tokens": req.max_new_tokens})
             return "rejected"
+        span.attrs["bucket_tokens"] = bucket
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :plen] = req.prompt
         logits, cache = self._prefill(padded)
@@ -472,6 +480,7 @@ class Engine:
         # positions to the right are causally invisible to it
         row = logits[:, plen - 1:plen]
         if not bool(torch.isfinite(row).all()):
+            T.TRACER.discard(span)
             report.n_poisoned += 1
             report.failures.append({
                 "rid": req.rid, "reason": "nonfinite_prefill", "step": step,
@@ -479,6 +488,7 @@ class Engine:
             return "poisoned"
         self._insert(cache, slot)
         tok = int(self._sample(row)[0])
+        T.TRACER.end(span)
         if self.record_logits:
             report.logits[req.rid] = [row[0, 0].float().cpu()]
         if req.max_new_tokens <= 1:
@@ -591,7 +601,6 @@ class Engine:
                              for name, k in self.kernels.items()}
         pending = deque(sorted(trace, key=lambda r: r.arrival_step))
         report = ServeReport(n_requests=len(trace), device=str(self.device))
-        token_lat_ms: List[float] = []
         occupancy_sum = 0
         step = 0
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
@@ -601,7 +610,7 @@ class Engine:
             if max_steps is not None and step >= max_steps:
                 break
             self._tick = step  # the health ledger's clock
-            t0 = time.perf_counter()
+            tick = T.TRACER.begin("tick")
             while pending and pending[0].arrival_step <= step:
                 req = pending.popleft()
                 if (self.max_queue is not None
@@ -658,7 +667,8 @@ class Engine:
                     # poison exactly one co-batched row; the guard below
                     # must contain it to that sequence
                     logits[active[0], -1] = float("nan")
-                fin = torch.isfinite(logits[:, -1]).all(-1).cpu().numpy()
+                with T.TRACER.span("decode.read"):
+                    fin = torch.isfinite(logits[:, -1]).all(-1).cpu().numpy()
                 for i in active:
                     if fin[i]:
                         continue
@@ -704,27 +714,20 @@ class Engine:
                         self._hkey, self._demote_stack[-1][1]) == "probe"):
                 self._probe_repromote(report, step)
             sync()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            token_lat_ms.extend([wall_ms] * (n_decode + n_prefill))
+            T.TRACER.end(tick, n_prefill=n_prefill, n_decode=n_decode)
             occ = sum(1 for s in self.slots if s is not None)
             occupancy_sum += occ
             report.decode_tokens += n_decode
             report.per_step.append(StepRecord(
                 step=step, queue_depth=len(self.queue), occupancy=occ,
-                n_prefill=n_prefill, n_decode=n_decode, wall_ms=wall_ms))
+                n_prefill=n_prefill, n_decode=n_decode,
+                wall_ms=tick.ns / 1e6))
             report.max_queue_depth = max(report.max_queue_depth,
                                          len(self.queue))
             step += 1
 
         report.steps = step
         report.wall_s = time.perf_counter() - t_run
-        total = report.prefill_tokens + report.decode_tokens
-        report.tokens_per_s = total / max(report.wall_s, 1e-9)
-        report.decode_tokens_per_s = (report.decode_tokens
-                                      / max(report.wall_s, 1e-9))
-        if token_lat_ms:
-            report.p50_token_ms = float(np.percentile(token_lat_ms, 50))
-            report.p99_token_ms = float(np.percentile(token_lat_ms, 99))
         report.mean_occupancy = occupancy_sum / max(step, 1)
         life = self._cache.stats.delta(self._base)
         report.cache_memory_hits = life.memory_hits

@@ -4,17 +4,22 @@
         --arch llama3.2-1b --steps 5 --json profile_decode.json
 
 Builds the serving engine at the full width of ``--arch`` (smollm-135m by
-default; ``--n-layers`` cuts the depth; seeded random weights, the
-``cuda`` backend), fills every slot with a prefilled prompt,
+default; ``--n-layers`` cuts the depth; ``--max-batch`` slots of
+``--max-len`` positions; seeded random weights, the ``cuda`` backend),
+fills every slot with a prefilled prompt,
 then runs ``--steps`` ragged decode steps:
 
-* each step on the host clock, ending in ``torch.cuda.synchronize()``;
-* the same steps under ``torch.profiler``, after a lead-in step and a
-  pause (the profiler can miss the first kernels of a session on the
-  card; :func:`bursts` keeps the timed steps' kernels): device time by
-  kernel name (the emitted kernels are named ``emit_region_<gid>`` and
-  ``emit_group_<gid>``), and the device's busy share of the timed steps'
-  wall time (its idle share is the rest);
+* each step on the host clock, ending in ``torch.cuda.synchronize()``,
+  and the host's time to enqueue one, the device idle and busy;
+* the same steps under ``torch.profiler`` (CPU and CUDA), after a lead-in
+  step and a pause (the profiler can miss the first kernels of a session
+  on the card; :func:`bursts` keeps the timed steps' kernels): device
+  time by kernel name (the emitted kernels are named
+  ``emit_region_<gid>`` and ``emit_group_<gid>``) and by model span
+  (``repro_torch.tracing``), the device's busy share of the timed steps'
+  wall time, and its idle time by the program span the host was in;
+* the CUDA syncs one engine decode step makes
+  (``torch.cuda.set_sync_debug_mode("warn")``);
 * the step's bound (:func:`step_cost`): the larger of its bytes (every
   weight but the embedding's unread rows, the attended rows of every
   cache tensor the model has, the logits) over 3.35 TB/s and its
@@ -23,20 +28,23 @@ then runs ``--steps`` ragged decode steps:
 It prints one JSON object, and needs a card: without one it exits
 nonzero.  :func:`profile_decode` does the same for an engine the caller
 has built and warmed; :func:`profile_steps` for any step function (a
-model's ``decode_step`` driven by hand, say), its kernels optionally
-split by the layer function that launched them.
+model's ``decode_step`` driven by hand, say).
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
+
+from repro_torch import tracing as T
 
 
 def _card() -> str:
@@ -57,16 +65,16 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
-def bursts(events, gap_us: float):
-    """The device events of a profile (``(start, end, name)``, in
-    microseconds on the card's clock) split into bursts wherever the card
-    sat idle for more than ``gap_us``, in time order."""
+def bursts(events, gap: float):
+    """The device events of a profile (``(start, end, ...)`` tuples on the
+    card's clock) split into bursts wherever the card sat idle for more
+    than ``gap`` (in the events' unit), in time order."""
     out, last_end = [], float("-inf")
-    for start, end, name in sorted(events):
-        if start - last_end > gap_us:
+    for ev in sorted(events):
+        if ev[0] - last_end > gap:
             out.append([])
-        out[-1].append((start, end, name))
-        last_end = max(last_end, end)
+        out[-1].append(ev)
+        last_end = max(last_end, ev[1])
     return out
 
 
@@ -115,106 +123,181 @@ def step_cost(cfg, params, caches, batch: int, pos: int, max_len: int):
     return nbytes, ops
 
 
-#: the ``record_function`` ranges of :func:`profile_steps`
-TIMED, CLASS = "profile_steps:timed", "profile_steps:class:"
+#: the ``record_function`` range of :func:`profile_steps`'s timed calls
+TIMED = "profile_steps:timed"
+#: the prefix of the host events that launch device work: CUDA runtime
+#: (``cuda*``) and CUDA API (``cu*``) calls
+LAUNCH_CALLS = "cu"
+#: ``torch.cuda._sleep`` cycles ahead of an enqueue timed behind a busy
+#: device: ~0.4 s at the H100's 1.98 GHz
+BUSY_CYCLES = 800_000_000
 
 
-def profile_steps(step, steps: int = 5, classes=None) -> dict:
-    """Time ``steps`` calls of ``step(i)`` on the host clock, each ending
-    in ``torch.cuda.synchronize()``, then profile as many more under
-    ``torch.profiler`` after a lead-in call and a pause (:func:`bursts`
-    keeps the timed calls' kernels): device time by kernel name, and the
-    card's busy time and share of the timed calls' wall time.
+def _innermost(ranges, starts, t: float):
+    """The name of the innermost of ``ranges`` (``(start, end, name)``,
+    sorted by start; ``starts`` their starts) that holds ``t``, or
+    ``"other"``: on one thread's nested ranges, the holder that started
+    last."""
+    for start, end, name in reversed(ranges[:bisect.bisect_right(starts,
+                                                                 t)]):
+        if end >= t:
+            return name
+    return "other"
 
-    ``classes`` maps functions of ``models.layers`` to a class of work:
-    for the session each runs in a ``record_function`` range (the CPU
-    traced too), and each kernel a torch op launched inside one counts to
-    the innermost one's class (``device_ms_per_step_by_class``: class,
-    then kernel name; ``"other"`` outside them).  Times are ms a step."""
-    from repro_torch.models import layers as L
-    saved = {}
-    for fn_name, cls in (classes or {}).items():
-        fn = saved[fn_name] = getattr(L, fn_name)
 
-        def ranged(*a, _fn=fn, _cls=cls, **kw):
-            with torch.profiler.record_function(f"{CLASS}{_cls}"):
-                return _fn(*a, **kw)
-        setattr(L, fn_name, ranged)
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    if classes:
-        acts.append(torch.profiler.ProfilerActivity.CPU)
-    pause_s = 0.2            # far longer than any idle gap inside a step
-    try:
-        step(0)
-        torch.cuda.synchronize()
-        host_ms = []
-        for i in range(steps):
-            t0 = time.perf_counter()
-            step(i)
-            torch.cuda.synchronize()
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-        with torch.profiler.profile(activities=acts) as prof:
-            step(0)          # the lead-in, told apart by the pause
-            torch.cuda.synchronize()
-            time.sleep(pause_s)
-            t0 = time.perf_counter()
-            with torch.profiler.record_function(TIMED):
-                for i in range(steps):
-                    step(i)
-                torch.cuda.synchronize()
-            window_us = (time.perf_counter() - t0) * 1e6
-    finally:
-        for fn_name, fn in saved.items():
-            setattr(L, fn_name, fn)
-    events = prof.events()
-    # a range's span on the card's timeline (a user annotation) is no work
-    timed = bursts([(ev.time_range.start, ev.time_range.end, ev.name)
-                    for ev in events
-                    if ev.device_type == torch.autograd.DeviceType.CUDA
-                    and ev.name != TIMED and not ev.name.startswith(CLASS)],
-                   pause_s * 1e6 / 2)[-1]
-    by_name, intervals = {}, []
-    for start, end, name in timed:
+def _gaps(intervals, lo: float, hi: float):
+    """The stretches of ``[lo, hi]`` that no interval covers."""
+    out, cur = [], lo
+    for s, e in sorted(intervals):
+        if s > cur:
+            out.append((cur, min(s, hi)))
+        cur = max(cur, e)
+        if cur >= hi:
+            break
+    if cur < hi:
+        out.append((cur, hi))
+    return [(s, e) for s, e in out if e > s]
+
+
+def split(host, device, steps: int) -> dict:
+    """Where a profiled window's device time goes, from the host events
+    ``host`` (``(start, end, name, correlation)``, one thread's) and the
+    window's device operations ``device`` (the same fields), in ns on the
+    profiler's clock; the window is the host event named :data:`TIMED`.
+
+    * ``device_ms_per_step_by_kernel``: by name;
+    * ``device_ms_per_step_by_class``: class, then kernel name; a
+      kernel's class is the innermost model span (``tracing.MODEL``) that
+      held the call that launched it (:data:`LAUNCH_CALLS`, matched by
+      correlation id), ``"other"`` where none did, ``"unlinked"`` where
+      no launching call was recorded;
+    * ``device_busy_ms``: the union of the operations' intervals;
+    * ``device_idle_ms_per_step_by_span``: the window's stretches with no
+      device operation, each by the innermost program span (a model span
+      or ``launch``) the host was in at its midpoint, ``"other"`` outside
+      them.
+
+    Times are ms (ms a step where named so)."""
+    ranges = sorted((s, e, n[len(T.RANGE):]) for s, e, n, _ in host
+                    if n.startswith(T.RANGE))
+    model = [r for r in ranges if r[2] in T.MODEL]
+    starts, model_starts = [r[0] for r in ranges], [r[0] for r in model]
+    launched = {c: s for s, _, n, c in host
+                if c and n.startswith(LAUNCH_CALLS)}
+    lo, hi = next((s, e) for s, e, n, _ in host if n == TIMED)
+    by_name, by_class, intervals = {}, {}, []
+    for start, end, name, corr in device:
         if end <= start:
             continue
-        name = name if len(name) <= 96 else name[:93] + "..."
-        by_name[name] = by_name.get(name, 0.0) + end - start
+        ms = (end - start) / steps / 1e6
+        short = name if len(name) <= 96 else name[:93] + "..."
+        by_name[short] = by_name.get(short, 0.0) + ms
+        t = launched.get(corr)
+        cls = ("unlinked" if t is None
+               else _innermost(model, model_starts, t))
+        part = by_class.setdefault(cls, {})
+        part[short] = part.get(short, 0.0) + ms
         intervals.append((start, end))
-    busy = _busy_us(intervals)
-    out = {"steps": steps, "host_step_ms": host_ms,
-           "profiled_window_ms": window_us / 1e3,
-           "device_busy_ms": busy / 1e3,
-           "device_busy_share": busy / window_us if window_us else None,
-           "device_ms_per_step_by_kernel": {
-               k: v / steps / 1e3 for k, v in
-               sorted(by_name.items(), key=lambda kv: -kv[1])}}
-    if classes:
-        by_class = {}
-        for ev in events:
-            if ev.device_type != torch.autograd.DeviceType.CPU \
-                    or not ev.kernels:
-                continue
-            cls, timed_call, up = None, False, ev
-            while up is not None:
-                if cls is None and up.name.startswith(CLASS):
-                    cls = up.name[len(CLASS):]
-                timed_call |= up.name == TIMED
-                up = up.cpu_parent
-            if not timed_call:
-                continue
-            part = by_class.setdefault(cls or "other", {})
-            for k in ev.kernels:
-                part[k.name] = part.get(k.name, 0.0) + k.duration / steps / 1e3
-        out["device_ms_per_step_by_class"] = by_class
-    return out
+    idle = {}
+    for start, end in _gaps(intervals, lo, hi):
+        name = _innermost(ranges, starts, (start + end) / 2)
+        idle[name] = idle.get(name, 0.0) + (end - start) / steps / 1e6
+    return {"device_busy_ms": _busy_us(intervals) / 1e6,
+            "device_ms_per_step_by_kernel": dict(
+                sorted(by_name.items(), key=lambda kv: -kv[1])),
+            "device_ms_per_step_by_class": by_class,
+            "device_idle_ms_per_step_by_span": dict(
+                sorted(idle.items(), key=lambda kv: -kv[1]))}
 
 
-def profile_decode(engine, steps: int = 5, prompt_len: int = 20,
-                   classes=None) -> dict:
+def profile_steps(step, steps: int = 5) -> dict:
+    """Time ``steps`` calls of ``step(i)`` on the host clock, each ending
+    in ``torch.cuda.synchronize()``, then profile as many more under
+    ``torch.profiler`` (CPU and CUDA) after a lead-in call and a pause
+    (:func:`bursts` keeps the timed calls' kernels), split by
+    :func:`split`: device time by kernel and by model span, the card's
+    busy time and share of the timed calls' wall time, and its idle time
+    by program span.  ``host_enqueue_ms``: the host's time for one call
+    to return, with the device idle and behind a busy one.  Times are ms
+    a step but the totals'."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    pause_s = 0.2            # far longer than any idle gap inside a step
+    step(0)
+    torch.cuda.synchronize()
+    host_ms = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        step(i)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    # the host's time to enqueue one call, the device idle and behind a
+    # kernel that keeps it busy past the enqueue: alike unless a full
+    # launch queue makes the host wait for the device
+    enqueue_ms = {}
+    for where in ("device_idle", "device_busy"):
+        torch.cuda.synchronize()
+        if where == "device_busy":
+            torch.cuda._sleep(BUSY_CYCLES)
+        t0 = time.perf_counter()
+        step(0)
+        enqueue_ms[where] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(0)              # the lead-in, told apart by the pause
+        torch.cuda.synchronize()
+        time.sleep(pause_s)
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(TIMED):
+            for i in range(steps):
+                step(i)
+            torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    # the raw events, on one clock for host and device; a range's span on
+    # the card's timeline (a user annotation) is no work
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    host, device = [], []
+    for e in prof.profiler.kineto_results.events():
+        row = (e.start_ns(), e.end_ns(), e.name(), e.correlation_id())
+        if e.device_type() == cpu:
+            host.append(row)
+        elif e.device_type() == cuda and not e.is_user_annotation():
+            device.append(row)
+    out = split(host, bursts(device, pause_s * 1e9 / 2)[-1], steps)
+    return {"steps": steps, "host_step_ms": host_ms,
+            "host_enqueue_ms": enqueue_ms,
+            "profiled_window_ms": window_us / 1e3, **out,
+            "device_busy_share": (out["device_busy_ms"] * 1e3 / window_us
+                                  if window_us else None)}
+
+
+def syncs(fn) -> list:
+    """The CUDA syncs torch reports while ``fn()`` runs
+    (``torch.cuda.set_sync_debug_mode("warn")``): each warning's first
+    line, once, with its count."""
+    seen = {}
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        line = str(w.message).splitlines()[0]
+        if "called a synchronizing" in line:  # not the mode's notice
+            seen[line] = seen.get(line, 0) + 1
+    return [[line, n] for line, n in seen.items()]
+
+
+def profile_decode(engine, steps: int = 5, prompt_len: int = 20) -> dict:
     """Fill every slot of a warmed ``engine`` with a prefilled prompt of
     ``prompt_len`` tokens, then :func:`profile_steps` its ragged decode
-    steps, with the step's bound (:func:`step_cost`).  Returns the
-    breakdown (see the module docstring)."""
+    steps, with the step's bound (:func:`step_cost`) and the syncs of one
+    step (:func:`syncs`: building its inputs from the slots, and the
+    model's ``decode_step``; together the engine's ``decode.forward``).
+    Returns the breakdown (see the module docstring)."""
     cfg_len = engine.prompt_buckets[-1]
     rng = np.random.default_rng(0)
     for slot in range(engine.max_batch):
@@ -231,7 +314,9 @@ def profile_decode(engine, steps: int = 5, prompt_len: int = 20,
         return engine.model.decode_step(engine.params, engine.caches, toks,
                                         pos + i)
 
-    out = profile_steps(step, steps, classes)
+    out = profile_steps(step, steps)
+    out["decode_syncs"] = {"inputs": syncs(engine._decode_inputs),
+                           "decode_step": syncs(lambda: step(0))}
     step_bytes, step_flops = step_cost(engine.cfg, engine.params,
                                        engine.caches, engine.max_batch,
                                        prompt_len, engine.max_len)
@@ -254,6 +339,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--n-layers", type=int, default=None)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=96)
     ap.add_argument("--prompt-len", type=int, default=20)
     ap.add_argument("--json", dest="json_out", default=None)
     args = ap.parse_args(argv)
@@ -261,8 +348,9 @@ def main(argv=None) -> dict:
         print("profile_decode: needs a CUDA card", file=sys.stderr)
         sys.exit(1)
 
-    engine = S.build_engine(S.ServeConfig(arch=args.arch,
-                                          n_layers=args.n_layers, seed=0))
+    engine = S.build_engine(S.ServeConfig(
+        arch=args.arch, n_layers=args.n_layers, max_batch=args.max_batch,
+        max_len=args.max_len, seed=0))
     engine.warmup()
     out = profile_decode(engine, args.steps, args.prompt_len)
     print(json.dumps(out, indent=1))

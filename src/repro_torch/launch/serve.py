@@ -32,6 +32,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -179,11 +180,14 @@ def main(argv=None) -> ServeReport:
                                        if args.repromote_after > 0
                                        else None))
     report = run(cfg)
+    # the median engine step is the median ``tick`` span
+    tick_ms = statistics.median(r.wall_ms for r in report.per_step) \
+        if report.per_step else 0.0
     print(f"arch={args.arch} backend={args.backend} device={report.device} "
           f"requests={report.n_completed}/{report.n_requests} "
           f"steps={report.steps} tokens={report.decode_tokens} "
-          f"({report.tokens_per_s:.1f} tok/s incl. prefill) "
-          f"p50={report.p50_token_ms:.2f}ms p99={report.p99_token_ms:.2f}ms "
+          f"({report.decode_tokens / max(report.wall_s, 1e-9):.1f} output "
+          f"tok/s) tick_p50={tick_ms:.2f}ms "
           f"recompiles={report.decode_recompiles}")
     print(f"kernel cache: memory_hits={report.cache_memory_hits} "
           f"disk_hits={report.cache_disk_hits} "

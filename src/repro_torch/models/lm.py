@@ -46,6 +46,11 @@ A ``vlm`` model (internvl) takes precomputed vision embeddings
 (the vision frontend is a stub, as in the reference); :meth:`LM.loss`
 scores the text positions only.  Where autograd records, each layer is
 recomputed in the backward pass (``cfg.remat``, ``common.remat``).
+
+While a ``torch.profiler`` session records, the embedding, each layer's
+mixer and MLP, and the head are model spans (``repro_torch.tracing``:
+``embed``; ``attn``, ``mla`` or ``mamba``; ``swiglu`` or ``moe``;
+``head``).
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing as T
 from repro_torch.models import layers as L
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.common import (ModelConfig, SpecBuilder,
@@ -148,34 +154,39 @@ class LM:
 
     # -- forward --------------------------------------------------------------
     def _embed(self, params, tokens, vision_embeds=None):
-        x = L.embed(params["embed"], tokens).to(self.cfg.dtype)
-        if self.cfg.family == "vlm" and vision_embeds is not None:
-            x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
-        return constrain(x, "batch", None, None)
+        with T.model_span("embed"):
+            x = L.embed(params["embed"], tokens).to(self.cfg.dtype)
+            if self.cfg.family == "vlm" and vision_embeds is not None:
+                x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+            return constrain(x, "batch", None, None)
 
     def _logits(self, params, x):
-        x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
-        head = (constrain(params["embed"], "tensor", None).T
-                if self.cfg.tie_embeddings
-                else constrain(params["head"], None, "tensor"))
-        return constrain(x @ head, "batch", None, "tensor")
+        with T.model_span("head"):
+            x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
+            head = (constrain(params["embed"], "tensor", None).T
+                    if self.cfg.tie_embeddings
+                    else constrain(params["head"], None, "tensor"))
+            return constrain(x @ head, "batch", None, "tensor")
 
     def _mlp(self, p, x, i):
         """Layer ``i``'s MLP residual step (none in an ``ssm`` layer)."""
-        if self.cfg.mlp_of(i) == "none":
+        kind = self.cfg.mlp_of(i)
+        if kind == "none":
             return x
-        return x + L.mlp_apply(p["mlp"], x, p["ln2"], self.cfg, i)
+        with T.model_span(kind):
+            return x + L.mlp_apply(p["mlp"], x, p["ln2"], self.cfg, i)
 
     def _layer(self, p, x, i):
         """Layer ``i``: its mixer, then its MLP, each a residual step."""
         cfg = self.cfg
-        if self.mixers[i] == "mamba":
-            x = x + L.mamba_apply(p["mixer"], x, p["ln1"], cfg)
-        else:
-            mix = (L.mla_apply if self.mixers[i] == "mla"
-                   else L.attention_apply)
-            x = x + mix(p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                        cfg, causal=True)
+        with T.model_span(self.mixers[i]):
+            if self.mixers[i] == "mamba":
+                x = x + L.mamba_apply(p["mixer"], x, p["ln1"], cfg)
+            else:
+                mix = (L.mla_apply if self.mixers[i] == "mla"
+                       else L.attention_apply)
+                x = x + mix(p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                            cfg, causal=True)
         return self._mlp(p, x, i)
 
     def forward(self, params, tokens, vision_embeds=None) -> torch.Tensor:
@@ -256,7 +267,8 @@ class LM:
         max_len = max_len or x.shape[1]
         caches: Dict[str, list] = {}
         for i, p in enumerate(params["layers"]):
-            y, cache = self._prefill_mixer(p, x, i, max_len)
+            with T.model_span(self.mixers[i]):
+                y, cache = self._prefill_mixer(p, x, i, max_len)
             for name, t in cache.items():
                 caches.setdefault(name, []).append(t)
             x = self._mlp(p, x + y, i)
@@ -286,7 +298,9 @@ class LM:
         for i, p in enumerate(params["layers"]):
             cache = {name: caches[name][self.slots[i]]
                      for name in CACHE_NAMES[self.mixers[i]]}
-            x = self._mlp(p, x + self._decode_mixer(p, x, i, cache, pos), i)
+            with T.model_span(self.mixers[i]):
+                y = self._decode_mixer(p, x, i, cache, pos)
+            x = self._mlp(p, x + y, i)
         return self._logits(params, x), caches
 
 
