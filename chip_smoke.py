@@ -28,9 +28,11 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    lower on the rung it asked for and emit one kernel for each group its
    plan made;
 3. each emitted kernel against its plain PyTorch version on the card, on
-   inputs of the shapes its serving path (or path E) gives it (``rtol =
-   atol = 2e-4``), timed with CUDA events (back to back, so a short kernel is
-   timed at the host's enqueue rate) beside the plain version and, where
+   inputs of the shapes its serving path (or path E) gives it, and
+   qwen2-7b's at the benchmark cell's (``CELL``: 32 decode rows over 1024
+   positions, and its prompt buckets' prefills of 32 to 256 rows; built
+   in phase 2) (``rtol = atol = 2e-4``), timed with CUDA events (back to
+   back, so a short kernel is timed at the host's enqueue rate) beside the plain version and, where
    one PyTorch call computes the same function, that call
    (``scaled_dot_product_attention`` for attention, ``matmul`` for the
    down projection), and its device time per launch from
@@ -289,6 +291,13 @@ PATH_D = dict(arch="mamba2-2.7b", batch=4, seq=512, prefill=480,
 PATH_E = dict(arch="jamba-1.5-large-398b", n_layers=8, experts=(0, 2),
               batch=4, seq=512, prefill=480, drop_free_capacity=8.0,
               repeats=3, profile_steps=3)
+#: phase 3's kernels at the benchmark cell's shapes (bench/configs/
+#: qwen2-7b.json, bench/traffic/chat-closed32.json): qwen2-7b's SwiGLU
+#: (on the tensor cores) and attention at 32 decode rows over 1024
+#: positions and at every prompt bucket's prefill, each kernel the cell
+#: launches
+CELL = dict(name="qwen2-7b.chat", arch="qwen2-7b", max_batch=32,
+            max_len=1024, prefill_lens=(32, 64, 128, 256))
 #: the engine and trace of every serving phase
 SERVE = dict(n_requests=8, prompt_lens=(4, 24), gen_lens=(4, 12), seed=0,
              record_logits=True, max_batch=4, max_len=96,
@@ -1121,6 +1130,15 @@ def run_path_d(phase_s):
     torch.cuda.empty_cache()
     phase_s["7 path D"] = time.perf_counter() - t0
     return rec
+
+
+def cell_config():
+    """qwen2-7b's model config as :data:`CELL`'s kernels are compiled for
+    it (one layer: phase 3 draws no weights of its own)."""
+    from repro_torch.launch import serve as S
+    return S.model_config(S.ServeConfig(
+        arch=CELL["arch"], n_layers=1, max_batch=CELL["max_batch"],
+        max_len=CELL["max_len"], prompt_buckets=CELL["prefill_lens"]))
 
 
 def path_e_config(**over):
@@ -3634,6 +3652,10 @@ def main() -> int:
             if ck.lowering_report.degraded:
                 fail(f"{arch}/{prog}: planned groups split into per-region "
                      f"kernels: {ck.lowering_report.degraded}")
+    cell_cfg = cell_config()
+    cell_programs = {CELL["name"]: (cell_cfg, L.pipeline_kernels(
+        cell_cfg, prefill_lens=CELL["prefill_lens"],
+        decode_batch=CELL["max_batch"], max_len=CELL["max_len"]))}
     pe_cfg = path_e_config()
     path_e_served = {pe_cfg.name: (pe_cfg, path_e_programs(pe_cfg))}
     for prog, ck in path_e_served[pe_cfg.name][1].items():
@@ -3644,6 +3666,7 @@ def main() -> int:
             fail(f"path E {prog}: planned groups split into per-region "
                  f"kernels: {ck.lowering_report.degraded}")
     emitted = {k.key: k for _, programs in [*served.values(),
+                                            *cell_programs.values(),
                                             *path_e_served.values()]
                for ck in programs.values() for k in ck.kernels}
     tuned = tuned_programs(served)
@@ -3669,7 +3692,9 @@ def main() -> int:
     shapes = {arch: (SERVE["max_batch"], SERVE["max_len"], 1)
               for arch in served}
     shapes[pe_cfg.name] = (PATH_E["batch"], PATH_E["seq"], PATH_E["batch"])
-    rows = check_emitted({**served, **path_e_served}, gen, shapes)
+    shapes[CELL["name"]] = (CELL["max_batch"], CELL["max_len"], 1)
+    rows = check_emitted({**served, **cell_programs, **path_e_served}, gen,
+                         shapes)
     torch.cuda.empty_cache()   # the wide inputs' blocks, before the serves
     phase_s["3 emitted kernels"] = time.perf_counter() - t0
 

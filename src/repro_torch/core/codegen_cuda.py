@@ -27,7 +27,8 @@ or group plan:
   MAX reduce or a serial map of such accumulators followed only by a
   column-wise epilogue, is split over a thread-block cluster of
   ``cluster_size`` ranks along ``blockIdx.x`` (the divisor of its trip
-  count that brings the blocks closest to the SMs, at most 16).  Each rank
+  count that brings the blocks closest to the SMs, at most 16; for a
+  tensor-core loop, below, :func:`fill_cluster`'s size).  Each rank
   reduces its share of the trips into its own shared memory; after
   ``cluster.sync()`` each rank adds one column window of all ranks'
   partials through distributed shared memory, in rank order, and runs the
@@ -45,8 +46,9 @@ walked in order:
 * every other map is an in-kernel loop that computes its operands'
   offsets into the merged arrays (list outputs are written per step,
   straight to their destination);
-* a serial map's reduced ports are float32 accumulators in shared memory,
-  advanced with the two-phase coupled update of
+* a serial map's reduced ports are float32 accumulators in shared memory
+  (in registers inside ``tiles::dot_k_sum``, below), advanced with the
+  two-phase coupled update of
   ``ops.serial_accum_step``: all new maxima are computed before any
   accumulator is written, and ``+@k`` is
   ``acc * exp(z_old - z_new) + step * exp(m - z_new)``;
@@ -54,20 +56,45 @@ walked in order:
   (elementwise expressions, row-wise scales, shifts, outer products and
   causal masks are translated to C with ``ast``); their results live in
   shared memory, and values that cross regions inside a group stay there;
-* a tile product whose operands are contiguous along the contraction axis
-  (the strides are literals here) is ``tiles::dot_k``: operands in device
-  memory are staged by 16-byte ``cp.async`` copies, double-buffered, and
-  multiplied from shared memory (warp shuffles at R <= 8 rows, register
-  micro-tiles above); any other product reads its operands in place
-  (``tiles::dot``).
+* a serial map whose reduced ports are all ``+`` accumulators of tile
+  products sharing one operand, contiguous along k, at 16 rows or more and
+  inside no loop with coupled carries (the SwiGLU's gate/up and down
+  projections from 16 rows on) is one ``tiles::dot_k_sum`` for the whole
+  loop (:meth:`_Emitter.sum_operands`): the sums stay in registers as
+  ``mma.sync`` fragments, a cp.async ring of 3-4 stages streams the
+  operands' k-slices across the trips (the shared one once for all
+  products), the products run in 3xTF32 on the tensor cores (each k8's
+  three summed in a fresh fragment, then added in float32: the tensor
+  cores round a sum toward zero), and the accumulators are written to
+  shared memory once, after the loop;
+* any other tile product whose operands are contiguous along the
+  contraction axis (the strides are literals here) is ``tiles::dot_k``:
+  operands in device memory are staged by 16-byte ``cp.async`` copies,
+  double-buffered, and multiplied from shared memory on the CUDA cores
+  (warp shuffles at R <= 8 rows, register micro-tiles above); any other
+  product reads its operands in place (``tiles::dot``).
 
-What bounds it.  The kernels are float32 CUDA-core FMA (TF32 tensor cores
-would break the 2e-4 tolerance).  At decode sizes the SwiGLU kernels are
-bound by the bytes of the weights they read, which stream through 72
-blocks each in coalesced 16-byte copies at the serving shapes; at prefill
-by the float32 FMA rate of the blocks' micro-tiles; launches under ~0.1 ms
-by the host's enqueue path (:meth:`CudaKernel.launch` validates a
-signature once and then only builds the pointer array).
+Each kernel's ``product_path`` (and its source header) says which:
+``"tc3xtf32"`` when every tile product runs in ``tiles::dot_k_sum``,
+``"fma"`` otherwise.  A kernel on the tensor-core path has
+``__launch_bounds__(256, b)`` with b the blocks an SM holds at its shared
+memory (2 at most: :func:`resident_blocks`), and where its split
+candidate is the tensor-core loop the cluster is :func:`fill_cluster`'s:
+the size of least modelled time over the card's 132 x b block slots
+(:func:`sum_time`: whole waves of clusters, each block a rank's share of
+whole trips plus a fixed cost), ranks taking the trips as evenly as they
+split; every other kernel keeps :func:`cluster_size`'s plan.
+
+What bounds it.  Float32 throughout (one TF32 pass would break the 2e-4
+tolerance; 3xTF32 keeps it).  At decode sizes the SwiGLU kernels are bound
+by the bytes of the weights they read once; from 16 rows on they stream
+them through the ring of every resident block (qwen2-7b's gate/up at 32
+rows: 1036 blocks, 2 an SM), below 16 rows through 72-148 blocks of
+CUDA-core FMAs.  At prefill the 64-row blocks are bound by the tensor
+cores' 3xTF32 rate (mma.sync, not wgmma), the attention kernels by their
+CUDA-core FMA rate; launches under ~0.1 ms by the host's enqueue path
+(:meth:`CudaKernel.launch` validates a signature once and then only
+builds the pointer array).
 
 On a CUDA tensor a kernel launches or raises; it takes its plain version
 (``codegen_torch.region_runner``/``group_runner``) only for tensors on
@@ -108,8 +135,19 @@ MAX_INSTANCE_AXES = 2
 SMS = 132             # streaming multiprocessors of an H100 SXM
 MAX_CLUSTER = 16      # blocks per cluster with the non-portable opt-in
 PORTABLE_CLUSTER = 8  # blocks per cluster without it
+GPCS, GPC_SMS = 8, 16  # the H100 SXM's GPCs, and the SMs of each at least
 CHUNK_BYTES = 32768   # one staged chunk of a dot_k's b operand, at most
-STAGE_LIMIT = 98304   # a dot_k's staging, at most; past it tiles::dot
+STAGE_LIMIT = 98304   # a dot_k's staging or a dot_k_sum's ring, at most
+SM_SMEM = 233472      # bytes of shared memory of one H100 SM (228 KB)
+BLOCK_SMEM_RESERVED = 1024   # of them, the runtime's own per resident block
+#: the least blocks an SM holds of a kernel on the tensor-core path, its
+#: ``__launch_bounds__`` minimum: registers at most 65536 / (256 x 2) = 128
+#: a thread
+MIN_BLOCKS = 2
+SUM_STAGES = 4        # a dot_k_sum ring's stages, at most (3 at least)
+SUM_ACC_REGS = 64     # a dot_k_sum's accumulator registers a thread, at most
+#: the product paths of an emitted kernel (``CudaKernel.product_path``)
+TENSOR_PATH, FMA_PATH = "tc3xtf32", "fma"
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +265,22 @@ def _kpad(k: int) -> int:
     quarter is odd (float4 reads of 8 neighbouring rows hit 8 distinct
     bank groups)."""
     return k + 4 if (k // 4) % 2 == 0 else k + 8
+
+
+def _sum_ring(rows: int, cols: int, k: int, nb: int
+              ) -> Optional[Tuple[int, int]]:
+    """``(bk, stages)`` of a ``tiles::dot_k_sum`` ring within
+    ``STAGE_LIMIT`` for an a of ``rows`` x ``k`` and ``nb`` b of ``cols``
+    x ``k``: the wider k-slice, 32 floats and then 16, that divides ``k``
+    and leaves room for 3 stages or more (``SUM_STAGES`` at most); None
+    when neither does."""
+    rp = -(-rows // 16) * 16
+    for bk in (32, 16):
+        stages = min(SUM_STAGES,
+                     STAGE_LIMIT // ((rp + nb * cols) * (bk + 4) * 4))
+        if k % bk == 0 and stages >= 3:
+            return bk, stages
+    return None
 
 
 def _row_major(shape: Sequence[int]) -> Tuple[int, ...]:
@@ -479,6 +533,50 @@ def cluster_size(trips: int, cells: int) -> int:
     return best
 
 
+def resident_blocks(smem_bytes: int) -> int:
+    """Blocks of a tensor-core-path kernel one SM holds: as many as its
+    shared memory allows, at most the ``MIN_BLOCKS`` its
+    ``__launch_bounds__`` budgets registers for."""
+    return max(1, min(MIN_BLOCKS,
+                      SM_SMEM // (smem_bytes + BLOCK_SMEM_RESERVED)))
+
+
+def wave_clusters(cs: int, resident: int) -> int:
+    """Clusters of ``cs`` blocks the card runs at once, ``resident``
+    blocks an SM.  A cluster's blocks share one GPC: up to the portable 8
+    ranks they pack the card's ``SMS`` x ``resident`` slots; past it a
+    GPC (16 SMs at least, ``GPC_SMS``) holds whole clusters only, with
+    gaps (on an H100 SXM, qwen2-7b's g2 at 32 rows took 0.172 ms in
+    9-rank clusters against 0.129 in 8: PERF.md)."""
+    if cs <= PORTABLE_CLUSTER:
+        return SMS * resident // cs
+    return GPCS * (GPC_SMS * resident // cs)
+
+
+def sum_time(trips: int, cells: int, cs: int, resident: int) -> int:
+    """The modelled time of a tensor-core reduction of ``trips`` in each
+    of ``cells`` cells over clusters of ``cs`` ranks, in trips: its waves
+    (:func:`wave_clusters`) times a rank's largest share (``trips / cs``
+    rounded up) plus one for the block's fixed cost (the ring's fill, the
+    cluster's exchange, the epilogue: about a trip's time at the serving
+    shapes)."""
+    waves = -(-cells // wave_clusters(cs, resident))
+    return waves * (-(-trips // cs) + 1)
+
+
+def fill_cluster(trips: int, cells: int, resident: int) -> int:
+    """The cluster size of a reduction on the tensor-core path: of 1 to
+    ``MAX_CLUSTER`` ranks (none more than ``trips``; a rank takes
+    ``trips / cs`` of them, rounded either way), the one of least
+    :func:`sum_time`; the smaller on a tie."""
+    best = 1
+    for cs in range(2, min(trips, MAX_CLUSTER) + 1):
+        if (sum_time(trips, cells, cs, resident)
+                < sum_time(trips, cells, best, resident)):
+            best = cs
+    return best
+
+
 #: tile operators that act on each column of a tile on its own
 _COLUMN_OPS = (O.Elementwise, O.RowScale, O.RowShift, O.Outer, O.CausalMask)
 
@@ -548,15 +646,34 @@ def _split_candidate(spec: RegionSpec, launch_dims: Sequence[str],
     return path + (nid,), d
 
 
-def launch_plan(members: Sequence[RegionSpec], grid: Sequence[str],
-                types: Dict[Ref, VType], in_refs: Sequence[Ref],
-                in_item_shapes: Sequence[Tuple[int, ...]],
-                dims: Dict[str, int]) -> LaunchPlan:
-    """The launch plan of the kernel that runs ``members`` (in sequence)
-    over the group grid ``grid``: every dim :func:`lift_refusals` allows
-    is lifted, and the last member's reduction is split over a cluster
-    when :func:`_split_candidate` finds one and :func:`cluster_size` gives
-    it more than one rank."""
+def clustered(plan: LaunchPlan, cand, n_members: int,
+              dims: Dict[str, int], resident: int = 0) -> LaunchPlan:
+    """The launch plan of a kernel of ``n_members`` members from its plan
+    without a cluster and its last member's split candidate ``cand``
+    (:func:`plan_and_candidate`): the reduction is split over a cluster
+    when the rule gives it more than one rank: :func:`cluster_size`, or,
+    when that reduction runs on the tensor cores (``tiles::dot_k_sum``)
+    in ``resident`` blocks an SM, :func:`fill_cluster`.  ``split`` is set
+    only with a cluster."""
+    if cand is None:
+        return plan
+    path, d = cand
+    cs = (fill_cluster(dims[d], plan.cells, resident) if resident
+          else cluster_size(dims[d], plan.cells))
+    if cs == 1:
+        return plan
+    return replace(plan, cluster_dim=d, cluster_size=cs,
+                   split=(n_members - 1, path))
+
+
+def plan_and_candidate(members: Sequence[RegionSpec], grid: Sequence[str],
+                       types: Dict[Ref, VType], in_refs: Sequence[Ref],
+                       in_item_shapes: Sequence[Tuple[int, ...]],
+                       dims: Dict[str, int]):
+    """The plan, without a cluster, of the kernel that runs ``members``
+    (in sequence) over the group grid ``grid`` (every dim
+    :func:`lift_refusals` allows is lifted), and the last member's split
+    candidate (:func:`_split_candidate`) or None."""
     grid = tuple(grid)
     lifted: List[str] = []
     for spec in members:
@@ -575,21 +692,15 @@ def launch_plan(members: Sequence[RegionSpec], grid: Sequence[str],
     last = members[-1]
     cand = _split_candidate(last, launch,
                             [shapes[r] for r in last.in_refs])
-    plan = LaunchPlan(grid, tuple(lifted), cells)
-    if cand is not None:
-        path, d = cand
-        cs = cluster_size(dims[d], cells)
-        if cs > 1:
-            plan = replace(plan, cluster_dim=d, cluster_size=cs,
-                           split=(len(members) - 1, path))
-    return plan
+    return LaunchPlan(grid, tuple(lifted), cells), cand
 
 
-def _split_node(members: Sequence[RegionSpec], plan: LaunchPlan):
-    """The node ``plan.split`` locates, or None."""
-    if plan.split is None:
+def _split_node(members: Sequence[RegionSpec], split):
+    """The node ``split`` (a plan's: the member's index and the node ids
+    down to it) locates, or None."""
+    if split is None:
         return None
-    mi, path = plan.split
+    mi, path = split
     g = members[mi].graph
     for nid in path[:-1]:
         g = g.nodes[nid].inner
@@ -615,14 +726,24 @@ class _Emitter:
     block computes such values in shared memory and copies them out under
     the guard, so that it never reads back memory it did not write.  After
     the split, ``window`` holds the (rows, cols) tile whose column window
-    ``[wc0, wc1)`` this rank finishes."""
+    ``[wc0, wc1)`` this rank finishes.
+
+    ``products`` collects the product paths the body takes (none inside
+    a serial map with coupled carries, such as online softmax, takes the
+    tensor cores);
+    ``summed_candidate`` says whether ``candidate`` (the node a cluster
+    may split) took ``tiles::dot_k_sum``."""
 
     def __init__(self, dims: Dict[str, int], grid: Sequence[str],
-                 split_node=None, cluster: int = 1):
+                 split_node=None, cluster: int = 1, candidate=None):
         self.dims = dims
         self.grid = tuple(grid)
         self.split_node = split_node
         self.cluster = cluster
+        self.candidate = candidate
+        self.summed_candidate = False
+        self.coupled = 0   # serial maps with coupled carries around here
+        self.products: set = set()
         self.member_guards: Tuple[str, ...] = ()
         self.rank_guard = split_node is not None
         self.window: Optional[Tuple[int, int]] = None
@@ -692,16 +813,21 @@ class _Emitter:
 
     def loop(self, dim: str, split: bool = False) -> str:
         """Open a loop over an off-grid dim (only this rank's share of it
-        when ``split``), or bind the block's own coordinate of a grid dim;
-        returns the index expression."""
+        when ``split``: the trips [rank T / cs, (rank + 1) T / cs)), or
+        bind the block's own coordinate of a grid dim; returns the index
+        expression."""
         if dim in self.grid:
             return f"g_{_cname(dim)}"
         i = self.fresh("i")
-        n = self.dims[dim]
-        if split:
-            n //= self.cluster
+        n, cs = self.dims[dim], self.cluster
+        if split and n % cs == 0:
+            n //= cs
             self.emit(f"for (int {i} = rank * {n}; {i} < (rank + 1) * {n}; "
                       f"++{i}) {{")
+        elif split:       # ranks take the trips as dot_k_sum's do
+            self.emit(f"for (int {i} = rank * {n} / {cs}; "
+                      f"{i} < (rank + 1) * {n} / {cs}; ++{i}) {{")
+            n /= cs
         else:
             self.emit(f"for (int {i} = 0; {i} < {n}; ++{i}) {{")
         self.depth += 1
@@ -826,6 +952,7 @@ class _Emitter:
         _, _, ars, acs = a.as2d()
         _, _, brs, bcs = b.as2d()
         o = f"{out.addr}, {ors}, {ocs}"
+        self.products.add(FMA_PATH)
         sp = _kpad(k)
         cc = min(cols, max(8, CHUNK_BYTES // (4 * sp) // 8 * 8))
         floats = (rows + (2 if cols > cc else 1) * cc) * sp
@@ -845,6 +972,115 @@ class _Emitter:
         else:
             self.store(out, f"tiles::dot<{rows}, {cols}, {k}>({o}, "
                        f"{a.addr}, {ars}, {acs}, {b.addr}, {brs}, {bcs});")
+
+    def sum_operands(self, node: MapNode, ins: Sequence[_View], shapes,
+                     vtypes):
+        """The operands of ``tiles::dot_k_sum`` for the serial map
+        ``node`` over ``ins``, or None, where the map keeps its loop of
+        ``tiles::dot_k`` products and ``tiles::ew`` adds.
+
+        The map lies in no serial map with coupled carries (``+@k``,
+        max); every reduced port is a ``+`` accumulator of one product
+        (``O.Dot``) of two of the map's inputs, the products share their
+        first operand ``a`` and the body holds nothing else; every operand
+        is contiguous along k and, in device memory, 16-byte aligned at
+        every trip (as ``dot_k`` stages it); ``a`` has 16 rows or more;
+        the accumulators are plain (rows, cols) tiles within
+        ``SUM_ACC_REGS`` registers a thread, and the ring fits
+        (:func:`_sum_ring`).  Returns ``(a, a_step, [(b, b_step), ...],
+        (bk, stages))``: each operand's view at trip 0 and its element
+        stride per trip (0: the same every trip)."""
+        inner = node.inner
+        if (self.coupled or any(r != O.REDUCE_ADD for r in node.reduced)
+                or any(vt.dims for vt in vtypes)):
+            return None
+        pos = {iid: j for j, iid in enumerate(inner.input_ids)}
+        dots = [inner.in_edge(oid, 0).src for oid in inner.output_ids]
+        if len(set(dots)) != len(dots) or any(
+                not isinstance(n, (InputNode, OutputNode)) and i not in dots
+                for i, n in inner.nodes.items()):
+            return None
+        pairs = []
+        for i in dots:
+            n = inner.nodes[i]
+            src = [e.src for e in inner.in_edges(i)]
+            if not (isinstance(n, FuncNode) and isinstance(n.op, O.Dot)
+                    and all(s in pos for s in src)):
+                return None
+            pairs.append([pos[s] for s in src])
+        if len({p[0] for p in pairs}) != 1:
+            return None
+        views = {}
+        for j in {x for p in pairs for x in p}:
+            v, step = ins[j], 0
+            if node.mapped[j]:
+                if not v.lists or v.lists[0][0] != node.dim:
+                    return None
+                step = v.lists[0][1]
+                v = replace(v, lists=v.lists[1:],
+                            align=math.gcd(v.align, step))
+            if v.lists or len(v.shape) != 2 or v.strides[1] != 1:
+                return None
+            if v.ptr.startswith("in"):
+                if v.align % 4 or v.strides[0] % 4 or step % 4:
+                    return None
+            elif v.device:          # an output, never read back
+                return None
+            views[j] = (v, step)
+        a, a_step = views[pairs[0][0]]
+        bs = [views[p[1]] for p in pairs]
+        rows, k = a.shape
+        cols = bs[0][0].shape[0]
+        staged = {b.ptr.startswith("in") for b, _ in bs}
+        if (rows < 16 or cols % 8 or len(staged) != 1
+                or any(b.shape != (cols, k) for b, _ in bs)
+                or any(_as2d(s) != (rows, cols) for s in shapes)):
+            return None
+        warp_tiles = -(-(cols // 8) // (THREADS // 32))
+        if -(-rows // 16) * warp_tiles * len(bs) * 4 > SUM_ACC_REGS:
+            return None
+        ring = _sum_ring(rows, cols, k, len(bs))
+        return None if ring is None else (a, a_step, bs, ring)
+
+    def dot_k_sum(self, node: MapNode, summed, accs: Sequence[_View],
+                  base: int, split: bool) -> None:
+        """The whole loop of the serial map ``node`` as one
+        ``tiles::dot_k_sum`` (operands from :meth:`sum_operands`) into
+        ``accs``, its ring from ``base`` (the accumulators' first float)
+        on; a split rank takes the trips [rank T / cs, (rank + 1) T / cs)."""
+        a, a_step, bs, (bk, stages) = summed
+        rows, k = a.shape
+        cols, nb = bs[0][0].shape[0], len(bs)
+        trips = self.dims[node.dim]
+        share = trips / self.cluster if split else trips
+        t0, nt = "0", str(trips)
+        if split:
+            t0 = f"rank * {trips} / {self.cluster}"
+            nt = f"(rank + 1) * {trips} / {self.cluster} - {t0}"
+        # float operations as the loop of dot_k products and adds counts
+        self.count_flops(int(share * nb * (2 * rows * cols * k
+                                           + rows * cols)))
+        at = -(-base // 4) * 4               # 16-byte aligned
+        rp = -(-rows // 16) * 16
+        self.peak = max(self.peak, at + stages * (rp + nb * cols) * (bk + 4))
+        ops = [a] + [b for b, _ in bs]
+        self.aligned_inputs.update(int(v.ptr[2:]) for v in ops
+                                   if v.ptr.startswith("in"))
+        self.products.add(TENSOR_PATH)
+
+        def flag(v):
+            return "true" if v.ptr.startswith("in") else "false"
+
+        def braced(items):
+            return "{" + ", ".join(str(x) for x in items) + "}"
+
+        self.emit(
+            f"tiles::dot_k_sum<{rows}, {cols}, {k}, {nb}, {bk}, {stages}, "
+            f"{flag(a)}, {flag(bs[0][0])}>({braced(v.addr for v in accs)}, "
+            f"{cols}, {a.addr}, {a.strides[0]}, {a_step}, "
+            f"{braced(b.addr for b, _ in bs)}, "
+            f"{braced(b.strides[0] for b, _ in bs)}, "
+            f"{braced(s for _, s in bs)}, {t0}, {nt}, smem + {at});")
 
     # -- graph-level code ---------------------------------------------------
     def graph(self, g: Graph, ins: Sequence[_View],
@@ -929,6 +1165,9 @@ class _Emitter:
         split = node is self.split_node
         if d not in self.grid:   # a grid map's body picks its own
             dests = {p: self.dest(v) for p, v in dests.items()}
+        summed = (self.sum_operands(node, ins, shapes, vtypes)
+                  if node.serial else None)
+        base = self.smem
         outs: Dict[int, Optional[_View]] = {}
         for p, r in enumerate(node.reduced):
             if r is None:
@@ -940,19 +1179,30 @@ class _Emitter:
                     outs[p] = None  # dead port: computed, never stored
             else:
                 outs[p] = self.alloc(vtypes[p].dims, shapes[p])
-                self.fill(outs[p], -math.inf if r == O.REDUCE_MAX else 0.0)
-        idx = self.loop(d, split)
-        mark = self.smem
-        body_in = [v.index(d, idx) if m else v
-                   for v, m in zip(ins, node.mapped)]
-        body_dst = [outs[p].index(d, idx)
-                    if r is None and outs[p] is not None else None
-                    for p, r in enumerate(node.reduced)]
-        res = self.graph(node.inner, body_in, body_dst)
-        if node.serial:
-            self.accumulate(node, outs, res)
-        self.smem = mark
-        self.close(d)
+                if summed is None:
+                    self.fill(outs[p],
+                              -math.inf if r == O.REDUCE_MAX else 0.0)
+        if summed is not None:
+            self.dot_k_sum(node, summed, [outs[p] for p in outs], base,
+                           split)
+            self.summed_candidate |= node is self.candidate
+        else:
+            idx = self.loop(d, split)
+            mark = self.smem
+            body_in = [v.index(d, idx) if m else v
+                       for v, m in zip(ins, node.mapped)]
+            body_dst = [outs[p].index(d, idx)
+                        if r is None and outs[p] is not None else None
+                        for p, r in enumerate(node.reduced)]
+            coupled = node.serial and any(
+                r not in (None, O.REDUCE_ADD) for r in node.reduced)
+            self.coupled += coupled
+            res = self.graph(node.inner, body_in, body_dst)
+            self.coupled -= coupled
+            if node.serial:
+                self.accumulate(node, outs, res)
+            self.smem = mark
+            self.close(d)
         if split:
             self.combine([outs[p] for p in range(len(node.reduced))],
                          [r == O.REDUCE_MAX for r in node.reduced])
@@ -1014,6 +1264,10 @@ def _kernel_source(em: _Emitter, plan: LaunchPlan, kname: str, gid: str,
                    label: str, entry: str, n_in: int, n_out: int) -> str:
     smem = em.peak * 4
     cs = plan.cluster_size
+    # a kernel with a tensor-core K loop budgets registers for the blocks
+    # its shared memory lets an SM hold (the plan counts on them)
+    tensor = TENSOR_PATH in em.products
+    bounds = ((THREADS, resident_blocks(smem)) if tensor else (THREADS,))
     lifted = f", {list(plan.lifted)} lifted" if plan.lifted else ""
     cluster = (f"a cluster of {cs} blocks splits the {plan.cluster_dim} "
                f"reduction of each cell" if cs > 1 else "one block a cell")
@@ -1027,13 +1281,18 @@ def _kernel_source(em: _Emitter, plan: LaunchPlan, kname: str, gid: str,
         f"// {smem} bytes of shared memory and {em.flops} float operations "
         "per block; operands contiguous along k are staged by cp.async "
         "(tiles::dot_k), the rest read where they lie.",
+        f"// product path: {_product_path(em)} ("
+        + ("every tile product in tiles::dot_k_sum, 3xTF32 on the tensor "
+           f"cores; {bounds[1]} blocks an SM" if tensor else
+           "tile products, if any, as float32 FMAs on the CUDA cores")
+        + ").",
         '#include "tiles.cuh"',
         "",
         f"struct KArgs {{ const float* in[{max(n_in, 1)}]; "
         f"float* out[{max(n_out, 1)}]; long long is[{max(n_in, 1)}][2]; "
         f"long long os[{max(n_out, 1)}][2]; }};",
         "",
-        f"__global__ void __launch_bounds__({THREADS}) "
+        f"__global__ void __launch_bounds__({', '.join(map(str, bounds))}) "
         f"{kname}(const KArgs A) {{",
         "  extern __shared__ __align__(16) float smem[];",
         "  const long long u0 = blockIdx.y, u1 = blockIdx.z;",
@@ -1114,6 +1373,12 @@ def _kernel_source(em: _Emitter, plan: LaunchPlan, kname: str, gid: str,
     return "\n".join(head + em.lines + tail)
 
 
+def _product_path(em: _Emitter) -> str:
+    """``TENSOR_PATH`` when every tile product of the body runs in
+    ``tiles::dot_k_sum``, else ``FMA_PATH`` (a body with no product, too)."""
+    return TENSOR_PATH if em.products == {TENSOR_PATH} else FMA_PATH
+
+
 def _trailing_contiguous(t: torch.Tensor, lead: int) -> bool:
     expect = 1
     for size, stride in zip(reversed(t.shape[lead:]),
@@ -1133,13 +1398,14 @@ class CudaKernel:
     ``blocks`` is the launch's blocks per instance (cells x cluster
     ranks), ``flops`` the float operations the launch executes per
     instance (recomputed members and the cluster's exchange included),
-    ``aligned`` the inputs that ``tiles::dot_k`` stages by 16-byte
-    copies."""
+    ``aligned`` the inputs that ``tiles::dot_k`` or ``tiles::dot_k_sum``
+    stages by 16-byte copies, ``product_path`` where its tile products run
+    (``TENSOR_PATH``: all in ``tiles::dot_k_sum``, else ``FMA_PATH``)."""
 
     def __init__(self, gid: str, label: str, entry: str, kname: str,
                  source: str, runner: Callable, in_full, out_full,
                  smem_bytes: int, plan: LaunchPlan, flops: int = 0,
-                 aligned: Sequence[int] = ()):
+                 aligned: Sequence[int] = (), product_path: str = FMA_PATH):
         self.gid, self.label, self.entry = gid, label, entry
         self.kname = kname       # the name the profiler shows
         self.source = source
@@ -1151,6 +1417,7 @@ class CudaKernel:
         self.blocks = plan.blocks
         self.flops = flops
         self.aligned = tuple(aligned)
+        self.product_path = product_path
         self.launcher = CB.Launcher(source, "launch",
                                     what=f"kernel {gid} ({label})")
         self._ptrs = ctypes.c_void_p * (len(in_full) + len(out_full))
@@ -1158,7 +1425,8 @@ class CudaKernel:
 
     def __repr__(self):
         return (f"<CudaKernel {self.gid} {self.label} blocks={self.blocks} "
-                f"cluster={self.plan.cluster_size} smem={self.smem_bytes}>")
+                f"cluster={self.plan.cluster_size} smem={self.smem_bytes} "
+                f"{self.product_path}>")
 
     @property
     def key(self) -> str:
@@ -1277,15 +1545,13 @@ def build(kernels: Sequence[CudaKernel]) -> float:
     return time.perf_counter() - t0
 
 
-def _emit_kernel(members: Sequence[RegionSpec], grid: Sequence[str],
-                 in_refs, out_refs, ref_types: Dict[Ref, VType],
-                 in_item_shapes, out_item_shapes, dims: Dict[str, int],
-                 gid: str, label: str, entry: str, runner: Callable
-                 ) -> CudaKernel:
-    plan = launch_plan(members, grid, ref_types, in_refs, in_item_shapes,
-                       dims)
-    em = _Emitter(dims, plan.launch_dims, _split_node(members, plan),
-                  plan.cluster_size)
+def _emit_members(members: Sequence[RegionSpec], plan: LaunchPlan,
+                  in_refs, out_refs, ref_types: Dict[Ref, VType],
+                  in_item_shapes, out_item_shapes, dims: Dict[str, int],
+                  gid: str, candidate=None) -> _Emitter:
+    """The body of the kernel that runs ``members`` under ``plan``."""
+    em = _Emitter(dims, plan.launch_dims, _split_node(members, plan.split),
+                  plan.cluster_size, candidate)
     env: Dict[Ref, _View] = {}
     for j, (r, ish) in enumerate(zip(in_refs, in_item_shapes)):
         env[r] = _merged_view(f"in{j}", ref_types[r], ish, dims)
@@ -1316,6 +1582,32 @@ def _emit_kernel(members: Sequence[RegionSpec], grid: Sequence[str],
     if em.peak * 4 > SMEM_LIMIT:
         raise RegionError(f"{gid}: {em.peak * 4} bytes of shared memory "
                           f"exceed the block limit {SMEM_LIMIT}")
+    return em
+
+
+def _emit_kernel(members: Sequence[RegionSpec], grid: Sequence[str],
+                 in_refs, out_refs, ref_types: Dict[Ref, VType],
+                 in_item_shapes, out_item_shapes, dims: Dict[str, int],
+                 gid: str, label: str, entry: str, runner: Callable
+                 ) -> CudaKernel:
+    """Plan and emit one kernel.  Where the reduction a cluster may split
+    runs on the tensor cores (``tiles::dot_k_sum``), the cluster is chosen
+    again by :func:`fill_cluster` from the blocks an SM holds at the
+    emitted body's shared memory (which the cluster does not change), and
+    the body emitted again under that plan."""
+    bare, cand = plan_and_candidate(members, grid, ref_types, in_refs,
+                                    in_item_shapes, dims)
+    plan = clustered(bare, cand, len(members), dims)
+    body = (in_refs, out_refs, ref_types, in_item_shapes, out_item_shapes,
+            dims, gid)
+    em = _emit_members(members, plan, *body, candidate=_split_node(
+        members, (len(members) - 1, cand[0]) if cand else None))
+    if em.summed_candidate:
+        tuned = clustered(bare, cand, len(members), dims,
+                          resident_blocks(em.peak * 4))
+        if tuned != plan:
+            plan = tuned
+            em = _emit_members(members, plan, *body)
     # the name the profiler shows: the emitter, the group, and a digest of
     # the body (the same group at another shape gets another name)
     digest = hashlib.sha1("\n".join(em.lines).encode()).hexdigest()[:8]
@@ -1327,8 +1619,9 @@ def _emit_kernel(members: Sequence[RegionSpec], grid: Sequence[str],
     out_full = [merged_shape(ref_types[r], ish, dims)
                 for r, ish in zip(out_refs, out_item_shapes)]
     return CudaKernel(gid, label, entry, kname, source, runner, in_full,
-                      out_full, em.peak * 4, plan, em.flops * plan.blocks,
-                      sorted(em.aligned_inputs))
+                      out_full, em.peak * 4, plan,
+                      round(em.flops * plan.blocks),
+                      sorted(em.aligned_inputs), _product_path(em))
 
 
 # ---------------------------------------------------------------------------

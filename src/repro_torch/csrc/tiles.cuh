@@ -25,6 +25,17 @@
 //   warp shuffles add the lanes' partial sums; with more rows each thread
 //   owns a register micro-tile of ceil(R/8) rows of one column and reads
 //   float4s.
+// * dot_k_sum, the whole K loop of a serial map whose reduced ports are
+//   all `+` accumulators of tile products sharing one operand a (the
+//   SwiGLU's gate/up, two products, and its down projection, one) at 16
+//   rows or more: the sums stay in registers as mma.sync C fragments for
+//   the whole loop; a ring of ST stages, filled by cp.async ST - 1
+//   k-steps ahead across the trips, holds the next BK-wide k-slice of a
+//   (once for every product) and of each b; the products run on the
+//   tensor cores in 3xTF32 (mma.cuh: m16n8k8, hi/lo split of both
+//   operands, each k8's three products summed in a fresh fragment and
+//   added to the running sum in float32).  The ring may overlap the
+//   accumulators' shared memory, which is written once, after the loop.
 // * dot, the product at any other strides: one thread per output, reading
 //   its operands where they live.
 // * row_sum, row_max: a warp per row, lanes over its columns, warp
@@ -44,6 +55,8 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+
+#include "mma.cuh"
 
 namespace tiles {
 
@@ -205,6 +218,154 @@ __device__ __forceinline__ void dot_k(float* o, int ors, int ocs,
     }
     __syncthreads();
   }
+}
+
+// dot_k_sum: acc[j] = sum over the trips t0 <= i < t0 + nt of a_i @ b_j,i.T,
+// with a_i = a + i * astep an (R, KT) tile at row stride ars and b_j,i =
+// b[j] + i * bstep[j] a (C, KT) tile at row stride brs[j], all contiguous
+// along k; acc[j] an (R, C) tile at row stride ors.  AG / BG: a / every b
+// lies in device memory (staged by 16-byte cp.async; the emitter checks
+// the alignment), else in shared memory (staged by plain copies).  ring:
+// 16-byte aligned shared memory for ST stages of (RP + NB C) rows of
+// BK + 4 floats (RP: R rounded up to 16; rows past R are zeros), which
+// may overlap acc.
+//
+// Warp w owns the n8 column tiles w, w + 8, ... of every product and all
+// RP / 16 row tiles, so each b fragment is split once and used for every
+// row tile, and each a fragment once for every product.  Staged rows are
+// BK + 4 floats apart, (BK + 4) / 4 odd: a fragment's 8 rows x 4 k fall
+// in 32 distinct banks.
+template <int R, int C, int KT, int NB, int BK, int ST, bool AG, bool BG>
+__device__ __forceinline__ void dot_k_sum(
+    float* const (&acc)[NB], int ors, const float* a, int ars,
+    long long astep, const float* const (&b)[NB], const int (&brs)[NB],
+    const long long (&bstep)[NB], int t0, int nt, float* ring) {
+  constexpr int RP = (R + 15) / 16 * 16, MT = RP / 16;
+  constexpr int N8 = C / 8, NW = (N8 + WARPS - 1) / WARPS;
+  constexpr int SP = BK + 4, Q = BK / 4, KS = KT / BK;
+  constexpr int STAGE = (RP + NB * C) * SP;
+  static_assert(R >= 16 && C % 8 == 0 && BK % 8 == 0 && KT % BK == 0 &&
+                    (SP / 4) % 2 == 1 && ST >= 3,
+                "dot_k_sum: m16n8k8 tiles on a conflict-free ring");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int steps = nt * KS;
+
+  // stage k-step s (trip t0 + s / KS, k-slice s % KS) into slot s % ST
+  auto load = [&](int s) {
+    const long long trip = t0 + s / KS;
+    const int kk = (s % KS) * BK;
+    float* st = ring + (s % ST) * STAGE;
+    const float* as = a + trip * astep + kk;
+    for (int e = threadIdx.x; e < RP * Q; e += blockDim.x) {
+      const int r = e / Q, q = e - (e / Q) * Q;
+      float* dst = st + r * SP + 4 * q;
+      if constexpr (AG) {
+        mma::cp_async16(dst, as + (long long)(r < R ? r : 0) * ars + 4 * q,
+                        r < R);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dst[i] = r < R ? as[(long long)r * ars + 4 * q + i] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const float* bs = b[j] + trip * bstep[j] + kk;
+      float* sb = st + (RP + j * C) * SP;
+      for (int e = threadIdx.x; e < C * Q; e += blockDim.x) {
+        const int c = e / Q, q = e - (e / Q) * Q;
+        const float* src = bs + (long long)c * brs[j] + 4 * q;
+        if constexpr (BG) {
+          mma::cp_async16(sb + c * SP + 4 * q, src, true);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sb[c * SP + 4 * q + i] = src[i];
+        }
+      }
+    }
+  };
+
+  float c[NB][MT][NW][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < NW; ++i)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) c[j][m][i][v] = 0.f;
+
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < steps) load(s);
+    mma::cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    mma::cp_async_wait<ST - 2>();  // k-step s has landed
+    __syncthreads();               // ... for all, and slot (s - 1) is free
+    if (s + ST - 1 < steps) load(s + ST - 1);
+    mma::cp_async_commit();
+    const float* sa = ring + (s % ST) * STAGE;
+#pragma unroll
+    for (int k8 = 0; k8 < BK; k8 += 8) {
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* p = sa + (16 * m + g) * SP + k8 + t;
+        mma::split(p[0], ah[m][0], al[m][0]);
+        mma::split(p[8 * SP], ah[m][1], al[m][1]);
+        mma::split(p[4], ah[m][2], al[m][2]);
+        mma::split(p[8 * SP + 4], ah[m][3], al[m][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+          const int n = warp + WARPS * i;
+          if (N8 % WARPS == 0 || n < N8) {
+            const float* p = sa + (RP + j * C + 8 * n + g) * SP + k8 + t;
+            uint32_t bh[2], bl[2];
+            mma::split(p[0], bh[0], bl[0]);
+            mma::split(p[4], bh[1], bl[1]);
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+              // the tensor cores round each sum toward zero: a fresh
+              // fragment per k8, added in float32, keeps that to the k8's
+              // own size instead of ~1 ulp of the running sum per mma
+              float t[4] = {0.f, 0.f, 0.f, 0.f};
+              mma::mma_3xtf32(t, ah[m], al[m], bh, bl);
+#pragma unroll
+              for (int v = 0; v < 4; ++v) c[j][m][i][v] += t[v];
+            }
+          }
+        }
+      }
+    }
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();  // the ring is read out: acc may overlap it
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int n = warp + WARPS * i;
+      if (N8 % WARPS == 0 || n < N8) {
+        const int col = 8 * n + 2 * t;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int r = 16 * m + g;
+          if (r < R) {
+            acc[j][r * ors + col] = c[j][m][i][0];
+            acc[j][r * ors + col + 1] = c[j][m][i][1];
+          }
+          if (r + 8 < R) {
+            acc[j][(r + 8) * ors + col] = c[j][m][i][2];
+            acc[j][(r + 8) * ors + col + 1] = c[j][m][i][3];
+          }
+        }
+      }
+    }
+  __syncthreads();
 }
 
 // -- reductions over a row ---------------------------------------------------

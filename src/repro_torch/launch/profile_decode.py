@@ -15,9 +15,11 @@ then runs ``--steps`` ragged decode steps:
   step and a pause (the profiler can miss the first kernels of a session
   on the card; :func:`bursts` keeps the timed steps' kernels): device
   time by kernel name (the emitted kernels are named
-  ``emit_region_<gid>`` and ``emit_group_<gid>``) and by model span
-  (``repro_torch.tracing``), the device's busy share of the timed steps'
-  wall time, and its idle time by the program span the host was in;
+  ``emit_region_<gid>`` and ``emit_group_<gid>``), by model span
+  (``repro_torch.tracing``) and by product path (an emitted kernel's
+  tensor-core or CUDA-core products), the device's busy share of the
+  timed steps' wall time, and its idle time by the program span the host
+  was in;
 * the CUDA syncs one engine decode step makes
   (``torch.cuda.set_sync_debug_mode("warn")``);
 * the step's bound (:func:`step_cost`): the larger of its bytes (every
@@ -133,6 +135,18 @@ LAUNCH_CALLS = "cu"
 BUSY_CYCLES = 800_000_000
 
 
+#: the product path of a device operation that no emitted kernel ran
+NOT_EMITTED = "not emitted"
+
+
+def product_path(event_name: str, paths: dict) -> str:
+    """The product path (``paths``: ``CudaKernel.product_path`` by
+    ``CudaKernel.kname``) of the emitted kernel a profiler event names
+    (``void emit_region_g1_23_...(KArgs)``), or :data:`NOT_EMITTED`."""
+    head = event_name.split("(")[0].split()
+    return paths.get(head[-1] if head else event_name, NOT_EMITTED)
+
+
 def _innermost(ranges, starts, t: float):
     """The name of the innermost of ``ranges`` (``(start, end, name)``,
     sorted by start; ``starts`` their starts) that holds ``t``, or
@@ -159,11 +173,13 @@ def _gaps(intervals, lo: float, hi: float):
     return [(s, e) for s, e in out if e > s]
 
 
-def split(host, device, steps: int) -> dict:
+def split(host, device, steps: int, paths=None) -> dict:
     """Where a profiled window's device time goes, from the host events
     ``host`` (``(start, end, name, correlation)``, one thread's) and the
     window's device operations ``device`` (the same fields), in ns on the
-    profiler's clock; the window is the host event named :data:`TIMED`.
+    profiler's clock; the window is the host event named :data:`TIMED`;
+    ``paths``: the emitted kernels' product paths by name
+    (:func:`product_path`).
 
     * ``device_ms_per_step_by_kernel``: by name;
     * ``device_ms_per_step_by_class``: class, then kernel name; a
@@ -171,6 +187,10 @@ def split(host, device, steps: int) -> dict:
       held the call that launched it (:data:`LAUNCH_CALLS`, matched by
       correlation id), ``"other"`` where none did, ``"unlinked"`` where
       no launching call was recorded;
+    * ``device_ms_per_step_by_product_path``: path, then class: an
+      emitted kernel's ``CudaKernel.product_path`` (``"tc3xtf32"``: its
+      tile products on the tensor cores, ``"fma"``: on the CUDA cores),
+      :data:`NOT_EMITTED` for every other operation;
     * ``device_busy_ms``: the union of the operations' intervals;
     * ``device_idle_ms_per_step_by_span``: the window's stretches with no
       device operation, each by the innermost program span (a model span
@@ -185,7 +205,7 @@ def split(host, device, steps: int) -> dict:
     launched = {c: s for s, _, n, c in host
                 if c and n.startswith(LAUNCH_CALLS)}
     lo, hi = next((s, e) for s, e, n, _ in host if n == TIMED)
-    by_name, by_class, intervals = {}, {}, []
+    by_name, by_class, by_path, intervals = {}, {}, {}, []
     for start, end, name, corr in device:
         if end <= start:
             continue
@@ -197,6 +217,8 @@ def split(host, device, steps: int) -> dict:
                else _innermost(model, model_starts, t))
         part = by_class.setdefault(cls, {})
         part[short] = part.get(short, 0.0) + ms
+        part = by_path.setdefault(product_path(name, paths or {}), {})
+        part[cls] = part.get(cls, 0.0) + ms
         intervals.append((start, end))
     idle = {}
     for start, end in _gaps(intervals, lo, hi):
@@ -206,18 +228,20 @@ def split(host, device, steps: int) -> dict:
             "device_ms_per_step_by_kernel": dict(
                 sorted(by_name.items(), key=lambda kv: -kv[1])),
             "device_ms_per_step_by_class": by_class,
+            "device_ms_per_step_by_product_path": by_path,
             "device_idle_ms_per_step_by_span": dict(
                 sorted(idle.items(), key=lambda kv: -kv[1]))}
 
 
-def profile_steps(step, steps: int = 5) -> dict:
+def profile_steps(step, steps: int = 5, paths=None) -> dict:
     """Time ``steps`` calls of ``step(i)`` on the host clock, each ending
     in ``torch.cuda.synchronize()``, then profile as many more under
     ``torch.profiler`` (CPU and CUDA) after a lead-in call and a pause
     (:func:`bursts` keeps the timed calls' kernels), split by
-    :func:`split`: device time by kernel and by model span, the card's
-    busy time and share of the timed calls' wall time, and its idle time
-    by program span.  ``host_enqueue_ms``: the host's time for one call
+    :func:`split`: device time by kernel, by model span and by product
+    path (``paths``, as :func:`split` takes them), the card's busy time
+    and share of the timed calls' wall time, and its idle time by program
+    span.  ``host_enqueue_ms``: the host's time for one call
     to return, with the device idle and behind a busy one.  Times are ms
     a step but the totals'."""
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -263,7 +287,7 @@ def profile_steps(step, steps: int = 5) -> dict:
             host.append(row)
         elif e.device_type() == cuda and not e.is_user_annotation():
             device.append(row)
-    out = split(host, bursts(device, pause_s * 1e9 / 2)[-1], steps)
+    out = split(host, bursts(device, pause_s * 1e9 / 2)[-1], steps, paths)
     return {"steps": steps, "host_step_ms": host_ms,
             "host_enqueue_ms": enqueue_ms,
             "profiled_window_ms": window_us / 1e3, **out,
@@ -314,7 +338,8 @@ def profile_decode(engine, steps: int = 5, prompt_len: int = 20) -> dict:
         return engine.model.decode_step(engine.params, engine.caches, toks,
                                         pos + i)
 
-    out = profile_steps(step, steps)
+    out = profile_steps(step, steps, {k.kname: k.product_path
+                                      for k in engine.kernels.values()})
     out["decode_syncs"] = {"inputs": syncs(engine._decode_inputs),
                            "decode_step": syncs(lambda: step(0))}
     step_bytes, step_flops = step_cost(engine.cfg, engine.params,

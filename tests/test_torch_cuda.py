@@ -9,11 +9,15 @@ plain version at ``rtol = atol = 2e-4``; a CUDA call counts one launch
 per kernel.  The same holds for every fusion snapshot, grouped and
 ungrouped (the card side of ``tests/test_torch_coverage.py``), for every
 kernel of the serving path at its serving shape (full-width smollm-135m:
-decode batch 4, prompt buckets 8/16/32, max_len 96), and for a reduction
-whose trip count gives a cluster of 13 ranks or, having no divisor up to
-16, none.  The compile driver on the card: a measured autotune and a
-disk-hit re-lowering that loads its libraries without nvcc.  This module
-imports no JAX: the machine with the card has none.
+decode batch 4, prompt buckets 8/16/32, max_len 96), for qwen2-7b's
+SwiGLU on the tensor cores at the benchmark cell's shapes (32 decode rows,
+a 64-row prefill), for a kernel whose products all run in
+``tiles::dot_k_sum`` with an operand in shared memory and ranks of unequal
+shares, and for a reduction whose trip count gives a cluster of 13 ranks
+or, having no divisor up to 16, none.  The compile driver on the card: a
+measured autotune and a disk-hit re-lowering that loads its libraries
+without nvcc.  This module imports no JAX: the machine with the card has
+none.
 """
 
 import numpy as np
@@ -295,6 +299,74 @@ def test_deepseek_swiglu_kernels_on_card(name, card):
             torch.testing.assert_close(g_, w_, rtol=TOL, atol=TOL,
                                        msg=f"{name}/{kern.gid}")
         env.update(zip(kr.out_refs, got))
+
+
+QWEN2_7B_SWIGLU = ("swiglu_decode", "swiglu_prefill32", "swiglu_prefill64")
+
+
+@pytest.mark.parametrize("name", QWEN2_7B_SWIGLU)
+def test_qwen2_7b_swiglu_kernels_on_card(name, card):
+    """The emitted SwiGLU kernels at qwen2-7b's widths (d 3584, d_ff
+    18944) and the benchmark cell's shapes: 32 decode rows, the 32-row
+    prefill (the same kernels) and a 64-row prefill block; g1 and g2 on
+    the tensor cores (``tiles::dot_k_sum``), each launched once on seeded
+    inputs against its plain version."""
+    from repro_torch.launch import serve as S
+    from repro_torch.models import layers as L
+    mc = S.model_config(S.ServeConfig(arch="qwen2-7b", n_layers=1))
+    ck = L.pipeline_kernels(mc, prefill_lens=(32, 64), decode_batch=32,
+                            max_len=1024)[name]
+    d, dff = mc.d_model, mc.d_ff
+    t = 32 if name == "swiglu_decode" else int(name[len("swiglu_prefill"):])
+    gen = torch.Generator(device=card).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=card) * scale
+
+    inputs = {"X": randn(t, d), "WT": randn(dff, d, scale=d ** -0.5),
+              "VT": randn(dff, d, scale=d ** -0.5),
+              "UT": randn(d, dff, scale=dff ** -0.5)}
+    raw = ck._fn.raw_program
+    env = {ref: inputs[n] for ref, n in zip(raw.input_refs, ck.in_names)}
+    CC.build(ck.kernels)
+    assert [k.product_path for k in ck.kernels] == [
+        CC.FMA_PATH, CC.TENSOR_PATH, CC.TENSOR_PATH]
+    for kr, kern in raw.region_runners:
+        kin = [env[r] for r in kr.in_refs]
+        got = kern(*kin)
+        want = kern.plain(*kin)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            torch.testing.assert_close(g_, w_, rtol=TOL, atol=TOL,
+                                       msg=f"{name}/{kern.gid}")
+        env.update(zip(kr.out_refs, got))
+
+
+#: rmsnorm_swiglu at 16-row blocks: one kernel whose products all run in
+#: ``tiles::dot_k_sum`` (the gate/up inside a loop over K, the down
+#: projection's operand a in shared memory), the down projection's 13 K
+#: trips over a cluster of 7 ranks of 1 or 2 trips
+TENSOR_SHAPE = ({"M": 1, "D": 2, "K": 13, "N": 22},
+                {"M": 16, "D": 16, "K": 16, "N": 8})
+
+
+def test_tensor_core_path_in_a_group_on_card(card):
+    """:data:`TENSOR_SHAPE`'s kernel on the card against its plain
+    version: staged plain copies of a shared-memory operand, a ring reused
+    across the calls of a loop, ranks of unequal shares."""
+    dims, blocks = TENSOR_SHAPE
+    kern = TP.compile(TAP.rmsnorm_ffn_swiglu_program(16.0), dims,
+                      options=TP.CompileOptions(backend="cuda",
+                                                blocks=blocks))
+    assert [(k.product_path, k.plan.cluster_size) for k in kern.kernels] == [
+        (CC.TENSOR_PATH, 7)]
+    feed = {n: torch.from_numpy(v)
+            for n, v in merged_inputs(kern.graph, dims, blocks).items()}
+    want = kern(feed)
+    got = kern({n: v.to(card) for n, v in feed.items()})
+    torch.cuda.synchronize()
+    for n in kern.out_names:
+        torch.testing.assert_close(got[n].cpu(), want[n], rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("ragged", [False, True], ids=["scalar", "ragged"])

@@ -90,11 +90,110 @@ def test_cuda_source_for_every_kernel(name):
         src = k.source
         assert '#include "tiles.cuh"' in src
         assert "__global__" in src and 'extern "C" int launch(' in src
-        # every product of the serving path is contiguous along k
-        assert "tiles::dot_k<" in src and "tiles::dot<" not in src
+        # every product of the serving path is contiguous along k: the
+        # tensor-core K loop or the staged CUDA-core product, never
+        # tiles::dot
+        summed = "tiles::dot_k_sum<" in src
+        assert summed or "tiles::dot_k<" in src
+        assert "tiles::dot<" not in src
+        assert k.product_path == (CC.TENSOR_PATH if summed and
+                                  "tiles::dot_k<" not in src
+                                  else CC.FMA_PATH)
+        assert f"// product path: {k.product_path} (" in src
         assert src.count("{") == src.count("}")
         assert 0 < k.smem_bytes <= CC.SMEM_LIMIT
         assert k.flops > 0
+
+
+def _qwen2_7b(name):
+    """A qwen2-7b serving program as the model layers compile it on the
+    ``cuda`` backend: ``swiglu<t>`` over t token rows, ``attention_decode``
+    of one query row over 1024 positions (the benchmark cell's
+    ``max_len``), ``attention_prefill32``."""
+    from repro_torch import configs as C
+    from repro_torch.models import layers as L
+    cfg = C.get_config("qwen2-7b")
+    opts = L._pipeline_options("cuda")
+    if name.startswith("swiglu"):
+        return L.swiglu_kernel(int(name[len("swiglu"):]), cfg.d_model,
+                               cfg.d_ff, float(cfg.norm_eps), opts, "cuda")
+    s, sk = (1, 1024) if name == "attention_decode" else (32, 32)
+    return L.attention_kernel(s, cfg.d_head, sk, cfg.d_head,
+                              cfg.n_heads // cfg.n_kv_heads, True,
+                              cfg.d_head ** -0.5, opts, "cuda")
+
+
+@pytest.mark.parametrize("name,paths", [
+    ("swiglu32", [CC.FMA_PATH, CC.TENSOR_PATH, CC.TENSOR_PATH]),
+    ("swiglu64", [CC.FMA_PATH, CC.TENSOR_PATH, CC.TENSOR_PATH]),
+    ("swiglu4", [CC.FMA_PATH] * 3),
+    ("swiglu8", [CC.FMA_PATH] * 3),
+    ("attention_decode", [CC.FMA_PATH]),
+    ("attention_prefill32", [CC.FMA_PATH]),
+])
+def test_product_path_by_shape(name, paths):
+    """At qwen2-7b's widths the gate/up g1 and the down projection g2
+    take ``tiles::dot_k_sum`` from 16 rows on (the cell's 32 decode rows
+    and its 32- and 64-row prefill blocks); at 4 and 8 rows, and in
+    attention (coupled online-softmax carries), every product stays
+    ``tiles::dot_k``; g0 has none.  Each source states its path."""
+    kern = _qwen2_7b(name)
+    assert [k.product_path for k in kern.kernels] == paths
+    for k in kern.kernels:
+        src = k.source
+        assert f"// product path: {k.product_path} (" in src
+        assert 0 < k.smem_bytes <= CC.SMEM_LIMIT
+        if k.product_path == CC.TENSOR_PATH:
+            assert "tiles::dot_k_sum<" in src and "tiles::dot_k<" not in src
+        else:
+            assert "tiles::dot_k_sum<" not in src
+            assert ("tiles::dot_k<" in src) == (k.gid != "g0:22"), k.gid
+        assert "tiles::dot<" not in src
+
+
+def _tf32(a):
+    """float32 rounded to TF32 as ``mma::tf32`` does (ties away)."""
+    u = a.view(np.uint32).astype(np.uint64)
+    return ((u + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _toward_zero(v):
+    """float64 to float32, rounded toward zero."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+@pytest.mark.parametrize("k", [3584, 8192, 18944])
+def test_tensor_core_sums_keep_float32_accuracy(k):
+    """``tiles::dot_k_sum``'s arithmetic emulated as the tensor cores do
+    it (exact products of TF32 operands, each ``mma`` sum rounded toward
+    zero to float32) at qwen2-7b's and jamba's contraction lengths: 3xTF32
+    with each k8's three products summed in a fresh fragment and added in
+    float32 stays within 2e-5 of float64, while summing them straight into
+    the running fragment drifts toward zero by about an ulp of the sum per
+    ``mma`` (1.6e-3 on the card at jamba's gate/up before the fresh
+    fragment: over the kernels' 2e-4)."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((16, k)).astype(np.float32)
+    w = (rng.standard_normal((32, k)) * k ** -0.5).astype(np.float32)
+    xh, wh = _tf32(x), _tf32(w)
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    pairs = ((xl, wh), (xh, wl), (xh, wh))
+    direct = np.zeros((16, 32), np.float32)
+    fresh = np.zeros((16, 32), np.float32)
+    for k0 in range(0, k, 8):
+        t = np.zeros((16, 32), np.float32)
+        for a, b in pairs:
+            p = a[:, k0:k0 + 8].astype(np.float64) @ b[:, k0:k0 + 8].T
+            direct = _toward_zero(direct + p)
+            t = _toward_zero(t + p)
+        fresh = fresh + t
+    want = x.astype(np.float64) @ w.astype(np.float64).T
+    err = np.abs(fresh - want).max()
+    assert err < 2e-5
+    assert np.abs(direct - want).max() > 5 * err
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))

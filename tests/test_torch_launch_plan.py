@@ -43,7 +43,8 @@ from repro_torch.core.graph import (FuncNode, InputNode, MapNode,
 from repro_torch.launch import serve as S
 from repro_torch.pipeline import packing as P
 from test_torch_cuda import (PROGRAMS, SERVING,  # noqa: E402
-                             merged_inputs, serving_programs)
+                             TENSOR_SHAPE, merged_inputs,
+                             serving_programs)
 
 
 # -- the plans at the serving shapes -----------------------------------------
@@ -84,6 +85,100 @@ def test_launch_plan_at_the_serving_shapes(name):
 ])
 def test_cluster_size_is_the_divisor_nearest_the_sms(trips, cells, want):
     assert CC.cluster_size(trips, cells) == want
+
+
+@pytest.mark.parametrize("trips,cells,resident,want", [
+    (28, 148, 2, 7),    # qwen2-7b g1 at 32 rows: 1036 blocks, 4 waves
+    (148, 28, 2, 8),    # its g2: 224 blocks in one wave (9 ranks: two)
+    (28, 148, 1, 4),    # g1 at 64 rows, one block an SM: 592 blocks
+    (28, 592, 1, 2),    # 256 rows: 1184 blocks
+    (6, 12, 2, 6),      # smollm-135m g0: the trips bound the cluster
+    (12, 6, 2, 12),     # its down projection: 6 clusters fit a wave
+    (13, 22, 2, 7),     # ranks of 1 or 2 trips
+    (8, 264, 2, 1),     # the cells fill a wave already
+    (1, 1, 2, 1),
+])
+def test_fill_cluster_takes_the_least_modelled_time(trips, cells, resident,
+                                                    want):
+    cs = CC.fill_cluster(trips, cells, resident)
+    assert cs == want
+    best = CC.sum_time(trips, cells, cs, resident)
+    assert all(CC.sum_time(trips, cells, c, resident) >= best
+               for c in range(1, min(trips, CC.MAX_CLUSTER) + 1))
+
+
+def test_wave_clusters_pack_portable_sizes_and_gpcs_past_them():
+    """Up to 8 ranks a wave holds the card's 132 x resident slots in whole
+    clusters; past 8, whole clusters in each of 8 GPCs of 16 SMs."""
+    assert CC.wave_clusters(1, 2) == 264
+    assert CC.wave_clusters(8, 2) == 33 and CC.wave_clusters(7, 1) == 18
+    assert CC.wave_clusters(9, 2) == 8 * 3
+    assert CC.wave_clusters(16, 1) == 8
+
+
+@pytest.mark.parametrize("smem,blocks", [
+    (16640, 2), (92160, 2), (115712, 2), (115713, 1), (131072, 1),
+    (CC.SMEM_LIMIT, 1)])
+def test_resident_blocks_by_shared_memory(smem, blocks):
+    """Two blocks a tensor-core kernel an SM (its ``__launch_bounds__``
+    minimum) while their shared memory and the runtime's 1 KB each fit
+    the SM's 228 KB, else one."""
+    assert CC.resident_blocks(smem) == blocks
+
+
+def _qwen2_7b_swiglu(t):
+    """The emitted SwiGLU kernels (g0, g1, g2) at qwen2-7b's widths over
+    ``t`` token rows, as the model layers compile them."""
+    from repro_torch import configs as C
+    from repro_torch.models import layers as L
+    cfg = C.get_config("qwen2-7b")
+    return L.swiglu_kernel(t, cfg.d_model, cfg.d_ff, float(cfg.norm_eps),
+                           L._pipeline_options("cuda"), "cuda").kernels
+
+
+@pytest.mark.parametrize("t,rows,blocks,clusters", [
+    (32, 32, [14, 1036, 224], [14, 7, 8]),     # decode and prefill 32
+    (64, 64, [14, 592, 224], [14, 4, 8]),      # prefill 64
+    (256, 64, [56, 1184, 224], [14, 2, 2]),    # prefill 256: 4 row blocks
+])
+def test_tensor_core_plans_fill_the_card(t, rows, blocks, clusters):
+    """At qwen2-7b's widths from 16 rows on, g1 and g2 take the tensor
+    cores and their clusters come from :func:`fill_cluster` at the blocks
+    an SM holds of each (its shared memory, ``MIN_BLOCKS`` at most): the
+    launch's last wave keeps 84 % of the card's slots or more (224 of
+    264).  g0 (no product) keeps the parent's plan."""
+    g0, g1, g2 = _qwen2_7b_swiglu(t)
+    assert [k.blocks for k in (g0, g1, g2)] == blocks
+    assert [k.plan.cluster_size for k in (g0, g1, g2)] == clusters
+    assert g0.product_path == CC.FMA_PATH
+    for k in (g1, g2):
+        assert k.product_path == CC.TENSOR_PATH
+        assert f"tiles::dot_k_sum<{rows}, 128, 128, " in k.source
+        assert k.smem_bytes <= CC.SMEM_LIMIT
+        resident = CC.resident_blocks(k.smem_bytes)
+        trips = 28 if k is g1 else 148
+        assert k.plan.cluster_size == CC.fill_cluster(trips, k.plan.cells,
+                                                      resident)
+        slots = CC.SMS * resident
+        assert k.blocks / (-(-k.blocks // slots) * slots) >= 0.84, k.gid
+        assert f"__launch_bounds__(256, {resident})" in k.source
+
+
+@pytest.mark.parametrize("t", [4, 8])
+def test_fma_plans_are_kept_below_16_rows(t):
+    """At 4 and 8 rows (decode at chip_smoke's batch, the 8-token
+    prefill) every qwen2-7b SwiGLU kernel keeps ``tiles::dot_k`` on the
+    CUDA cores and the cluster rule of :func:`cluster_size`: g0 one
+    14-rank cluster over D, g1 148 blocks with no cluster, g2 28 cells x
+    a 4-rank K cluster."""
+    kernels = _qwen2_7b_swiglu(t)
+    assert [(k.plan.cells, k.plan.cluster_dim, k.plan.cluster_size)
+            for k in kernels] == [(1, "D", 14), (148, None, 1),
+                                  (28, "K", 4)]
+    for k in kernels:
+        assert k.product_path == CC.FMA_PATH
+        assert "tiles::dot_k_sum<" not in k.source
+        assert "__launch_bounds__(256) " in k.source
 
 
 # -- the lifting rule ---------------------------------------------------------
@@ -220,11 +315,11 @@ def _combine(partials, tags):
 
 
 def _serial_ranks(node, ins, dims, nb, ranks):
-    per = dims[node.dim] // ranks
+    trips = dims[node.dim]
     partials = []
     for r in range(ranks):
         carry = None
-        for i in range(r * per, (r + 1) * per):
+        for i in range(r * trips // ranks, (r + 1) * trips // ranks):
             body = [v.select(nb, i) if m else v
                     for v, m in zip(ins, node.mapped)]
             vals = [x.float() for x in CT._eval(node.inner, body, dims, nb)]
@@ -363,6 +458,63 @@ def test_plan_runner_at_full_width_swiglu_decode():
     want = ref({n: inputs[n] for n in names})[ref.out_names[0]]
     np.testing.assert_allclose(env[out_refs[0]].numpy(), np.asarray(want),
                                rtol=2e-4, atol=2e-4)
+
+
+def test_plan_runner_on_the_tensor_core_path():
+    """The compiled program is one kernel whose products all run in
+    ``tiles::dot_k_sum`` (the gate/up in a loop over K, the down
+    projection's operand a in shared memory), its K reduction split over 7
+    ranks of 1 or 2 trips: the plan runner against the plain version and
+    the reference's interpret mode."""
+    from repro_torch import pipeline as TP
+    dims, blocks = TENSOR_SHAPE
+    g = TAP.rmsnorm_ffn_swiglu_program(16.0)
+    ck = TP.compile(g, dims, options=TP.CompileOptions(backend="cuda",
+                                                       blocks=blocks))
+    fn, kernels, types, out_refs = _kernels_with_members(ck.graph, dims,
+                                                         blocks, True)
+    ((_, kern, _),) = kernels
+    assert kern.product_path == CC.TENSOR_PATH
+    assert "tiles::dot_k_sum<16, 8, 16, 1, 16, 4, false, true>" in (
+        kern.source)
+    assert (kern.plan.cluster_dim, kern.plan.cluster_size) == ("K", 7)
+    inputs = merged_inputs(g, dims, blocks)
+    names = [ck.graph.nodes[j].name for j in ck.graph.input_ids]
+    env = _run_by_plan(fn, kernels, types, dims,
+                       [torch.from_numpy(inputs[n]) for n in names])
+    ref = JP.compile(JAP.rmsnorm_ffn_swiglu_program(16.0), dims,
+                     options=JP.CompileOptions(backend="pallas",
+                                               blocks=blocks))
+    want = ref({n: inputs[n] for n in names})[ref.out_names[0]]
+    np.testing.assert_allclose(env[out_refs[0]].numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("trips,cs", [(28, 7), (28, 4), (13, 7), (16, 5),
+                                       (13, 1)])
+def test_split_loop_ranks_cover_the_trips(trips, cs):
+    """A split CUDA-core loop gives rank r the trips [r T / cs, (r + 1) T /
+    cs), as ``tiles::dot_k_sum`` does, whether or not cs divides T: the
+    ranks' ranges, evaluated from the emitted bounds, cover every trip
+    once, and the per-block operation count times the ranks is the
+    unsplit loop's.  Where cs divides T the loop's text is the old one."""
+    import re
+    em = CC._Emitter({"K": trips}, (), None, cs)
+    em.loop("K", split=True)
+    em.count_flops(3)
+    m = re.fullmatch(r"\s*for \(int (\w+) = (.+); \1 < (.+); \+\+\1\) \{",
+                     em.lines[-1])
+    assert m, em.lines[-1]
+
+    def at(expr, rank):       # C's integer arithmetic on non-negatives
+        return eval(expr.replace("/", "//"), {"rank": rank})
+
+    covered = [i for r in range(cs)
+               for i in range(at(m[2], r), at(m[3], r))]
+    assert covered == list(range(trips))
+    assert em.flops * cs == pytest.approx(3 * trips)
+    if trips % cs == 0:
+        assert m[2] == f"rank * {trips // cs}"
 
 
 # -- the launch path's first-call validation ----------------------------------

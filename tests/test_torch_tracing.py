@@ -242,3 +242,32 @@ def test_profile_split_by_span_and_launching_call():
         "other": pytest.approx(15 * ms)}
     assert list(out["device_ms_per_step_by_kernel"])[:2] == ["emit_g0",
                                                             "emit_g1"]
+
+
+def test_profile_split_by_product_path():
+    """``profile_decode.split`` sums each model span's device time by the
+    product path of the emitted kernel that ran (``CudaKernel.
+    product_path`` by the name the profiler shows), and every other
+    operation under ``NOT_EMITTED``."""
+    from repro_torch.launch import profile_decode as PD
+    paths = {"emit_region_g1_23_ab": "tc3xtf32", "emit_region_g0_5_cd": "fma"}
+    host = [(0, 1000, PD.TIMED, 0),
+            (100, 400, "span:attn", 0),
+            (160, 170, "cudaLaunchKernel", 7),
+            (260, 270, "cudaLaunchKernel", 8),
+            (500, 900, "span:swiglu", 0),
+            (510, 520, "cudaLaunchKernel", 9),
+            (530, 540, "cudaLaunchKernel", 10)]
+    device = [(300, 500, "void emit_region_g0_5_cd(KArgs)", 7),
+              (520, 600, "gemm", 8),
+              (600, 800, "void emit_region_g1_23_ab(KArgs)", 9),
+              (800, 850, "emit_region_g1_23_ab", 10)]
+    out = PD.split(host, device, steps=2, paths=paths)
+    ms = 1e-6 / 2
+    assert out["device_ms_per_step_by_product_path"] == {
+        "fma": {"attn": pytest.approx(200 * ms)},
+        PD.NOT_EMITTED: {"attn": pytest.approx(80 * ms)},
+        "tc3xtf32": {"swiglu": pytest.approx(250 * ms)}}
+    assert PD.product_path("gemm", paths) == PD.NOT_EMITTED
+    assert set(PD.split(host, device, steps=2)[
+        "device_ms_per_step_by_product_path"]) == {PD.NOT_EMITTED}
