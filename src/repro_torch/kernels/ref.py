@@ -18,7 +18,11 @@ NEG_INF = -1e30
 
 def _causal_rows(q_offset, sq: int, device) -> torch.Tensor:
     """Query positions ``q_offset + r``: ``(sq, 1)``, or ``(B, 1, 1, sq,
-    1)`` for a ``(B,)`` offset (each sequence its own causal frontier)."""
+    1)`` for a ``(B,)`` offset (each sequence its own causal frontier).
+    A Python int offset is added on the device: no host-to-device copy,
+    so a prefill can be captured as a CUDA graph."""
+    if isinstance(q_offset, int):
+        return torch.arange(sq, device=device)[:, None] + q_offset
     off = torch.as_tensor(q_offset, device=device)
     if off.dim() == 1:
         off = off[:, None, None, None, None]

@@ -330,6 +330,19 @@ class Engine:
             self.cfg = cfg
 
         self.model = build_model(cfg)
+        # the MoE layers, and the rows their held experts compute in a
+        # decode step (held x capacity, summed over the layers), which the
+        # ``tick`` span counts
+        from repro_torch.models.layers import moe_capacity
+        self._moe_layers = sum(1 for i in range(cfg.n_layers)
+                               if cfg.is_moe_layer(i))
+        self._moe_rows = (self._moe_layers * cfg.held_experts[1]
+                          * moe_capacity(self.max_batch, cfg)
+                          if self._moe_layers else 0)
+        self._routed: List[torch.Tensor] = []
+        # the captured prefills by bucket and decode step ("decode") of
+        # ``cfg.cuda_graphs`` on a CUDA device (:meth:`_capture_graphs`)
+        self._graphs: Dict[object, tuple] = {}
         # prefill stays on the rung the engine started on; the watchdog
         # and re-promotion swap the decode model only
         self._prefill_model = self.model
@@ -366,7 +379,10 @@ class Engine:
                                device=self.device)
 
     def _prefill(self, padded: np.ndarray):
-        return self._prefill_model.prefill(self.params, self._tensor(padded),
+        tokens = self._tensor(padded)
+        if padded.shape[1] in self._graphs:
+            return self._replay(padded.shape[1], tokens)
+        return self._prefill_model.prefill(self.params, tokens,
                                            max_len=self.max_len)
 
     def _decode_inputs(self):
@@ -381,12 +397,82 @@ class Engine:
 
     def _decode_once(self):
         """One serving decode step: its inputs, then ``LM.decode_step``
-        alone as the ``decode.forward`` span (``repro_torch.tracing``)."""
+        alone as the ``decode.forward`` span (``repro_torch.tracing``).
+        A model with MoE layers also hands back each layer's expert
+        choice, kept for :meth:`_read_decode`."""
         RZ.check("serve:decode")
         toks, pos = self._decode_inputs()
         with T.TRACER.span("decode.forward"):
+            if "decode" in self._graphs:
+                logits, self._routed = self._replay("decode", toks, pos)
+                return logits, self.caches
+            if not self._moe_layers:
+                return self.model.decode_step(self.params, self.caches,
+                                              toks, pos)
+            self._routed = []
             return self.model.decode_step(self.params, self.caches, toks,
-                                          pos)
+                                          pos, routed=self._routed)
+
+    def _capture(self, fn, *inputs):
+        """``(graph, static inputs, outputs)``: ``fn`` on copies of
+        ``inputs``, run once on a side stream, as capture asks, then
+        captured as a CUDA graph in a memory pool of its own.  A replay
+        reads the static inputs and overwrites the outputs in place."""
+        static = tuple(t.clone() for t in inputs)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            fn(*static)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(*static)
+        return graph, static, out
+
+    def _capture_graphs(self) -> None:
+        """``cfg.cuda_graphs``: capture each prompt bucket's prefill and
+        the decode step, so that each runs as one ``replay`` and the host
+        no longer paces it.  The captured steps write the cache as the
+        eager ones do (the decode step, like the eager warm-up step, at
+        position 0 of every free slot, which a prefill overwrites before
+        the slot is used); a replay's outputs live until the next replay
+        of the same graph, and the engine reads them before that."""
+        for b in self.prompt_buckets:
+            self._graphs[b] = self._capture(
+                lambda tokens: self._prefill_model.prefill(
+                    self.params, tokens, max_len=self.max_len),
+                torch.zeros((1, b), dtype=torch.long, device=self.device))
+
+        def step(toks, pos):
+            routed = [] if self._moe_layers else None
+            kw = {} if routed is None else {"routed": routed}
+            logits, _ = self.model.decode_step(self.params, self.caches,
+                                               toks, pos, **kw)
+            return logits, routed
+        self._graphs["decode"] = self._capture(step,
+                                               *self._decode_inputs())
+
+    def _replay(self, key, *inputs):
+        """Graph ``key``'s outputs on ``inputs``."""
+        graph, static, out = self._graphs[key]
+        for dst, src in zip(static, inputs):
+            dst.copy_(src)
+        graph.replay()
+        return out
+
+    def _read_decode(self, logits):
+        """The one blocking read of a decode step: whether each row's
+        logits are finite and, with MoE layers, the (token, k) assignments
+        of each row that land on held experts, summed over the layers on
+        the device and read with it (None without MoE layers)."""
+        fin = torch.isfinite(logits[:, -1]).all(-1)
+        if not self._moe_layers:
+            return fin.cpu().numpy(), None
+        base, count = self.cfg.held_experts
+        ids = torch.stack(self._routed)        # (MoE layers, rows, top_k)
+        held = ((ids >= base) & (ids < base + count)).sum((0, 2))
+        both = torch.stack([fin.long(), held]).cpu().numpy()
+        return both[0].astype(bool), both[1]
 
     def _insert(self, cache, slot: int) -> None:
         """Copy a one-sequence prefill cache into ``slot``, every entry
@@ -441,6 +527,8 @@ class Engine:
             self._insert(cache, 0)
         self._decode()
         if self.device.type == "cuda":
+            if self.cfg.cuda_graphs and not self._graphs:
+                self._capture_graphs()
             torch.cuda.synchronize(self.device)
         # the warm-up decode wrote garbage at position 0 of every slot;
         # real prefills overwrite it before any slot activates
@@ -639,6 +727,7 @@ class Engine:
                     report.n_deadline_evicted += 1
             active = [i for i, s in enumerate(self.slots) if s is not None]
             n_decode = 0
+            moe: Dict[str, int] = {}
             if active:
                 try:
                     logits, _ = self._decode_once()
@@ -668,7 +757,10 @@ class Engine:
                     # must contain it to that sequence
                     logits[active[0], -1] = float("nan")
                 with T.TRACER.span("decode.read"):
-                    fin = torch.isfinite(logits[:, -1]).all(-1).cpu().numpy()
+                    fin, held = self._read_decode(logits)
+                if held is not None:
+                    moe["moe_rows"] = self._moe_rows
+                    moe["moe_assigned"] = int(sum(held[i] for i in active))
                 for i in active:
                     if fin[i]:
                         continue
@@ -714,7 +806,8 @@ class Engine:
                         self._hkey, self._demote_stack[-1][1]) == "probe"):
                 self._probe_repromote(report, step)
             sync()
-            T.TRACER.end(tick, n_prefill=n_prefill, n_decode=n_decode)
+            T.TRACER.end(tick, n_prefill=n_prefill, n_decode=n_decode,
+                         **moe)
             occ = sum(1 for s in self.slots if s is not None)
             occupancy_sum += occ
             report.decode_tokens += n_decode

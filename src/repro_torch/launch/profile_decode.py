@@ -4,7 +4,10 @@
         --arch llama3.2-1b --steps 5 --json profile_decode.json
 
 Builds the serving engine at the full width of ``--arch`` (smollm-135m by
-default; ``--n-layers`` cuts the depth; ``--max-batch`` slots of
+default), or of the ``port`` object of ``--config``'s JSON file (a
+benchmark configuration: ``--config bench/configs/mla/deepseek-v3-671b.json
+--max-batch 32 --max-len 1024`` is that cell's model and decode shape;
+``--n-layers`` cuts the depth; ``--max-batch`` slots of
 ``--max-len`` positions; seeded random weights, the ``cuda`` backend),
 fills every slot with a prefilled prompt,
 then runs ``--steps`` ragged decode steps:
@@ -357,11 +360,33 @@ def profile_decode(engine, steps: int = 5, prompt_len: int = 20) -> dict:
     }
 
 
+def config_from_file(path: str, n_layers=None):
+    """The float32 ``ModelConfig`` of the ``port`` object of the JSON file
+    at ``path``, on the emitted CUDA kernels; ``n_layers`` cuts its depth
+    (``serve.cut_depth``)."""
+    from repro_torch import configs as C
+    from repro_torch.launch import serve as S
+    from repro_torch.models.common import ModelConfig
+    with open(path) as f:
+        port = dict(json.load(f)["port"])
+    if port.get("expert_share") is not None:
+        port["expert_share"] = tuple(port["expert_share"])
+    mc = ModelConfig(**port, dtype=torch.float32)
+    if n_layers is not None:
+        mc = S.cut_depth(mc, n_layers)
+    return C.with_pipeline(mc, backend="cuda")
+
+
 def main(argv=None) -> dict:
     from repro_torch.launch import serve as S
+    from repro_torch.launch.engine import Engine
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--config", default=None,
+                    help="a JSON file whose 'port' object holds the "
+                         "ModelConfig fields to serve (a benchmark "
+                         "configuration's file); replaces --arch")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--n-layers", type=int, default=None)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -373,9 +398,18 @@ def main(argv=None) -> dict:
         print("profile_decode: needs a CUDA card", file=sys.stderr)
         sys.exit(1)
 
-    engine = S.build_engine(S.ServeConfig(
-        arch=args.arch, n_layers=args.n_layers, max_batch=args.max_batch,
-        max_len=args.max_len, seed=0))
+    scfg = S.ServeConfig(arch=args.arch, n_layers=args.n_layers,
+                         max_batch=args.max_batch, max_len=args.max_len,
+                         seed=0)
+    if args.config is None:
+        engine = S.build_engine(scfg)
+    else:
+        engine = Engine(config_from_file(args.config, args.n_layers),
+                        device=scfg.device, max_batch=scfg.max_batch,
+                        max_len=scfg.max_len, seed=scfg.seed,
+                        prompt_buckets=(max(32, 1 << (
+                            args.prompt_len - 1).bit_length()),),
+                        repromote_after=None)
     engine.warmup()
     out = profile_decode(engine, args.steps, args.prompt_len)
     print(json.dumps(out, indent=1))

@@ -11,6 +11,7 @@ parameters when both packages must compute on the same weights.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
@@ -35,6 +36,16 @@ class ModelConfig:
     vocab: int = 1024
     max_seq: int = 8192
     rope_theta: float = 10000.0
+    # YaRN (port only; rope_factor 1.0: plain RoPE): the rotary
+    # frequencies of pairs past the original length's correction range
+    # divided by the factor, and the softmax scale times
+    # yarn_mscale(rope_factor, rope_mscale_all_dim) ** 2 (``yarn``)
+    rope_factor: float = 1.0
+    rope_original_max: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
     qkv_bias: bool = False       # qwen2
     qk_norm: bool = False        # qwen3
     norm_eps: float = 1e-6
@@ -52,6 +63,16 @@ class ModelConfig:
                                  # one chip of an expert-parallel layer,
                                  # the router still over all n_experts
                                  # (None: every expert)
+    # the router's scores (port only; the defaults are the reference's
+    # softmax top-k): "sigmoid" is deepseek-v3's noaux_tc (layers._route),
+    # with a correction bias that chooses the experts and does not weight
+    # them, ``router_groups`` groups of experts of which each token keeps
+    # the best ``router_groups_kept``, and the routed output scaled by
+    # ``routed_scale``
+    router_score: str = "softmax"  # softmax | sigmoid
+    router_groups: int = 1
+    router_groups_kept: int = 1
+    routed_scale: float = 1.0
     # --- MLA (deepseek) ---
     use_mla: bool = False
     q_lora_rank: int = 0
@@ -92,6 +113,10 @@ class ModelConfig:
     attn_p_half: bool = False    # attn_impl "chunked": the PV product takes
                                  # the probabilities in the model dtype,
                                  # float32 sums (reference common.py:89)
+    cuda_graphs: bool = False    # serving on a CUDA device: the engine
+                                 # replays each prompt bucket's prefill and
+                                 # its decode step as captured CUDA graphs
+                                 # (port only; launch/engine.py)
 
     @property
     def d_inner(self) -> int:
@@ -100,6 +125,15 @@ class ModelConfig:
     @property
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def yarn(self) -> Optional["Yarn"]:
+        """The YaRN scaling of RoPE, or None for plain RoPE."""
+        if self.rope_factor == 1.0:
+            return None
+        return Yarn(self.rope_factor, self.rope_original_max,
+                    self.rope_beta_fast, self.rope_beta_slow,
+                    self.rope_mscale, self.rope_mscale_all_dim)
 
     @property
     def held_experts(self) -> Tuple[int, int]:
@@ -200,20 +234,87 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (y * gamma.to(ct) + beta.to(ct)).to(x.dtype)
 
 
-def rope_frequencies(d_head: int, theta: float,
-                     device=None) -> torch.Tensor:
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's attention factor ``0.1 mscale ln(factor) + 1`` (1 for no
+    scaling), DeepSeek-V3's ``yarn_get_mscale``."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+@dataclass(frozen=True)
+class Yarn:
+    """YaRN's scaling of RoPE (arXiv 2309.00071) as DeepSeek-V3's modelling
+    code applies it (``DeepseekV3YarnRotaryEmbedding`` and the attention's
+    ``softmax_scale``): ``ModelConfig.yarn``."""
+    factor: float
+    original_max: int
+    beta_fast: float
+    beta_slow: float
+    mscale: float
+    mscale_all_dim: float
+
+    def correction_range(self, d_head: int, theta: float) -> Tuple[int, int]:
+        """The pair indices ``(low, high)``: pairs at or below ``low`` keep
+        their frequency, pairs at or above ``high`` take it divided by the
+        factor (``yarn_find_correction_range``)."""
+        def dim(rotations):
+            return (d_head * math.log(self.original_max
+                                      / (rotations * 2 * math.pi))
+                    / (2 * math.log(theta)))
+        return (max(math.floor(dim(self.beta_fast)), 0),
+                min(math.ceil(dim(self.beta_slow)), d_head - 1))
+
+    @property
+    def cos_scale(self) -> float:
+        """The factor on the rotation's cos and sin."""
+        return (yarn_mscale(self.factor, self.mscale)
+                / yarn_mscale(self.factor, self.mscale_all_dim))
+
+    @property
+    def softmax_factor(self) -> float:
+        """The factor on the attention's softmax scale."""
+        if not self.mscale_all_dim:
+            return 1.0
+        return yarn_mscale(self.factor, self.mscale_all_dim) ** 2
+
+
+def rope_frequencies(d_head: int, theta: float, device=None,
+                     yarn: Optional[Yarn] = None) -> torch.Tensor:
+    """The rotary frequency of each pair; with ``yarn``, the blend of each
+    frequency and it over the factor along the linear ramp between the
+    correction range's ends, in float32 in the published order (its
+    table, made by device ops alone, is kept per device)."""
+    if yarn is not None:
+        return _yarn_frequencies(d_head, theta, torch.device(device), yarn)
     return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
                                          device=device) / d_head))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
+@functools.lru_cache(maxsize=32)
+def _yarn_frequencies(d_head: int, theta: float, device: torch.device,
+                      yarn: Yarn) -> torch.Tensor:
+    power = theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                   device=device) / d_head)
+    extra, inter = 1.0 / power, 1.0 / (yarn.factor * power)
+    low, high = yarn.correction_range(d_head, theta)
+    ramp = ((torch.arange(d_head // 2, dtype=torch.float32, device=device)
+             - low) / ((high + 0.001 if low == high else high) - low)
+            ).clamp(0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               yarn: Optional[Yarn] = None) -> torch.Tensor:
     """x: (..., S, Dh) with Dh even; positions (S,) or broadcastable, e.g.
-    ``(B, 1, 1)`` for one ragged decode position per sequence."""
+    ``(B, 1, 1)`` for one ragged decode position per sequence.  The pairs
+    are the two halves of Dh (``x_i``, ``x_{i + Dh/2}``); ``yarn`` scales
+    the frequencies (:func:`rope_frequencies`) and cos and sin."""
     d = x.shape[-1]
-    freqs = rope_frequencies(d, theta, x.device)
+    freqs = rope_frequencies(d, theta, x.device, yarn)
     ang = positions[..., :, None].float() * freqs
     cos, sin = torch.cos(ang), torch.sin(ang)
+    if yarn is not None and yarn.cos_scale != 1.0:
+        cos, sin = cos * yarn.cos_scale, sin * yarn.cos_scale
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
@@ -380,12 +481,14 @@ def init_swiglu(pb: ParamBuilder, cfg: ModelConfig, d_ff: int,
 
 
 def init_moe(pb: ParamBuilder, cfg: ModelConfig):
-    """The router over all ``n_experts`` (scale 0.02), the held experts'
-    stacked SwiGLU weights (``we_gate``/``we_up`` (E, d, f), ``we_down``
-    (E, f, d), E the count of ``cfg.held_experts``) and the shared
-    experts' ``shared_*`` SwiGLU, as the reference's ``init_moe`` draws
-    them: the stacks' fan-in is their leading dim there, the whole
-    layer's ``n_experts``, whatever share a card holds."""
+    """The router over all ``n_experts`` (scale 0.02; with sigmoid scores
+    its correction bias ``router_bias``, N(0, 0.02^2), drawn after the
+    stacks), the held experts' stacked SwiGLU weights (``we_gate``/
+    ``we_up`` (E, d, f), ``we_down`` (E, f, d), E the count of
+    ``cfg.held_experts``) and the shared experts' ``shared_*`` SwiGLU, as
+    the reference's ``init_moe`` draws them: the stacks' fan-in is their
+    leading dim there, the whole layer's ``n_experts``, whatever share a
+    card holds."""
     d, f = cfg.d_model, cfg.moe_d_ff
     e = cfg.held_experts[1]
     scale = 1.0 / math.sqrt(cfg.n_experts)
@@ -393,6 +496,8 @@ def init_moe(pb: ParamBuilder, cfg: ModelConfig):
          "we_gate": pb.dense((e, d, f), ("expert", "fsdp", None), scale),
          "we_up": pb.dense((e, d, f), ("expert", "fsdp", None), scale),
          "we_down": pb.dense((e, f, d), ("expert", None, "fsdp"), scale)}
+    if cfg.router_score == "sigmoid":
+        p["router_bias"] = pb.dense((cfg.n_experts,), (None,), scale=0.02)
     if cfg.n_shared_experts:
         p.update(init_swiglu(pb, cfg, f * cfg.n_shared_experts, "shared_"))
     return p

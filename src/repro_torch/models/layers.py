@@ -338,8 +338,8 @@ def qkv(p, x, cfg: ModelConfig, positions):
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.yarn)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.yarn)
     return (constrain(q, "batch", "tensor", None, None),
             constrain(k, "batch", "tensor", None, None),
             constrain(v, "batch", "tensor", None, None))
@@ -497,7 +497,7 @@ def mla_q(p, x, cfg: ModelConfig, positions):
         q = x @ constrain(p["wq"], None, "tensor")
     q = q.reshape(b, s, cfg.n_heads, qd).transpose(1, 2)
     q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
-    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta, cfg.yarn)
 
 
 def mla_kv_compressed(p, x, cfg: ModelConfig, positions):
@@ -507,8 +507,18 @@ def mla_kv_compressed(p, x, cfg: ModelConfig, positions):
     ckv, k_rope = (x @ constrain(p["wkv_a"], None, None)).split(
         [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
     ckv = rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
-    k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta)[:, 0]
+    k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta,
+                        cfg.yarn)[:, 0]
     return ckv, k_rope
+
+
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """``(qk_nope_dim + qk_rope_dim) ** -0.5``, times YaRN's mscale squared
+    where ``cfg.yarn`` sets one (DeepSeek-V3's ``softmax_scale``)."""
+    scale = 1.0 / (cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5
+    if cfg.yarn is not None:
+        scale = scale * cfg.yarn.softmax_factor
+    return scale
 
 
 def mla_apply(p, x, cfg: ModelConfig, *, causal: bool = True,
@@ -537,7 +547,7 @@ def mla_apply(p, x, cfg: ModelConfig, *, causal: bool = True,
                   None)
     k = constrain(torch.cat([k_nope, k_rope_h], -1), "batch", "tensor", None,
                   None)
-    scale = 1.0 / (cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5
+    scale = mla_softmax_scale(cfg)
     impl = "ref" if cfg.attn_impl == "ref" else "chunked"
     o = on_local_heads(lambda q, k, v, _: K.flash_attention(
         q, k, v, scale=scale, causal=causal, impl=impl), q, k, v)
@@ -585,7 +595,7 @@ def mla_decode(p, x, cache, pos, cfg: ModelConfig):
     w_uv = wkv_b[:, :, cfg.qk_nope_dim:]                    # (r,h,v)
     q_abs = torch.einsum("bhqn,rhn->bhqr", q_nope.to(f32), w_uk)
     ckv_f = ckv.to(f32)
-    scale = 1.0 / (cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5
+    scale = mla_softmax_scale(cfg)
     s = (torch.einsum("bhqr,bsr->bhqs", q_abs, ckv_f)
          + torch.einsum("bhqe,bse->bhqs", q_rope.to(f32),
                         krope.to(f32))) * scale
@@ -642,10 +652,38 @@ def swiglu_weights(p, prefix: str = ""):
 # ---------------------------------------------------------------------------
 
 def _route(xn, p, cfg: ModelConfig):
-    """Router softmax in float32, top-k, renormalised weights."""
-    probs = torch.softmax(xn.float() @ p["router"].float(), -1)
-    top_w, top_ids = torch.topk(probs, cfg.top_k)     # sorted, descending
-    return top_w / top_w.sum(-1, keepdim=True), top_ids
+    """``(top_w, top_ids)``, each (T, top_k), by ``cfg.router_score``:
+
+    * ``"softmax"``: router softmax in float32, top-k, renormalised
+      weights (the reference's);
+    * ``"sigmoid"``: deepseek-v3's ``noaux_tc``, as its modelling code
+      computes it in float32: scores ``s = sigmoid(xn W_r)``; the choice
+      by ``c = s + router_bias``: each of ``router_groups`` groups scored
+      by the sum of its two best ``c``, the best ``router_groups_kept``
+      groups kept, the other groups' ``c`` set to 0.0, the top-k of ``c``;
+      the weights ``s`` of the chosen, over their sum (+1e-20), times
+      ``routed_scale``.  The bias chooses and does not weight."""
+    logits = xn.float() @ p["router"].float()
+    if cfg.router_score == "softmax":
+        probs = torch.softmax(logits, -1)
+        top_w, top_ids = torch.topk(probs, cfg.top_k)  # sorted, descending
+        return top_w / top_w.sum(-1, keepdim=True), top_ids
+    if cfg.router_score != "sigmoid":
+        raise ValueError(f"router_score {cfg.router_score!r}: expected "
+                         "'softmax' or 'sigmoid'")
+    t, e = logits.shape
+    groups = cfg.router_groups
+    scores = logits.sigmoid()
+    choice = scores + p["router_bias"].float()
+    by_group = choice.view(t, groups, e // groups)
+    group_scores = by_group.topk(2, dim=-1)[0].sum(-1)
+    kept = group_scores.topk(cfg.router_groups_kept, dim=-1)[1]
+    mask = torch.zeros_like(group_scores).scatter_(1, kept, 1.0)
+    choice = by_group.masked_fill(mask[..., None] == 0, 0.0).view(t, e)
+    top_ids = choice.topk(cfg.top_k, dim=-1)[1]
+    top_w = scores.gather(1, top_ids)
+    top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-20)
+    return top_w * cfg.routed_scale, top_ids
 
 
 def _shared_experts(p, xn):
@@ -713,7 +751,8 @@ def _held_experts_out(p, xn, top_w, top_ids, capacity: int, base: int,
     return torch.einsum("tkd,tk->td", routed, w)
 
 
-def moe_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
+def moe_apply(p, x, gamma, cfg: ModelConfig,
+              routed: Optional[list] = None) -> torch.Tensor:
     """x: (B, S, d).  RMSNorm -> router -> top-k experts (+ shared): the
     reference's unsharded ``moe_apply``.  Each expert takes at most
     :func:`moe_capacity` of the T = B S tokens (:func:`moe_dispatch`); a
@@ -731,7 +770,10 @@ def moe_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
     With ``cfg.moe_impl == "shard_map"`` under an active mesh that has
     ``data`` and ``model`` axes, the expert-parallel layer runs instead
     (:func:`_moe_apply_sharded`), as in the reference (layers.py:472-476).
-    """
+
+    ``routed``, a list, receives the layer's ``top_ids`` (T, top_k) on
+    the device (the unsharded layer only): the engine counts from them
+    the assignments that land on held experts, with no sync."""
     mesh = active_mesh()
     if (cfg.moe_impl == "shard_map" and mesh is not None
             and {"data", "model"} <= set(axis_names(mesh))):
@@ -750,6 +792,8 @@ def moe_apply(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
     # every token): the tokens are gathered for it, as GSPMD does
     xg = constrain(xn, None, None)
     top_w, top_ids = _route(xg, p, cfg)
+    if routed is not None:
+        routed.append(top_ids)
     out = _held_experts_out(p, xg, top_w, top_ids, moe_capacity(t, cfg),
                             base, count, e)
     if cfg.n_shared_experts:
@@ -858,11 +902,13 @@ def moe_ref(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
     return out.reshape(b, s, d).to(x.dtype)
 
 
-def mlp_apply(p, x, gamma, cfg: ModelConfig, layer: int) -> torch.Tensor:
+def mlp_apply(p, x, gamma, cfg: ModelConfig, layer: int,
+              routed: Optional[list] = None) -> torch.Tensor:
     """Layer ``layer``'s MLP on the residual stream ``x``: the MoE where
-    ``cfg.is_moe_layer(layer)``, else RMSNorm+SwiGLU."""
+    ``cfg.is_moe_layer(layer)`` (``routed`` as :func:`moe_apply` takes
+    it), else RMSNorm+SwiGLU."""
     if cfg.is_moe_layer(layer):
-        return moe_apply(p, x, gamma, cfg)
+        return moe_apply(p, x, gamma, cfg, routed)
     return rmsnorm_swiglu_apply(p, x, gamma, cfg)
 
 

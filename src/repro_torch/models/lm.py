@@ -168,13 +168,15 @@ class LM:
                     else constrain(params["head"], None, "tensor"))
             return constrain(x @ head, "batch", None, "tensor")
 
-    def _mlp(self, p, x, i):
-        """Layer ``i``'s MLP residual step (none in an ``ssm`` layer)."""
+    def _mlp(self, p, x, i, routed=None):
+        """Layer ``i``'s MLP residual step (none in an ``ssm`` layer);
+        ``routed`` as ``layers.moe_apply`` takes it."""
         kind = self.cfg.mlp_of(i)
         if kind == "none":
             return x
         with T.model_span(kind):
-            return x + L.mlp_apply(p["mlp"], x, p["ln2"], self.cfg, i)
+            return x + L.mlp_apply(p["mlp"], x, p["ln2"], self.cfg, i,
+                                   routed)
 
     def _layer(self, p, x, i):
         """Layer ``i``: its mixer, then its MLP, each a residual step."""
@@ -289,18 +291,19 @@ class LM:
         return dec(p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps), cache,
                    pos, cfg)[0]
 
-    def decode_step(self, params, caches, tokens, pos):
+    def decode_step(self, params, caches, tokens, pos, routed=None):
         """tokens: (B, 1); pos: the filled cache length, a scalar or a
         (B,) vector (ragged continuous batching; a Mamba2 step takes no
         position).  Writes the new cache entries into ``caches`` in place
-        and returns ``(logits, caches)``."""
+        and returns ``(logits, caches)``.  ``routed``, a list, receives
+        each MoE layer's expert choice (``layers.moe_apply``)."""
         x = self._embed(params, tokens)
         for i, p in enumerate(params["layers"]):
             cache = {name: caches[name][self.slots[i]]
                      for name in CACHE_NAMES[self.mixers[i]]}
             with T.model_span(self.mixers[i]):
                 y = self._decode_mixer(p, x, i, cache, pos)
-            x = self._mlp(p, x + y, i)
+            x = self._mlp(p, x + y, i, routed)
         return self._logits(params, x), caches
 
 

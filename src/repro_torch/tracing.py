@@ -15,7 +15,12 @@ Two kinds of sites:
 
 * **Engine spans** (``launch/engine.py``), recorded always, a few clock
   reads a tick: ``tick`` (a whole engine step; attributes ``n_prefill``
-  and ``n_decode``; ``StepRecord.wall_ms`` is its duration); ``admit``
+  and ``n_decode``, and where the step decoded on a model with MoE layers
+  ``moe_rows``, the rows the held experts computed summed over the MoE
+  layers (held x capacity, known on the host), and ``moe_assigned``, the
+  active rows' (token, k) assignments that landed on held experts,
+  summed on the device and read with the logits' finite check;
+  ``StepRecord.wall_ms`` is its duration); ``admit``
   (one request's admission: bucket and padding, ``LM.prefill``, the
   finite check, the cache insert and the first sample; ``rid``,
   attributes ``prompt_tokens`` and ``bucket_tokens``; its end is the

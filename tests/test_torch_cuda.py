@@ -14,7 +14,10 @@ SwiGLU on the tensor cores at the benchmark cell's shapes (32 decode rows,
 a 64-row prefill), for a kernel whose products all run in
 ``tiles::dot_k_sum`` with an operand in shared memory and ranks of unequal
 shares, and for a reduction whose trip count gives a cluster of 13 ranks
-or, having no divisor up to 16, none.  The compile driver on the card: a
+or, having no divisor up to 16, none.  deepseek-v3 as the benchmark cell
+serves it: a decode step that never syncs, its prefill and decode
+replayed as captured CUDA graphs equal to the eager steps, and its
+``noaux_tc`` routing as on the CPU.  The compile driver on the card: a
 measured autotune and a disk-hit re-lowering that loads its libraries
 without nvcc.  This module imports no JAX: the machine with the card has
 none.
@@ -426,3 +429,109 @@ def test_ssd_chunked_on_card_matches_cpu(card):
     wy, wh = L._ssd_chunked(*args, cfg, h0=h0)
     torch.testing.assert_close(y.cpu(), wy, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(h.cpu(), wh, rtol=1e-4, atol=1e-4)
+
+
+def _deepseek_cell_config(n_layers):
+    """deepseek-v3 as the benchmark cell serves it (``noaux_tc``, YaRN,
+    experts 0..7 of 256 held, drop-free), cut to ``n_layers``, float32 on
+    the emitted kernels."""
+    import dataclasses
+    from repro_torch import configs as C
+    from repro_torch.launch import serve as S
+    cfg = dataclasses.replace(
+        C.get_config("deepseek-v3-671b"), dtype=torch.float32,
+        router_score="sigmoid", router_groups=8, router_groups_kept=4,
+        routed_scale=2.5, rope_factor=40.0, rope_original_max=4096,
+        rope_beta_fast=32.0, rope_beta_slow=1.0, rope_mscale=1.0,
+        rope_mscale_all_dim=1.0, expert_share=(0, 8), capacity_factor=32.0)
+    return C.with_pipeline(S.cut_depth(cfg, n_layers), backend="cuda")
+
+
+def test_deepseek_decode_step_never_syncs_on_card(card):
+    """A ragged 32-row decode step of deepseek-v3 at the cell's widths
+    (1 dense + 1 MoE layer) enqueues everything: no host-device sync
+    under ``torch.cuda.set_sync_debug_mode("error")``, the MoE layer's
+    expert choice handed back on the device."""
+    from repro_torch.launch.engine import Engine
+    cfg = _deepseek_cell_config(2)
+    eng = Engine(cfg, device=card, max_batch=32, max_len=256,
+                 prompt_buckets=(32,), repromote_after=None)
+    eng.warmup()
+    toks = torch.zeros((32, 1), dtype=torch.long, device=card)
+    pos = torch.arange(32, device=card) + 3
+    eng.model.decode_step(eng.params, eng.caches, toks, pos, routed=[])
+    torch.cuda.synchronize()
+    routed = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = eng.model.decode_step(eng.params, eng.caches, toks,
+                                          pos + 1, routed=routed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert logits.shape == (32, 1, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert len(routed) == 1 and routed[0].shape == (32, 8)
+
+
+def test_deepseek_routing_on_card_matches_cpu(card):
+    """``noaux_tc`` at deepseek-v3's widths (256 experts, 8 groups, the
+    best 4 kept, top 8, scale 2.5) on CUDA tensors against the CPU: the
+    same experts for every token and the same weights."""
+    from repro_torch.models import layers as L
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _deepseek_cell_config(4)
+    g = torch.Generator().manual_seed(0)
+    xn = torch.randn(256, cfg.d_model, generator=g)
+    p = {"router": torch.randn(cfg.d_model, 256, generator=g)
+         / cfg.d_model ** 0.5,
+         "router_bias": 0.05 * torch.randn(256, generator=g)}
+    w, ids = L._route(xn, p, cfg)
+    wc, idc = L._route(xn.to(card), {k: v.to(card) for k, v in p.items()},
+                       cfg)
+    order, order_c = ids.sort(-1), idc.cpu().sort(-1)
+    assert torch.equal(order.values, order_c.values)
+    torch.testing.assert_close(w.gather(1, order.indices),
+                               wc.cpu().gather(1, order_c.indices),
+                               rtol=1e-5, atol=1e-6)
+    assert torch.allclose(w.sum(-1), torch.full((256,), 2.5))
+
+
+def test_deepseek_graphs_replay_the_eager_steps_on_card(card):
+    """With ``cuda_graphs`` the engine captures each bucket's prefill and
+    its decode step as CUDA graphs in ``warmup()``: replays on new tokens
+    and ragged positions give the eager steps' logits, caches and expert
+    choice."""
+    import dataclasses
+    from repro_torch.launch.engine import Engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(_deepseek_cell_config(2), cuda_graphs=True)
+    eng = Engine(cfg, device=card, max_batch=32, max_len=256,
+                 prompt_buckets=(32,), repromote_after=None)
+    eng.warmup()
+    assert set(eng._graphs) == {32, "decode"}
+    rng = np.random.default_rng(0)
+    for slot in range(32):
+        padded = np.zeros((1, 32), np.int64)
+        padded[0, :20] = rng.integers(0, cfg.vocab, 20)
+        logits, cache = eng._prefill(padded)
+        want, want_cache = eng.model.prefill(
+            eng.params, torch.from_numpy(padded).to(card), max_len=256)
+        torch.testing.assert_close(logits, want, rtol=1e-5, atol=1e-5)
+        for k in cache:
+            torch.testing.assert_close(cache[k], want_cache[k], rtol=1e-5,
+                                       atol=1e-5)
+        eng._insert(cache, slot)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (32, 1))).to(card)
+    pos = torch.arange(32, device=card) % 12 + 20
+    eager = {k: v.clone() for k, v in eng.caches.items()}
+    routed = []
+    want, _ = eng.model.decode_step(eng.params, eager, toks, pos,
+                                    routed=routed)
+    got, got_routed = eng._replay("decode", toks, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for k in eager:
+        torch.testing.assert_close(eng.caches[k], eager[k], rtol=1e-5,
+                                   atol=1e-5)
+    assert torch.equal(got_routed[0], routed[0])

@@ -50,7 +50,10 @@ GRAD_RTOL = 1e-3    # relative L2, each leaf
 #: fields of the port's config the reference's has not (runtime choices
 #: and the deployment's expert share)
 PORT_ONLY = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend",
-             "expert_share")
+             "expert_share", "router_score", "router_groups",
+             "router_groups_kept", "routed_scale", "rope_factor",
+             "rope_original_max", "rope_beta_fast", "rope_beta_slow",
+             "rope_mscale", "rope_mscale_all_dim", "cuda_graphs")
 #: parameters the reference initialises to zeros or ones: their init and
 #: the spread of the seeded values set in their place
 TRIVIAL = {"conv_b": (0.0, 0.1), "A_log": (0.0, 0.5),

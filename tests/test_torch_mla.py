@@ -48,7 +48,10 @@ FN_TOL = 1e-5
 TOL = 1e-4
 N_LAYERS = 2
 RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend",
-           "expert_share")
+           "expert_share", "router_score", "router_groups",
+           "router_groups_kept", "routed_scale", "rope_factor",
+           "rope_original_max", "rope_beta_fast", "rope_beta_slow",
+           "rope_mscale", "rope_mscale_all_dim", "cuda_graphs")
 #: parameters the reference initialises to ones, with their init
 TRIVIAL = {"q_norm": 1.0, "kv_norm": 1.0, "ln1": 1.0, "ln2": 1.0,
            "ln_f": 1.0}

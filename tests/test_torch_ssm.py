@@ -42,7 +42,10 @@ FN_TOL = 1e-5
 TOL = 1e-4
 N_LAYERS = 2
 RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend",
-           "expert_share")
+           "expert_share", "router_score", "router_groups",
+           "router_groups_kept", "routed_scale", "rope_factor",
+           "rope_original_max", "rope_beta_fast", "rope_beta_slow",
+           "rope_mscale", "rope_mscale_all_dim", "cuda_graphs")
 #: parameters the reference initialises to zeros or ones: their init and
 #: the spread of the seeded values set in their place
 TRIVIAL = {"conv_b": (0.0, 0.1), "A_log": (0.0, 0.5),

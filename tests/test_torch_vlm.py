@@ -31,7 +31,10 @@ TOL = 1e-4
 ARCH = "internvl2-26b"
 N_LAYERS = 2
 RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend",
-           "expert_share")
+           "expert_share", "router_score", "router_groups",
+           "router_groups_kept", "routed_scale", "rope_factor",
+           "rope_original_max", "rope_beta_fast", "rope_beta_slow",
+           "rope_mscale", "rope_mscale_all_dim", "cuda_graphs")
 
 
 def test_config_matches_reference():

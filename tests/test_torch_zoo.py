@@ -37,7 +37,10 @@ TOL = 1e-4
 N_LAYERS = 2
 ARCHS = ["llama3.2-1b", "qwen2-7b", "qwen3-32b", "qwen3-moe-30b-a3b"]
 RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend",
-           "expert_share")
+           "expert_share", "router_score", "router_groups",
+           "router_groups_kept", "routed_scale", "rope_factor",
+           "rope_original_max", "rope_beta_fast", "rope_beta_slow",
+           "rope_mscale", "rope_mscale_all_dim", "cuda_graphs")
 #: parameters the reference initialises to zeros or ones
 TRIVIAL = ("bq", "bk", "bv", "q_norm", "k_norm", "ln1", "ln2", "ln_f")
 
