@@ -44,10 +44,18 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    2: one MLA+SwiGLU and one MLA+MoE layer, its MLA on the plain torch
    attention as the reference's runs plain XLA there; seeded random
    weights drawn on the card, their seconds printed; 8 requests, prompts
-   of 4-24 tokens, 4-12 new tokens) through the CUDA kernels, with every
-   launch counter set to 0 just before and read just after; its greedy
-   tokens are held against the same engine on the plain ``torch``
-   backend; the resilience layer's clean path is
+   of 4-24 tokens, 4-12 new tokens) through the CUDA kernels, replaying
+   each bucket's prefill and the decode step as the CUDA graphs
+   ``warmup()`` captured, with every launch counter set to 0 after
+   ``warmup()`` and read after the trace (every decode kernel, and every
+   prefill kernel of a bucket the trace uses, must have launched); its
+   trace is served again under ``torch.profiler``: a replay's launches
+   are counted from its graph's capture (``Engine._replay``), so each
+   emitted kernel's name must appear in the device trace as often as its
+   counter says, and in 3 replays of the decode graph alone as often as
+   it launched in the capture (a layer each), times 3; its greedy tokens
+   are held against the same engine on the plain ``torch`` backend; the
+   resilience layer's clean path is
    gated (here and in 4a): no demotion, probe, re-promotion, quarantine
    or emitter split, decode on ``pipeline-cuda``, every program on its
    requested rung, no file in the run's ``<cache>/health/``; then
@@ -1707,10 +1715,14 @@ def serve_phase(arch, n_layers, warm=False):
     CC.build(list(kernels.values()))
     t2 = time.perf_counter()
     compile_s = t2 - t1
+    engine.warmup()
+    # the served trace's launches alone: a replayed graph's are the
+    # launches of its capture, added a replay (held against a device
+    # trace below)
     for k in kernels.values():
         k.launches = 0
-    engine.warmup()
-    report = engine.run(S.trace_for(cfg, engine.cfg.vocab))
+    trace = S.trace_for(cfg, engine.cfg.vocab)
+    report = engine.run(trace)
     torch.cuda.synchronize()
     serve_s = (t1 - t0) + (time.perf_counter() - t2)
     launches = {name: k.launches for name, k in kernels.items()}
@@ -1730,7 +1742,9 @@ def serve_phase(arch, n_layers, warm=False):
              "requests completed")
     if report.decode_recompiles != 0:
         fail(f"{label}: {report.decode_recompiles} recompiles after warmup")
-    idle = [n for n, c in launches.items() if c <= 0]
+    used = {engine._bucket(len(r.prompt)) for r in trace}
+    idle = [n for n, c in launches.items() if c <= 0
+            and served_program(n.split("/")[1], used)]
     if idle:
         fail(f"{label}: kernels never launched on the serving path: {idle}")
     for rid, rows_l in report.logits.items():
@@ -1754,6 +1768,8 @@ def serve_phase(arch, n_layers, warm=False):
     if warm:
         return dict(rec, serve_s=serve_s, output_tok_s=output_tok_s)
 
+    # before the plain run, whose compiles this engine's run would count
+    replays = check_replays_on_trace(label, engine, trace, kernels)
     plain = S.run(dataclasses.replace(cfg, backend="torch"),
                   params=engine.params)
     same = 0
@@ -1800,7 +1816,86 @@ def serve_phase(arch, n_layers, warm=False):
             "tick_ms": tick_ms,
             "recompiles": report.decode_recompiles, "serve_s": serve_s,
             "same_tokens": same, "decode_step": step,
-            "max_memory_allocated": peak, "launches": launches}
+            "max_memory_allocated": peak, "launches": launches,
+            "replays_on_trace": replays}
+
+
+def served_program(prog: str, buckets) -> bool:
+    """Whether a serving trace whose prompts took ``buckets`` runs program
+    ``prog``: the decode programs always, a prefill program
+    (``*_prefill<bucket>``) where its bucket is among them."""
+    m = re.fullmatch(r".*_prefill(\d+)", prog)
+    return m is None or int(m.group(1)) in buckets
+
+
+def device_kernels(fn) -> dict:
+    """``fn()`` under ``torch.profiler`` after a lead-in kernel and a pause
+    (the profiler can miss the first kernels of a session): the kernels
+    the device trace shows, counted by name (:func:`kernel_name`)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    seen = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda and not e.is_user_annotation():
+            name = kernel_name(e.name())
+            seen[name] = seen.get(name, 0) + 1
+    return seen
+
+
+def check_replays_on_trace(label, engine, trace, kernels):
+    """Phase 4's replays against the device trace.  A graph's replay
+    counts the launches its capture made (``Engine._replay``), so: the
+    served ``trace`` again, every counter at 0 before, must show each
+    emitted kernel's name (``CudaKernel.kname``, summed over kernels that
+    share one) in the device trace as often as the counters say; and 3
+    replays of the decode graph alone must show each of its kernels 3
+    times as often as its capture launched it (a layer each).  Returns
+    the counts by name."""
+    if "decode" not in engine._graphs:
+        fail(f"{label}: warmup() captured no decode graph")
+    for k in kernels.values():
+        k.launches = 0
+    replays = engine.graph_replays
+    report = {}
+    seen = device_kernels(lambda: report.update(r=engine.run(trace)))
+    counted = {}
+    for k in kernels.values():
+        counted[k.kname] = counted.get(k.kname, 0) + k.launches
+    off = {n: (c, seen.get(n, 0)) for n, c in counted.items()
+           if seen.get(n, 0) != c}
+    if off or engine.graph_replays == replays:
+        fail(f"{label}: launches counted against the device trace's "
+             f"{off} (name: (counted, traced)), "
+             f"{engine.graph_replays - replays} graph replays")
+    if report["r"].n_completed != len(trace):
+        fail(f"{label}: the traced run completed "
+             f"{report['r'].n_completed}/{len(trace)} requests")
+    toks, pos = engine._decode_inputs()
+    step = {}
+    for k, n in engine._graphs["decode"][3]:
+        step[k.kname] = step.get(k.kname, 0) + n
+    decode = device_kernels(lambda: [engine._replay("decode", toks, pos)
+                                     for _ in range(3)])
+    off = {n: (3 * c, decode.get(n, 0)) for n, c in step.items()
+           if decode.get(n, 0) != 3 * c}
+    if not step or off:
+        fail(f"{label}: 3 decode replays against the device trace: {off} "
+             f"(name: (captured x 3, traced)) of {len(step)} kernels")
+    print(f"{label}: {engine.graph_replays - replays - 3} graph replays "
+          f"served the trace again under the profiler; every emitted "
+          f"kernel's counted launches appear in the device trace "
+          f"({sum(counted.values())} launches), each decode kernel "
+          f"{sorted(set(step.values()))} times a replay", flush=True)
+    return {"window": {n: c for n, c in counted.items() if c},
+            "decode_replay": step}
 
 
 def check_clean_path(label, report, programs):

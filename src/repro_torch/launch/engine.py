@@ -19,7 +19,11 @@ An open-loop arrival trace feeds a slot scheduler that
 
 ``warmup()`` compiles every kernel the loop can touch (one attention and
 one SwiGLU kernel per prompt bucket plus the decode pair), builds the CUDA
-ones together, and runs each once; ``run()`` then pins zero pipeline
+ones together, and runs each once.  On a CUDA device it then captures each
+prompt bucket's prefill and the decode step as CUDA graphs (unless
+``cfg.cuda_graphs`` is off), which the loop replays: the host enqueues a
+step in one launch instead of thousands (:meth:`Engine._capture_graphs`).
+``run()`` then pins zero pipeline
 compiles (``CacheStats.delta`` of ``pipeline.default_cache()``: plans
 compiled or loaded from disk) and zero nvcc builds.  A warmup in a fresh
 process over a cache directory another process filled loads every plan
@@ -54,6 +58,7 @@ Resilience (``repro_torch.resilience``), and every step of it is loud: a
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import warnings
 from collections import deque
@@ -340,9 +345,12 @@ class Engine:
                           * moe_capacity(self.max_batch, cfg)
                           if self._moe_layers else 0)
         self._routed: List[torch.Tensor] = []
-        # the captured prefills by bucket and decode step ("decode") of
-        # ``cfg.cuda_graphs`` on a CUDA device (:meth:`_capture_graphs`)
+        # the captured prefills by bucket and decode step ("decode") of a
+        # CUDA engine (:meth:`_capture_graphs`), their one memory pool and
+        # stream, and the replays so far
         self._graphs: Dict[object, tuple] = {}
+        self._pool = self._stream = None
+        self.graph_replays = 0
         # prefill stays on the rung the engine started on; the watchdog
         # and re-promotion swap the decode model only
         self._prefill_model = self.model
@@ -378,12 +386,28 @@ class Engine:
         return torch.as_tensor(np.asarray(arr), dtype=torch.long,
                                device=self.device)
 
-    def _prefill(self, padded: np.ndarray):
-        tokens = self._tensor(padded)
+    def _prefill_into(self, tokens, slot, out=None):
+        """``LM.prefill`` of ``tokens`` (1, bucket), its cache written into
+        the cache slot the (1,) tensor ``slot`` holds, every entry by name
+        (``k``/``v``, or MLA's ``ckv``/``krope``).  Returns the logits, or
+        with ``out`` copies them into the front of ``out`` and returns
+        that view."""
+        logits, cache = self._prefill_model.prefill(self.params, tokens,
+                                                    max_len=self.max_len)
+        for name, t in cache.items():
+            self.caches[name].index_copy_(1, slot, t)
+        if out is None:
+            return logits
+        return out[:, :tokens.shape[1]].copy_(logits)
+
+    def _prefill(self, padded: np.ndarray, slot: int) -> torch.Tensor:
+        """Prefill ``padded`` (1, bucket) into cache ``slot``; its logits.
+        A captured bucket replays its graph, whose logits live until the
+        next replay of any graph."""
+        tokens, at = self._tensor(padded), self._tensor([slot])
         if padded.shape[1] in self._graphs:
-            return self._replay(padded.shape[1], tokens)
-        return self._prefill_model.prefill(self.params, tokens,
-                                           max_len=self.max_len)
+            return self._replay(padded.shape[1], tokens, at)
+        return self._prefill_into(tokens, at)
 
     def _decode_inputs(self):
         toks = [s.last_token if s else 0 for s in self.slots]
@@ -402,8 +426,9 @@ class Engine:
         choice, kept for :meth:`_read_decode`."""
         RZ.check("serve:decode")
         toks, pos = self._decode_inputs()
-        with T.TRACER.span("decode.forward"):
-            if "decode" in self._graphs:
+        graph = "decode" in self._graphs
+        with T.TRACER.span("decode.forward", graph=int(graph)):
+            if graph:
                 logits, self._routed = self._replay("decode", toks, pos)
                 return logits, self.caches
             if not self._moe_layers:
@@ -413,35 +438,61 @@ class Engine:
             return self.model.decode_step(self.params, self.caches, toks,
                                           pos, routed=self._routed)
 
-    def _capture(self, fn, *inputs):
-        """``(graph, static inputs, outputs)``: ``fn`` on copies of
-        ``inputs``, run once on a side stream, as capture asks, then
-        captured as a CUDA graph in a memory pool of its own.  A replay
-        reads the static inputs and overwrites the outputs in place."""
+    def _capture(self, what: str, fn, *inputs):
+        """``(graph, static inputs, outputs, launches)``: ``fn`` on copies
+        of ``inputs``, run once on the engine's capture stream (lazy
+        set-up, such as the stream's cuBLAS workspace, happens there and
+        not in the graph), then captured on it as a CUDA graph in the
+        engine's memory pool.  A replay reads the static inputs and
+        overwrites the outputs in place; ``launches`` pairs each emitted
+        kernel the graph launches with its count a replay.  A step that
+        cannot be captured (``what``) raises, its error chained."""
         static = tuple(t.clone() for t in inputs)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
             fn(*static)
-        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        before = {name: k.launches for name, k in self.kernels.items()}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = fn(*static)
-        return graph, static, out
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream):
+                out = fn(*static)
+        except Exception as err:
+            raise RuntimeError(f"serve: the {what} cannot be captured as a "
+                               "CUDA graph") from err
+        launches = [(k, k.launches - before[name])
+                    for name, k in self.kernels.items()
+                    if k.launches != before[name]]
+        return graph, static, out, launches
 
     def _capture_graphs(self) -> None:
-        """``cfg.cuda_graphs``: capture each prompt bucket's prefill and
-        the decode step, so that each runs as one ``replay`` and the host
-        no longer paces it.  The captured steps write the cache as the
-        eager ones do (the decode step, like the eager warm-up step, at
-        position 0 of every free slot, which a prefill overwrites before
-        the slot is used); a replay's outputs live until the next replay
-        of the same graph, and the engine reads them before that."""
-        for b in self.prompt_buckets:
+        """Capture each prompt bucket's prefill and the decode step, so
+        that each runs as one ``replay`` and the host no longer paces it.
+
+        Every graph is captured into one memory pool, on one stream: a
+        capture's working memory is free again when it ends and the next
+        capture reuses it.  Replays never overlap and the engine reads a
+        replay's outputs before the next replay, so the graphs may share
+        it.  Each prefill writes its cache straight into the slot its
+        static slot input holds.  The largest bucket's prefill, captured
+        first, keeps its logits, and every other bucket's copies its own
+        into the front of them: the graphs hold one set of prefill
+        logits, not one a bucket.  The decode step writes the cache as the
+        eager one does (the warm-up step too, at position 0 of every free
+        slot, which a prefill overwrites before the slot is used)."""
+        self._pool = torch.cuda.graph_pool_handle()
+        self._stream = torch.cuda.Stream(self.device)
+        slot = torch.zeros(1, dtype=torch.long, device=self.device)
+        logits = None
+        for b in sorted(self.prompt_buckets, reverse=True):
             self._graphs[b] = self._capture(
-                lambda tokens: self._prefill_model.prefill(
-                    self.params, tokens, max_len=self.max_len),
-                torch.zeros((1, b), dtype=torch.long, device=self.device))
+                f"prefill of bucket {b}",
+                functools.partial(self._prefill_into, out=logits),
+                torch.zeros((1, b), dtype=torch.long, device=self.device),
+                slot)
+            if logits is None:
+                logits = self._graphs[b][2]
 
         def step(toks, pos):
             routed = [] if self._moe_layers else None
@@ -449,15 +500,19 @@ class Engine:
             logits, _ = self.model.decode_step(self.params, self.caches,
                                                toks, pos, **kw)
             return logits, routed
-        self._graphs["decode"] = self._capture(step,
+        self._graphs["decode"] = self._capture("decode step", step,
                                                *self._decode_inputs())
 
     def _replay(self, key, *inputs):
-        """Graph ``key``'s outputs on ``inputs``."""
-        graph, static, out = self._graphs[key]
+        """Graph ``key``'s outputs on ``inputs``; the emitted kernels it
+        launched are counted as the eager step counts them."""
+        graph, static, out, launches = self._graphs[key]
         for dst, src in zip(static, inputs):
             dst.copy_(src)
         graph.replay()
+        for k, n in launches:
+            k.launches += n
+        self.graph_replays += 1
         return out
 
     def _read_decode(self, logits):
@@ -473,12 +528,6 @@ class Engine:
         held = ((ids >= base) & (ids < base + count)).sum((0, 2))
         both = torch.stack([fin.long(), held]).cpu().numpy()
         return both[0].astype(bool), both[1]
-
-    def _insert(self, cache, slot: int) -> None:
-        """Copy a one-sequence prefill cache into ``slot``, every entry
-        by name (``k``/``v``, or MLA's ``ckv``/``krope``)."""
-        for name, t in cache.items():
-            self.caches[name][:, slot] = t[:, 0]
 
     def _compiles(self) -> Tuple:
         """The counters a compile moves: the kernel cache's and nvcc's."""
@@ -523,8 +572,7 @@ class Engine:
         if self.device.type == "cuda":
             codegen_cuda.build(list(self.kernels.values()))
         for b in self.prompt_buckets:
-            lg, cache = self._prefill(np.zeros((1, b), np.int64))
-            self._insert(cache, 0)
+            self._prefill(np.zeros((1, b), np.int64), 0)
         self._decode()
         if self.device.type == "cuda":
             if self.cfg.cuda_graphs and not self._graphs:
@@ -543,9 +591,10 @@ class Engine:
         satisfied outright), ``"rejected"`` (bad shape: no bucket, or
         prompt + generation past ``max_len``), ``"deadline"`` (its
         deadline passed while it queued) or ``"poisoned"`` (its prefill
-        logits are not finite: the slot stays free).  An admitted
-        request is an ``admit`` span (``repro_torch.tracing``), ending at
-        its first token."""
+        logits are not finite: the slot stays free, its cache row
+        cleared).  An admitted request is an ``admit`` span
+        (``repro_torch.tracing``), ending at its first token; its
+        ``graph`` is 1 where the prefill replayed a captured graph."""
         plen = len(req.prompt)
         if req.deadline_step is not None and step > req.deadline_step:
             report.failures.append({
@@ -561,9 +610,10 @@ class Engine:
                 "prompt_len": plen, "max_new_tokens": req.max_new_tokens})
             return "rejected"
         span.attrs["bucket_tokens"] = bucket
+        span.attrs["graph"] = int(bucket in self._graphs)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :plen] = req.prompt
-        logits, cache = self._prefill(padded)
+        logits = self._prefill(padded, slot)
         # the next-token logits sit at the last REAL position; pad
         # positions to the right are causally invisible to it
         row = logits[:, plen - 1:plen]
@@ -573,8 +623,13 @@ class Engine:
             report.failures.append({
                 "rid": req.rid, "reason": "nonfinite_prefill", "step": step,
                 "prompt_len": plen})
+            # the prefill wrote the slot: clear it, or the free slot's
+            # decode row (at position 0, over the whole row) turns NaN,
+            # and an MoE layer's dropped assignments add NaN x 0 into
+            # live rows
+            for t in self.caches.values():
+                t[:, slot].zero_()
             return "poisoned"
-        self._insert(cache, slot)
         tok = int(self._sample(row)[0])
         T.TRACER.end(span)
         if self.record_logits:

@@ -10,7 +10,8 @@ benchmark configuration: ``--config bench/configs/mla/deepseek-v3-671b.json
 ``--n-layers`` cuts the depth; ``--max-batch`` slots of
 ``--max-len`` positions; seeded random weights, the ``cuda`` backend),
 fills every slot with a prefilled prompt,
-then runs ``--steps`` ragged decode steps:
+then runs ``--steps`` ragged decode steps, eagerly (``LM.decode_step``
+driven by hand; the engine's captured graph replays the same kernels):
 
 * each step on the host clock, ending in ``torch.cuda.synchronize()``,
   and the host's time to enqueue one, the device idle and busy;
@@ -331,8 +332,7 @@ def profile_decode(engine, steps: int = 5, prompt_len: int = 20) -> dict:
         padded = np.zeros((1, cfg_len), np.int64)
         padded[0, :prompt_len] = rng.integers(0, engine.cfg.vocab,
                                               prompt_len)
-        _, cache = engine._prefill(padded)
-        engine._insert(cache, slot)
+        engine._prefill(padded, slot)
     pos = torch.full((engine.max_batch,), prompt_len, device="cuda")
     toks = torch.zeros((engine.max_batch, 1), dtype=torch.long,
                        device="cuda")

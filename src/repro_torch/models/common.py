@@ -113,10 +113,11 @@ class ModelConfig:
     attn_p_half: bool = False    # attn_impl "chunked": the PV product takes
                                  # the probabilities in the model dtype,
                                  # float32 sums (reference common.py:89)
-    cuda_graphs: bool = False    # serving on a CUDA device: the engine
+    cuda_graphs: bool = True     # serving on a CUDA device: the engine
                                  # replays each prompt bucket's prefill and
                                  # its decode step as captured CUDA graphs
-                                 # (port only; launch/engine.py)
+                                 # (port only; launch/engine.py; False:
+                                 # eager, for tests and debugging)
 
     @property
     def d_inner(self) -> int:

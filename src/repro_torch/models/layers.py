@@ -197,7 +197,11 @@ def _attention_pipeline(q, k, v, scale: float, cfg: ModelConfig, *,
     feed = {"Q": qf.contiguous(), "KT": k.to(f32).contiguous(),
             "VT": v.to(f32).transpose(-1, -2).contiguous()}
     if causal:
-        off = torch.as_tensor(q_offset, dtype=f32, device=dev)
+        # a Python int offset is made on the device: no host-to-device
+        # copy, so a prefill can be captured as a CUDA graph
+        off = (torch.full((), float(q_offset), dtype=f32, device=dev)
+               if isinstance(q_offset, int)
+               else torch.as_tensor(q_offset, dtype=f32, device=dev))
         qp = off[..., None] + torch.arange(sq, dtype=f32, device=dev)
         feed["QP"] = qp.reshape(-1 if off.dim() == 1 else 1, 1, sq)
         feed["KP"] = torch.arange(skv, dtype=f32, device=dev).reshape(

@@ -21,12 +21,14 @@ Two kinds of sites:
   active rows' (token, k) assignments that landed on held experts,
   summed on the device and read with the logits' finite check;
   ``StepRecord.wall_ms`` is its duration); ``admit``
-  (one request's admission: bucket and padding, ``LM.prefill``, the
-  finite check, the cache insert and the first sample; ``rid``,
-  attributes ``prompt_tokens`` and ``bucket_tokens``; its end is the
-  first token's host time); ``decode.forward`` (the host inside
+  (one request's admission: bucket and padding, ``LM.prefill`` into the
+  cache slot, the finite check and the first sample; ``rid``, attributes
+  ``prompt_tokens``, ``bucket_tokens`` and ``graph``, 1 where the prefill
+  replayed a captured CUDA graph and 0 where it ran eagerly; its end is
+  the first token's host time); ``decode.forward`` (the host inside
   ``LM.decode_step`` until it returns: the enqueue of every layer's work,
-  which waits for the device once its launch queue is full);
+  which waits for the device once its launch queue is full, or of one
+  graph replay; attribute ``graph`` as ``admit``'s);
   ``decode.read`` (the blocking read of the logits' finite check, which
   waits out the device).  The rest of a tick, building the decode inputs
   included, is the ``tick`` span's self time (:func:`self_ns`).

@@ -21,6 +21,11 @@ replayed as captured CUDA graphs equal to the eager steps, and its
 measured autotune and a disk-hit re-lowering that loads its libraries
 without nvcc.  This module imports no JAX: the machine with the card has
 none.
+
+A default engine of a qwen2-shaped dense model and of a softmax-routed MoE
+one captures its prefills and decode step, replays them equal to the eager
+steps, marks its spans and holds one largest-bucket prefill's outputs more
+than the eager engine.
 """
 
 import numpy as np
@@ -514,14 +519,14 @@ def test_deepseek_graphs_replay_the_eager_steps_on_card(card):
     for slot in range(32):
         padded = np.zeros((1, 32), np.int64)
         padded[0, :20] = rng.integers(0, cfg.vocab, 20)
-        logits, cache = eng._prefill(padded)
+        logits = eng._prefill(padded, slot)
         want, want_cache = eng.model.prefill(
             eng.params, torch.from_numpy(padded).to(card), max_len=256)
         torch.testing.assert_close(logits, want, rtol=1e-5, atol=1e-5)
-        for k in cache:
-            torch.testing.assert_close(cache[k], want_cache[k], rtol=1e-5,
+        for k in want_cache:
+            torch.testing.assert_close(eng.caches[k][:, slot],
+                                       want_cache[k][:, 0], rtol=1e-5,
                                        atol=1e-5)
-        eng._insert(cache, slot)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (32, 1))).to(card)
     pos = torch.arange(32, device=card) % 12 + 20
     eager = {k: v.clone() for k, v in eng.caches.items()}
@@ -535,3 +540,147 @@ def test_deepseek_graphs_replay_the_eager_steps_on_card(card):
         torch.testing.assert_close(eng.caches[k], eager[k], rtol=1e-5,
                                    atol=1e-5)
     assert torch.equal(got_routed[0], routed[0])
+
+
+def _graph_config(kind):
+    """Two small float32 configurations on the emitted kernels, 2 layers:
+    a qwen2-shaped dense one (GQA group 7, QKV bias) and a softmax-routed
+    MoE one (qwen3-moe-30b-a3b reduced)."""
+    import dataclasses
+    from repro_torch import configs as C
+    from repro_torch.launch import serve as S
+    if kind == "dense":
+        cfg = dataclasses.replace(C.get_reduced_config("qwen2-7b"),
+                                  n_heads=14, n_kv_heads=2, d_head=64)
+    else:
+        cfg = C.get_reduced_config("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(S.cut_depth(cfg, 2), dtype=torch.float32)
+    return C.with_pipeline(cfg, backend="cuda")
+
+
+@pytest.mark.parametrize("kind", ["dense", "moe"])
+def test_default_engine_replays_graphs_on_card(kind, card):
+    """A default-config engine on the card captures every prompt bucket's
+    prefill and the decode step in ``warmup()``; replays on new tokens and
+    ragged positions give the eager prefill's and ``decode_step``'s
+    logits and caches (and expert choice) within 1e-5; a served run's
+    ``admit`` and ``decode.forward`` spans read ``graph`` = 1 and each
+    decode kernel counts a launch a layer a replayed step; the memory
+    still allocated after ``warmup()`` is at most one largest-bucket
+    prefill's outputs (logits and a sequence's cache) above the eager
+    engine's, besides the capture stream's cuBLAS workspace; and the
+    memory it keeps reserved (the graphs' one pool, which eager
+    allocations cannot use) is at most one largest-bucket eager
+    prefill's working set above the eager engine's, besides that
+    workspace and one small and one large segment of the caching
+    allocator (2 and 20 MiB), where a pool a graph would hold every
+    capture's."""
+    import dataclasses
+    import gc
+    from repro_torch import tracing as T
+    from repro_torch.launch.engine import Engine, Request
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _graph_config(kind)
+    assert cfg.cuda_graphs
+    kw = dict(device=card, max_batch=8, max_len=128, prompt_buckets=(32, 64),
+              repromote_after=None)
+    moe = {"routed": []} if kind == "moe" else {}
+
+    def blas(stream=None):
+        """The allocation a first matrix product on ``stream`` leaves."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(card)
+        with torch.cuda.stream(stream or torch.cuda.current_stream(card)):
+            a = torch.ones(64, 128, device=card)
+            torch.bmm((a @ a.T)[None], a[None])
+        del a
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(card) - before
+
+    def warmed(c):
+        """A warmed engine of ``c``, and the memory its construction and
+        ``warmup()`` left allocated and reserved (cached blocks that
+        ``empty_cache`` can free left out)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = (torch.cuda.memory_allocated(card),
+                  torch.cuda.memory_reserved(card))
+        eng = Engine(c, **kw)
+        eng.warmup()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return eng, (torch.cuda.memory_allocated(card) - before[0],
+                     torch.cuda.memory_reserved(card) - before[1])
+
+    blas()
+    eager, (eager_mem, eager_res) = warmed(
+        dataclasses.replace(cfg, cuda_graphs=False))
+    assert eager._graphs == {}
+    torch.cuda.reset_peak_memory_stats(card)
+    start = torch.cuda.memory_allocated(card)
+    eager._prefill(np.zeros((1, 64), np.int64), 0)
+    torch.cuda.synchronize()
+    working = torch.cuda.max_memory_allocated(card) - start
+    del eager
+    eng, (mem, res) = warmed(cfg)
+    assert set(eng._graphs) == {32, 64, "decode"}
+    outputs = (64 * cfg.vocab + sum(t[:, :1].numel()
+                                    for t in eng.caches.values())) * 4
+    workspace = blas(torch.cuda.Stream(card))
+    assert mem - eager_mem <= outputs + workspace, (mem, eager_mem, outputs,
+                                                    workspace)
+    segments = (2 + 20) << 20
+    assert res - eager_res <= working + workspace + segments, (
+        res, eager_res, working, workspace)
+    print(f"{kind}: after warmup() allocated {eager_mem} -> {mem} B, "
+          f"reserved {eager_res} -> {res} B; one 64-bucket prefill's "
+          f"outputs {outputs} B, working set {working} B; workspace "
+          f"{workspace} B")
+
+    rng = np.random.default_rng(0)
+    lens = [5, 20, 33, 40, 64, 1, 31, 50]
+    for slot, plen in enumerate(lens):
+        b = eng._bucket(plen)
+        padded = np.zeros((1, b), np.int64)
+        padded[0, :plen] = rng.integers(0, cfg.vocab, plen)
+        logits = eng._prefill(padded, slot)
+        want, want_cache = eng.model.prefill(
+            eng.params, torch.from_numpy(padded).to(card), max_len=128)
+        torch.testing.assert_close(logits, want, rtol=1e-5, atol=1e-5)
+        for k in want_cache:
+            torch.testing.assert_close(eng.caches[k][:, slot],
+                                       want_cache[k][:, 0], rtol=1e-5,
+                                       atol=1e-5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 1))).to(card)
+    pos = torch.tensor(lens, device=card)
+    eager_caches = {k: v.clone() for k, v in eng.caches.items()}
+    want, _ = eng.model.decode_step(eng.params, eager_caches, toks, pos,
+                                    **moe)
+    got, got_routed = eng._replay("decode", toks, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for k in eager_caches:
+        torch.testing.assert_close(eng.caches[k], eager_caches[k], rtol=1e-5,
+                                   atol=1e-5)
+    if moe:
+        assert torch.equal(got_routed[0], moe["routed"][0])
+
+    trace = [Request(rid, tuple(int(t) for t in rng.integers(
+        0, cfg.vocab, n)), 6, 0) for rid, n in enumerate([3, 40, 17, 60])]
+    replays = eng.graph_replays
+    saved, T.TRACER = T.TRACER, T.Tracer()
+    try:
+        report = eng.run(trace)
+        spans = list(T.TRACER.spans)
+    finally:
+        T.TRACER = saved
+    assert report.n_completed == len(trace)
+    marked = [s for s in spans if s.name in ("admit", "decode.forward")]
+    assert len(marked) == eng.graph_replays - replays
+    assert marked and all(s.attrs["graph"] == 1 for s in marked)
+    steps = sum(s.name == "decode.forward" for s in spans)
+    decode = {n: c for n, c in report.kernel_launches.items()
+              if n.startswith("attention_decode/")}
+    assert decode and all(c == steps * cfg.n_layers
+                          for c in decode.values()), (decode, steps)
