@@ -50,7 +50,7 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    ``warmup()`` and read after the trace (every decode kernel, and every
    prefill kernel of a bucket the trace uses, must have launched); its
    trace is served again under ``torch.profiler``: a replay's launches
-   are counted from its graph's capture (``Engine._replay``), so each
+   are counted from its graph's capture (``Engine._run``), so each
    emitted kernel's name must appear in the device trace as often as its
    counter says, and in 3 replays of the decode graph alone as often as
    it launched in the capture (a layer each), times 3; its greedy tokens
@@ -1852,7 +1852,7 @@ def device_kernels(fn) -> dict:
 
 def check_replays_on_trace(label, engine, trace, kernels):
     """Phase 4's replays against the device trace.  A graph's replay
-    counts the launches its capture made (``Engine._replay``), so: the
+    counts the launches its capture made (``Engine._run``), so: the
     served ``trace`` again, every counter at 0 before, must show each
     emitted kernel's name (``CudaKernel.kname``, summed over kernels that
     share one) in the device trace as often as the counters say; and 3
@@ -1882,8 +1882,8 @@ def check_replays_on_trace(label, engine, trace, kernels):
     step = {}
     for k, n in engine._graphs["decode"][3]:
         step[k.kname] = step.get(k.kname, 0) + n
-    decode = device_kernels(lambda: [engine._replay("decode", toks, pos)
-                                     for _ in range(3)])
+    decode = device_kernels(lambda: [
+        engine._run("decode", engine._step, toks, pos) for _ in range(3)])
     off = {n: (3 * c, decode.get(n, 0)) for n, c in step.items()
            if decode.get(n, 0) != 3 * c}
     if not step or off:

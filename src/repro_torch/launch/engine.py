@@ -335,16 +335,9 @@ class Engine:
             self.cfg = cfg
 
         self.model = build_model(cfg)
-        # the MoE layers, and the rows their held experts compute in a
-        # decode step (held x capacity, summed over the layers), which the
-        # ``tick`` span counts
-        from repro_torch.models.layers import moe_capacity
-        self._moe_layers = sum(1 for i in range(cfg.n_layers)
-                               if cfg.is_moe_layer(i))
-        self._moe_rows = (self._moe_layers * cfg.held_experts[1]
-                          * moe_capacity(self.max_batch, cfg)
-                          if self._moe_layers else 0)
-        self._routed: List[torch.Tensor] = []
+        # the rows the held experts compute in a decode step, which the
+        # ``tick`` span counts (0: no MoE layer)
+        self._moe_rows = self.model.moe_rows(self.max_batch)
         # the captured prefills by bucket and decode step ("decode") of a
         # CUDA engine (:meth:`_capture_graphs`), their one memory pool and
         # stream, and the replays so far
@@ -404,39 +397,37 @@ class Engine:
         """Prefill ``padded`` (1, bucket) into cache ``slot``; its logits.
         A captured bucket replays its graph, whose logits live until the
         next replay of any graph."""
-        tokens, at = self._tensor(padded), self._tensor([slot])
-        if padded.shape[1] in self._graphs:
-            return self._replay(padded.shape[1], tokens, at)
-        return self._prefill_into(tokens, at)
+        return self._run(padded.shape[1], self._prefill_into,
+                         self._tensor(padded), self._tensor([slot]))
 
     def _decode_inputs(self):
         toks = [s.last_token if s else 0 for s in self.slots]
         pos = [s.pos if s else 0 for s in self.slots]
         return self._tensor(toks)[:, None], self._tensor(pos)
 
-    def _decode(self, model=None, caches=None):
-        return (model or self.model).decode_step(
-            self.params, self.caches if caches is None else caches,
-            *self._decode_inputs())
+    def _step(self, tokens, pos, model=None, caches=None):
+        """One decode step of ``model`` (the serving one) over ``caches``
+        (the engine's), written in place: ``(logits, held)``, ``held``
+        each row's (token, k) assignments that land on held experts,
+        summed over the MoE layers on the device (None without MoE
+        layers), for :meth:`_read_decode`.  A model without MoE layers is
+        called with ``LM.decode_step``'s four arguments alone, the
+        signature a wrapper that stands in for it may take (the
+        benchmark's fault checks, ``bench/test_bench_harness.py``)."""
+        assigned = []
+        logits, _ = (model or self.model).decode_step(
+            self.params, self.caches if caches is None else caches, tokens,
+            pos, **({"assigned": assigned} if self._moe_rows else {}))
+        return logits, torch.stack(assigned).sum(0) if assigned else None
 
     def _decode_once(self):
-        """One serving decode step: its inputs, then ``LM.decode_step``
-        alone as the ``decode.forward`` span (``repro_torch.tracing``).
-        A model with MoE layers also hands back each layer's expert
-        choice, kept for :meth:`_read_decode`."""
+        """One serving decode step: its inputs, then :meth:`_step` alone
+        as the ``decode.forward`` span (``repro_torch.tracing``)."""
         RZ.check("serve:decode")
         toks, pos = self._decode_inputs()
-        graph = "decode" in self._graphs
-        with T.TRACER.span("decode.forward", graph=int(graph)):
-            if graph:
-                logits, self._routed = self._replay("decode", toks, pos)
-                return logits, self.caches
-            if not self._moe_layers:
-                return self.model.decode_step(self.params, self.caches,
-                                              toks, pos)
-            self._routed = []
-            return self.model.decode_step(self.params, self.caches, toks,
-                                          pos, routed=self._routed)
+        with T.TRACER.span("decode.forward",
+                           graph=int("decode" in self._graphs)):
+            return self._run("decode", self._step, toks, pos)
 
     def _capture(self, what: str, fn, *inputs):
         """``(graph, static inputs, outputs, launches)``: ``fn`` on copies
@@ -493,19 +484,16 @@ class Engine:
                 slot)
             if logits is None:
                 logits = self._graphs[b][2]
-
-        def step(toks, pos):
-            routed = [] if self._moe_layers else None
-            kw = {} if routed is None else {"routed": routed}
-            logits, _ = self.model.decode_step(self.params, self.caches,
-                                               toks, pos, **kw)
-            return logits, routed
-        self._graphs["decode"] = self._capture("decode step", step,
+        self._graphs["decode"] = self._capture("decode step", self._step,
                                                *self._decode_inputs())
 
-    def _replay(self, key, *inputs):
-        """Graph ``key``'s outputs on ``inputs``; the emitted kernels it
-        launched are counted as the eager step counts them."""
+    def _run(self, key, fn, *inputs):
+        """``fn(*inputs)``, or where graph ``key`` was captured its replay
+        on ``inputs`` (its outputs, overwritten by the next replay), the
+        emitted kernels it launched counted as the eager step counts
+        them."""
+        if key not in self._graphs:
+            return fn(*inputs)
         graph, static, out, launches = self._graphs[key]
         for dst, src in zip(static, inputs):
             dst.copy_(src)
@@ -515,17 +503,13 @@ class Engine:
         self.graph_replays += 1
         return out
 
-    def _read_decode(self, logits):
+    def _read_decode(self, logits, held):
         """The one blocking read of a decode step: whether each row's
-        logits are finite and, with MoE layers, the (token, k) assignments
-        of each row that land on held experts, summed over the layers on
-        the device and read with it (None without MoE layers)."""
+        logits are finite and, with MoE layers, :meth:`_step`'s ``held``
+        read with it (None without MoE layers)."""
         fin = torch.isfinite(logits[:, -1]).all(-1)
-        if not self._moe_layers:
+        if held is None:
             return fin.cpu().numpy(), None
-        base, count = self.cfg.held_experts
-        ids = torch.stack(self._routed)        # (MoE layers, rows, top_k)
-        held = ((ids >= base) & (ids < base + count)).sum((0, 2))
         both = torch.stack([fin.long(), held]).cpu().numpy()
         return both[0].astype(bool), both[1]
 
@@ -573,7 +557,7 @@ class Engine:
             codegen_cuda.build(list(self.kernels.values()))
         for b in self.prompt_buckets:
             self._prefill(np.zeros((1, b), np.int64), 0)
-        self._decode()
+        self._step(*self._decode_inputs())
         if self.device.type == "cuda":
             if self.cfg.cuda_graphs and not self._graphs:
                 self._capture_graphs()
@@ -699,7 +683,7 @@ class Engine:
             model = build_model(old_cfg)
             self._track(old_cfg, decode_batch=self.max_batch)
             scratch = {name: t.clone() for name, t in self.caches.items()}
-            logits, _ = self._decode(model, scratch)
+            logits, _ = self._step(*self._decode_inputs(), model, scratch)
             if spec is not None and spec.kind == "nan":
                 logits[:, -1] = float("nan")
             if not bool(torch.isfinite(logits[:, -1]).all()):
@@ -785,7 +769,7 @@ class Engine:
             moe: Dict[str, int] = {}
             if active:
                 try:
-                    logits, _ = self._decode_once()
+                    logits, held = self._decode_once()
                     self._clean_ticks += 1
                 except Exception as err:  # the watchdog: demote, retry
                     mark, t_err = self._compiles(), time.perf_counter()
@@ -796,7 +780,7 @@ class Engine:
                     # attention reads it; earlier positions are
                     # untouched and later ones masked
                     try:
-                        logits, _ = self._decode_once()
+                        logits, held = self._decode_once()
                     except Exception as retry_err:
                         # the demoted rung fails too: serve no further
                         raise err from retry_err
@@ -812,10 +796,10 @@ class Engine:
                     # must contain it to that sequence
                     logits[active[0], -1] = float("nan")
                 with T.TRACER.span("decode.read"):
-                    fin, held = self._read_decode(logits)
+                    fin, held = self._read_decode(logits, held)
                 if held is not None:
                     moe["moe_rows"] = self._moe_rows
-                    moe["moe_assigned"] = int(sum(held[i] for i in active))
+                    moe["moe_assigned"] = int(held[active].sum())
                 for i in active:
                     if fin[i]:
                         continue

@@ -756,7 +756,7 @@ def _held_experts_out(p, xn, top_w, top_ids, capacity: int, base: int,
 
 
 def moe_apply(p, x, gamma, cfg: ModelConfig,
-              routed: Optional[list] = None) -> torch.Tensor:
+              assigned: Optional[list] = None) -> torch.Tensor:
     """x: (B, S, d).  RMSNorm -> router -> top-k experts (+ shared): the
     reference's unsharded ``moe_apply``.  Each expert takes at most
     :func:`moe_capacity` of the T = B S tokens (:func:`moe_dispatch`); a
@@ -775,9 +775,10 @@ def moe_apply(p, x, gamma, cfg: ModelConfig,
     ``data`` and ``model`` axes, the expert-parallel layer runs instead
     (:func:`_moe_apply_sharded`), as in the reference (layers.py:472-476).
 
-    ``routed``, a list, receives the layer's ``top_ids`` (T, top_k) on
-    the device (the unsharded layer only): the engine counts from them
-    the assignments that land on held experts, with no sync."""
+    ``assigned``, a list, receives each token's count of its (token, k)
+    assignments that land on held experts, a (T,) tensor on the device
+    (the unsharded layer only): the engine's ``moe_assigned``, with no
+    sync."""
     mesh = active_mesh()
     if (cfg.moe_impl == "shard_map" and mesh is not None
             and {"data", "model"} <= set(axis_names(mesh))):
@@ -796,8 +797,9 @@ def moe_apply(p, x, gamma, cfg: ModelConfig,
     # every token): the tokens are gathered for it, as GSPMD does
     xg = constrain(xn, None, None)
     top_w, top_ids = _route(xg, p, cfg)
-    if routed is not None:
-        routed.append(top_ids)
+    if assigned is not None:
+        assigned.append(((top_ids >= base) & (top_ids < base + count)
+                         ).sum(-1))
     out = _held_experts_out(p, xg, top_w, top_ids, moe_capacity(t, cfg),
                             base, count, e)
     if cfg.n_shared_experts:
@@ -907,12 +909,12 @@ def moe_ref(p, x, gamma, cfg: ModelConfig) -> torch.Tensor:
 
 
 def mlp_apply(p, x, gamma, cfg: ModelConfig, layer: int,
-              routed: Optional[list] = None) -> torch.Tensor:
+              assigned: Optional[list] = None) -> torch.Tensor:
     """Layer ``layer``'s MLP on the residual stream ``x``: the MoE where
-    ``cfg.is_moe_layer(layer)`` (``routed`` as :func:`moe_apply` takes
+    ``cfg.is_moe_layer(layer)`` (``assigned`` as :func:`moe_apply` takes
     it), else RMSNorm+SwiGLU."""
     if cfg.is_moe_layer(layer):
-        return moe_apply(p, x, gamma, cfg, routed)
+        return moe_apply(p, x, gamma, cfg, assigned)
     return rmsnorm_swiglu_apply(p, x, gamma, cfg)
 
 

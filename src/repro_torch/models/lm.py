@@ -168,15 +168,15 @@ class LM:
                     else constrain(params["head"], None, "tensor"))
             return constrain(x @ head, "batch", None, "tensor")
 
-    def _mlp(self, p, x, i, routed=None):
+    def _mlp(self, p, x, i, assigned=None):
         """Layer ``i``'s MLP residual step (none in an ``ssm`` layer);
-        ``routed`` as ``layers.moe_apply`` takes it."""
+        ``assigned`` as ``layers.moe_apply`` takes it."""
         kind = self.cfg.mlp_of(i)
         if kind == "none":
             return x
         with T.model_span(kind):
             return x + L.mlp_apply(p["mlp"], x, p["ln2"], self.cfg, i,
-                                   routed)
+                                   assigned)
 
     def _layer(self, p, x, i):
         """Layer ``i``: its mixer, then its MLP, each a residual step."""
@@ -291,20 +291,31 @@ class LM:
         return dec(p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps), cache,
                    pos, cfg)[0]
 
-    def decode_step(self, params, caches, tokens, pos, routed=None):
+    def decode_step(self, params, caches, tokens, pos, assigned=None):
         """tokens: (B, 1); pos: the filled cache length, a scalar or a
         (B,) vector (ragged continuous batching; a Mamba2 step takes no
         position).  Writes the new cache entries into ``caches`` in place
-        and returns ``(logits, caches)``.  ``routed``, a list, receives
-        each MoE layer's expert choice (``layers.moe_apply``)."""
+        and returns ``(logits, caches)``.  ``assigned``, a list, receives
+        each MoE layer's count a row of its assignments to held experts
+        (``layers.moe_apply``)."""
         x = self._embed(params, tokens)
         for i, p in enumerate(params["layers"]):
             cache = {name: caches[name][self.slots[i]]
                      for name in CACHE_NAMES[self.mixers[i]]}
             with T.model_span(self.mixers[i]):
                 y = self._decode_mixer(p, x, i, cache, pos)
-            x = self._mlp(p, x + y, i, routed)
+            x = self._mlp(p, x + y, i, assigned)
         return self._logits(params, x), caches
+
+    def moe_rows(self, batch: int) -> int:
+        """The rows the held experts compute in a decode step of ``batch``
+        rows, summed over the MoE layers: each held expert computes its
+        ``layers.moe_capacity`` rows.  0 without MoE layers."""
+        cfg = self.cfg
+        layers = sum(cfg.mlp_of(i) == "moe" for i in range(cfg.n_layers))
+        if not layers:
+            return 0
+        return layers * cfg.held_experts[1] * L.moe_capacity(batch, cfg)
 
 
 def build_model(cfg: ModelConfig):

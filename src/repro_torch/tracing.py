@@ -17,16 +17,19 @@ Two kinds of sites:
   reads a tick: ``tick`` (a whole engine step; attributes ``n_prefill``
   and ``n_decode``, and where the step decoded on a model with MoE layers
   ``moe_rows``, the rows the held experts computed summed over the MoE
-  layers (held x capacity, known on the host), and ``moe_assigned``, the
-  active rows' (token, k) assignments that landed on held experts,
-  summed on the device and read with the logits' finite check;
+  layers (``LM.moe_rows``: held x capacity, known on the host), and
+  ``moe_assigned``, the active rows' (token, k) assignments that landed
+  on held experts, counted by each MoE layer (``layers.moe_apply``),
+  summed over the layers inside the decode step and read with the
+  logits' finite check;
   ``StepRecord.wall_ms`` is its duration); ``admit``
   (one request's admission: bucket and padding, ``LM.prefill`` into the
   cache slot, the finite check and the first sample; ``rid``, attributes
   ``prompt_tokens``, ``bucket_tokens`` and ``graph``, 1 where the prefill
   replayed a captured CUDA graph and 0 where it ran eagerly; its end is
   the first token's host time); ``decode.forward`` (the host inside
-  ``LM.decode_step`` until it returns: the enqueue of every layer's work,
+  the engine's decode step (``LM.decode_step`` and the sum of its MoE
+  counts) until it returns: the enqueue of every layer's work,
   which waits for the device once its launch queue is full, or of one
   graph replay; attribute ``graph`` as ``admit``'s);
   ``decode.read`` (the blocking read of the logits' finite check, which

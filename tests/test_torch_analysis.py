@@ -51,6 +51,7 @@ from repro_torch.launch import hillclimb as H
 from repro_torch.launch.steps import make_step
 from repro_torch.runtime import op_analysis as OA
 from repro_torch.runtime import sharding as SH
+import torch_port  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 V5E = dict(peak_flops=JH.PEAK_FLOPS, hbm_bw=JH.HBM_BW, link_bw=JH.LINK_BW)

@@ -9,6 +9,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch_port  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

@@ -26,6 +26,7 @@ from repro_torch import pipeline as TP
 from repro_torch.core import array_program as TAP
 from repro_torch.pipeline import cache as C
 from test_torch_cuda import PROGRAMS, merged_inputs  # noqa: E402
+import torch_port  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 LN_DIMS = {"M": 2, "K": 4, "N": 2}

@@ -33,6 +33,7 @@ import torch_mesh_workers as W
 from repro_torch.configs import get_reduced_config
 from repro_torch.kernels.ref import attention_ref
 from repro_torch.models import layers as TL
+import torch_port  # noqa: F401
 
 BF16_STEPS = 2 ** -7     # two bfloat16 steps of the output's magnitude
 GRAD_TOL = 1e-5          # of each gradient's largest magnitude

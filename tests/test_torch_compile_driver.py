@@ -44,6 +44,7 @@ from repro_torch.core import timing as T
 from repro_torch.core.fusion import fuse
 from repro_torch.models.layers import _pipeline_dims_blocks
 from test_torch_cuda import PROGRAMS, merged_inputs  # noqa: E402
+import torch_port  # noqa: F401
 
 # the reference's measured-autotune grids (tests/test_measured_autotune.py)
 CANDIDATES = {

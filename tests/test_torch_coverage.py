@@ -23,6 +23,7 @@ from repro_torch.core import codegen_cuda as CC
 from repro_torch.core.fusion import fuse
 from repro_torch.pipeline import packing as P
 from test_torch_cuda import PROGRAMS, merged_inputs  # noqa: E402
+import torch_port  # noqa: F401
 
 
 @pytest.mark.parametrize("group", [True, False], ids=["grouped",

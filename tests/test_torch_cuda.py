@@ -37,6 +37,7 @@ from repro_torch.core import array_program as TAP
 from repro_torch.core import codegen_cuda as CC
 from repro_torch.core.fusion import fuse
 from repro_torch.pipeline import packing as P
+import torch_port  # noqa: F401
 
 TOL = 2e-4
 
@@ -454,9 +455,10 @@ def _deepseek_cell_config(n_layers):
 
 def test_deepseek_decode_step_never_syncs_on_card(card):
     """A ragged 32-row decode step of deepseek-v3 at the cell's widths
-    (1 dense + 1 MoE layer) enqueues everything: no host-device sync
-    under ``torch.cuda.set_sync_debug_mode("error")``, the MoE layer's
-    expert choice handed back on the device."""
+    (1 dense + 1 MoE layer), as the engine runs it eagerly, enqueues
+    everything: no host-device sync under
+    ``torch.cuda.set_sync_debug_mode("error")``, each row's count of its
+    assignments to the held experts handed back on the device."""
     from repro_torch.launch.engine import Engine
     cfg = _deepseek_cell_config(2)
     eng = Engine(cfg, device=card, max_batch=32, max_len=256,
@@ -464,19 +466,18 @@ def test_deepseek_decode_step_never_syncs_on_card(card):
     eng.warmup()
     toks = torch.zeros((32, 1), dtype=torch.long, device=card)
     pos = torch.arange(32, device=card) + 3
-    eng.model.decode_step(eng.params, eng.caches, toks, pos, routed=[])
+    eng._step(toks, pos)
     torch.cuda.synchronize()
-    routed = []
     torch.cuda.set_sync_debug_mode("error")
     try:
-        logits, _ = eng.model.decode_step(eng.params, eng.caches, toks,
-                                          pos + 1, routed=routed)
+        logits, held = eng._step(toks, pos + 1)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert logits.shape == (32, 1, cfg.vocab)
     assert bool(torch.isfinite(logits).all())
-    assert len(routed) == 1 and routed[0].shape == (32, 8)
+    assert held.shape == (32,) and held.device.type == "cuda"
+    assert bool(((held >= 0) & (held <= cfg.top_k)).all())
 
 
 def test_deepseek_routing_on_card_matches_cpu(card):
@@ -505,8 +506,8 @@ def test_deepseek_routing_on_card_matches_cpu(card):
 def test_deepseek_graphs_replay_the_eager_steps_on_card(card):
     """With ``cuda_graphs`` the engine captures each bucket's prefill and
     its decode step as CUDA graphs in ``warmup()``: replays on new tokens
-    and ragged positions give the eager steps' logits, caches and expert
-    choice."""
+    and ragged positions give the eager steps' logits, caches and each
+    row's count of its assignments to the held experts."""
     import dataclasses
     from repro_torch.launch.engine import Engine
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -530,16 +531,14 @@ def test_deepseek_graphs_replay_the_eager_steps_on_card(card):
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (32, 1))).to(card)
     pos = torch.arange(32, device=card) % 12 + 20
     eager = {k: v.clone() for k, v in eng.caches.items()}
-    routed = []
-    want, _ = eng.model.decode_step(eng.params, eager, toks, pos,
-                                    routed=routed)
-    got, got_routed = eng._replay("decode", toks, pos)
+    want, want_held = eng._step(toks, pos, caches=eager)
+    got, got_held = eng._run("decode", eng._step, toks, pos)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     for k in eager:
         torch.testing.assert_close(eng.caches[k], eager[k], rtol=1e-5,
                                    atol=1e-5)
-    assert torch.equal(got_routed[0], routed[0])
+    assert got_held.shape == (32,) and torch.equal(got_held, want_held)
 
 
 def _graph_config(kind):
@@ -562,8 +561,9 @@ def _graph_config(kind):
 def test_default_engine_replays_graphs_on_card(kind, card):
     """A default-config engine on the card captures every prompt bucket's
     prefill and the decode step in ``warmup()``; replays on new tokens and
-    ragged positions give the eager prefill's and ``decode_step``'s
-    logits and caches (and expert choice) within 1e-5; a served run's
+    ragged positions give the eager prefill's and decode step's logits
+    and caches within 1e-5 (and each row's count of its assignments to
+    the held experts exactly); a served run's
     ``admit`` and ``decode.forward`` spans read ``graph`` = 1 and each
     decode kernel counts a launch a layer a replayed step; the memory
     still allocated after ``warmup()`` is at most one largest-bucket
@@ -584,7 +584,6 @@ def test_default_engine_replays_graphs_on_card(kind, card):
     assert cfg.cuda_graphs
     kw = dict(device=card, max_batch=8, max_len=128, prompt_buckets=(32, 64),
               repromote_after=None)
-    moe = {"routed": []} if kind == "moe" else {}
 
     def blas(stream=None):
         """The allocation a first matrix product on ``stream`` leaves."""
@@ -655,16 +654,17 @@ def test_default_engine_replays_graphs_on_card(kind, card):
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 1))).to(card)
     pos = torch.tensor(lens, device=card)
     eager_caches = {k: v.clone() for k, v in eng.caches.items()}
-    want, _ = eng.model.decode_step(eng.params, eager_caches, toks, pos,
-                                    **moe)
-    got, got_routed = eng._replay("decode", toks, pos)
+    want, want_held = eng._step(toks, pos, caches=eager_caches)
+    got, got_held = eng._run("decode", eng._step, toks, pos)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     for k in eager_caches:
         torch.testing.assert_close(eng.caches[k], eager_caches[k], rtol=1e-5,
                                    atol=1e-5)
-    if moe:
-        assert torch.equal(got_routed[0], moe["routed"][0])
+    if kind == "moe":
+        assert got_held.shape == (8,) and torch.equal(got_held, want_held)
+    else:
+        assert got_held is None and want_held is None
 
     trace = [Request(rid, tuple(int(t) for t in rng.integers(
         0, cfg.vocab, n)), 6, 0) for rid, n in enumerate([3, 40, 17, 60])]

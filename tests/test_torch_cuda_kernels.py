@@ -19,6 +19,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import layernorm_matmul as LN
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import rmsnorm_swiglu as SW
+import torch_port  # noqa: F401
 
 TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 DTYPES = [torch.float32, torch.bfloat16]

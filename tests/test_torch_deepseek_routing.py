@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.models import common as TCM
 from repro_torch.models import layers as TL
+import torch_port  # noqa: F401
 
 E, GROUPS, KEPT, K = 16, 4, 2, 4
 
@@ -118,11 +119,14 @@ def test_shares_add_up_under_noaux_tc():
     shared = TL._shared_experts(p, xn).reshape(whole.shape)
     torch.testing.assert_close(parts - 3 * shared, whole, rtol=1e-5,
                                atol=1e-5)
-    # the held experts' assignments, handed back for the engine's count
-    routed = []
+    # each token's count of its assignments to the held experts, handed
+    # back for the engine's count: the router's own choice, counted
+    assigned = []
     TL.moe_apply(share, x, gamma, dataclasses.replace(
-        cfg, expert_share=(12, 4)), routed)
-    assert len(routed) == 1 and routed[0].shape == (10, K)
+        cfg, expert_share=(12, 4)), assigned)
+    _, ids = TL._route(xn, p, cfg)
+    assert len(assigned) == 1 and assigned[0].shape == (10,)
+    assert torch.equal(assigned[0], ((ids >= 12) & (ids < 16)).sum(-1))
 
 
 YARN = TCM.Yarn(factor=40.0, original_max=4096, beta_fast=32.0,

@@ -24,6 +24,7 @@ from repro_torch.core import array_program as TAP
 from repro_torch.core import codegen_cuda as CC
 from repro_torch.core import ops as O
 from repro_torch.models.layers import _pipeline_dims_blocks
+import torch_port  # noqa: F401
 
 # smollm-135m: d_model 576, 9 query heads over 3 KV heads, d_head 64,
 # d_ff 1536; engine buckets 8/16/32, max_len 96, max_batch 4

@@ -28,6 +28,7 @@ from repro_torch import configs as TC
 from repro_torch.models import encdec as TE
 from repro_torch.models import layers as TL
 from repro_torch.models.lm import build_model
+import torch_port  # noqa: F401
 
 TOL = 1e-4
 N_LAYERS = 2

@@ -23,6 +23,7 @@ from repro_torch import tracing as T
 from repro_torch.launch import serve as S
 from repro_torch.launch.engine import Engine
 from repro_torch.models.common import ModelConfig
+import torch_port  # noqa: F401
 
 ARCHS = ["smollm-135m", "qwen2-7b", "qwen3-moe-30b-a3b"]
 TINY = dict(reduced=True, n_layers=2, backend="cuda", device="cpu",

@@ -34,6 +34,7 @@ from repro_torch.kernels import ref as R
 from repro_torch.models import common as TCM
 from repro_torch.models import layers as TL
 from repro_torch.models.lm import LM as TLM
+import torch_port  # noqa: F401
 
 TOL = 1e-5
 D, K, FF = 32, 2, 16

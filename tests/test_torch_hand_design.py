@@ -39,6 +39,7 @@ from repro_torch.kernels import layernorm_matmul as LN
 from repro_torch.kernels import rmsnorm_swiglu as SW
 from repro_torch.launch import hand_variants as HV
 from reference_cpu import reference_on_cpu  # noqa: E402, F401
+import torch_port  # noqa: F401
 
 ATTN_TOL, SWIGLU_TOL, LN_TOL, BF16_TOL = 2e-4, 4e-4, 2e-4, 5e-2
 

@@ -24,6 +24,7 @@ from repro_torch.pipeline import cache as C
 from test_torch_cuda import PROGRAMS  # noqa: E402
 from test_torch_resilience import (_no_env_plan, engine,  # noqa: E402, F401
                                    fresh_cache, oracle, tiny_cfg)
+import torch_port  # noqa: F401
 
 SRC = Path(pipeline.__file__).resolve().parents[2]
 

@@ -42,18 +42,12 @@ from repro_torch.launch import steps as TS
 from repro_torch.launch import train as TT
 from repro_torch.launch.engine import Engine
 from repro_torch.models.lm import LM as TLM
+from torch_port import reference_fields
 
 ARCH = "jamba-1.5-large-398b"
 TOL = 1e-4
 LOSS_RTOL = 1e-4
 GRAD_RTOL = 1e-3    # relative L2, each leaf
-#: fields of the port's config the reference's has not (runtime choices
-#: and the deployment's expert share)
-PORT_ONLY = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend",
-             "expert_share", "router_score", "router_groups",
-             "router_groups_kept", "routed_scale", "rope_factor",
-             "rope_original_max", "rope_beta_fast", "rope_beta_slow",
-             "rope_mscale", "rope_mscale_all_dim", "cuda_graphs")
 #: parameters the reference initialises to zeros or ones: their init and
 #: the spread of the seeded values set in their place
 TRIVIAL = {"conv_b": (0.0, 0.1), "A_log": (0.0, 0.5),
@@ -66,15 +60,10 @@ IMPLS = {"plain": {},
                                pipeline_backend="cuda")}
 
 
-def _fields(cfg):
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
-            if f.name not in PORT_ONLY}
-
-
 @pytest.mark.parametrize("get", ["get_config", "get_reduced_config"])
 def test_config_matches_reference(get):
     port, ref = getattr(TC, get)(ARCH), getattr(JC, get)(ARCH)
-    for name, value in _fields(port).items():
+    for name, value in reference_fields(port).items():
         assert value == getattr(ref, name), (get, name)
     assert port.n_layers == (72 if get == "get_config" else 8)
     assert port.expert_share is None and port.held_experts == (

@@ -21,6 +21,7 @@ import pytest
 
 from repro_torch.core import codegen_cuda as CC
 from repro_torch.models import layers as L
+import torch_port  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as CS  # noqa: E402

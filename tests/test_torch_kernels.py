@@ -27,6 +27,7 @@ from repro_torch.kernels import layernorm_matmul as TLN
 from repro_torch.kernels import ops as TK
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import rmsnorm_swiglu as TSW
+import torch_port  # noqa: F401
 
 TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

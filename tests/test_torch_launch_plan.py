@@ -45,6 +45,7 @@ from repro_torch.pipeline import packing as P
 from test_torch_cuda import (PROGRAMS, SERVING,  # noqa: E402
                              TENSOR_SHAPE, merged_inputs,
                              serving_programs)
+import torch_port  # noqa: F401
 
 
 # -- the plans at the serving shapes -----------------------------------------

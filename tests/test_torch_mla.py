@@ -42,30 +42,21 @@ from repro_torch.launch.engine import Engine
 from repro_torch.models import common as TCM
 from repro_torch.models import layers as TL
 from repro_torch.models.lm import LM as TLM
+from torch_port import reference_fields
 
 ARCH = "deepseek-v3-671b"
 FN_TOL = 1e-5
 TOL = 1e-4
 N_LAYERS = 2
-RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend",
-           "expert_share", "router_score", "router_groups",
-           "router_groups_kept", "routed_scale", "rope_factor",
-           "rope_original_max", "rope_beta_fast", "rope_beta_slow",
-           "rope_mscale", "rope_mscale_all_dim", "cuda_graphs")
 #: parameters the reference initialises to ones, with their init
 TRIVIAL = {"q_norm": 1.0, "kv_norm": 1.0, "ln1": 1.0, "ln2": 1.0,
            "ln_f": 1.0}
 
 
-def _fields(cfg):
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
-            if f.name not in RUNTIME}
-
-
 @pytest.mark.parametrize("get", ["get_config", "get_reduced_config"])
 def test_config_matches_reference(get):
     port, ref = getattr(TC, get)(ARCH), getattr(JC, get)(ARCH)
-    for name, value in _fields(port).items():
+    for name, value in reference_fields(port).items():
         assert value == getattr(ref, name), (get, name)
     assert [port.is_moe_layer(i) for i in range(port.n_layers)] == [
         ref.is_moe_layer(i) for i in range(ref.n_layers)]

@@ -26,6 +26,7 @@ from repro_torch import configs as TC
 from repro_torch.models import common as TCM
 from repro_torch.models import layers as TL
 from repro_torch.models.lm import LM as TLM
+import torch_port  # noqa: F401
 
 TOL = 1e-4
 N_LAYERS = 2

@@ -27,6 +27,7 @@ from repro.models import common as JCM
 from repro.models import layers as JL
 from repro_torch.models import common as TCM
 from repro_torch.models import layers as TL
+import torch_port  # noqa: F401
 
 TOL = 1e-5
 D, E, K, F = 64, 8, 2, 32

@@ -24,6 +24,7 @@ from repro_torch import configs as C
 from repro_torch.launch import profile_decode as PD
 from repro_torch.models import layers as L
 from repro_torch.models.lm import LM
+import torch_port  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as CS  # noqa: E402

@@ -23,6 +23,7 @@ from repro.core import numerics as JNU
 from repro.pipeline import packing as JPK
 from repro_torch import pipeline as TP
 from repro_torch.core import array_program as TAP
+import torch_port  # noqa: F401
 
 TOL = 1e-5
 B = 8  # block size of every dim (the reference fixtures' size)

@@ -30,6 +30,7 @@ from repro_torch.core import array_program as TAP
 from repro_torch.models import layers as L
 from reference_cpu import reference_on_cpu  # noqa: E402, F401
 from test_torch_cuda import PROGRAMS, merged_inputs  # noqa: E402
+import torch_port  # noqa: F401
 
 
 def _fresh(monkeypatch, root):

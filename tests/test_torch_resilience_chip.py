@@ -9,6 +9,7 @@ import pytest
 
 from reference_cpu import reference_on_cpu  # noqa: E402, F401
 from test_torch_resilience_engine import _isolated, check_case  # noqa: F401
+import torch_port  # noqa: F401
 
 
 @pytest.mark.parametrize("case", ["chaos", "card_chaos", "deadline",

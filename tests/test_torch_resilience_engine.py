@@ -54,6 +54,7 @@ from repro_torch.launch import engine as TE
 from repro_torch.models import layers as TL
 from repro_torch.models.lm import LM as TLM
 from reference_cpu import reference_on_cpu  # noqa: E402, F401
+import torch_port  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as CS  # noqa: E402

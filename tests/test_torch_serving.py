@@ -23,6 +23,7 @@ from repro.launch.engine import synth_trace as j_synth_trace
 from repro_torch.launch import serve as S
 from repro_torch.launch.engine import Engine, synth_trace
 from repro_torch.models.lm import LM as TLM
+import torch_port  # noqa: F401
 
 TINY = dict(reduced=True, n_layers=2, backend="cuda", device="cpu",
             max_batch=3, max_len=48, prompt_buckets=(8, 16), n_requests=6,

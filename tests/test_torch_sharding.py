@@ -41,6 +41,7 @@ from repro_torch.launch import mesh as TM
 from repro_torch.launch import steps as TS
 from repro_torch.models.lm import build_model as tbuild
 from repro_torch.runtime import sharding as SH
+import torch_port  # noqa: F401
 
 ARCHS = sorted(TC.ARCHS)
 CELLS = TC.all_cells()

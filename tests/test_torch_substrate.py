@@ -34,6 +34,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import SyntheticLMData
 from repro_torch.optim import AdamW, cosine_schedule, global_norm
 from repro_torch.optim import compression as TZ
+import torch_port  # noqa: F401
 
 
 @pytest.mark.parametrize("vocab,seq,batch,seed", [(100, 16, 4, 7),

@@ -3,18 +3,25 @@
 * the engine's spans nest under their ``tick`` with the right parent ids,
   and a request's ``admit`` span carries its id;
 * a ``tick`` span's duration is the step's ``StepRecord.wall_ms``;
+* an MoE engine's ``tick`` counts ``moe_assigned`` as the router's own
+  choice does and ``moe_rows`` as MoE layers x held experts x capacity;
 * self time, the bounded buffer and the window query;
 * model spans record nothing without a profiler, and under a CPU
   ``torch.profiler`` each is a range that holds its ``aten::`` ops (and
   nothing in the tracer).
 """
 
+import dataclasses
+import math
+
 import pytest
 import torch
 
 from repro_torch import tracing as T
 from repro_torch.launch import serve as S
-from repro_torch.launch.engine import Request
+from repro_torch.launch.engine import Engine, Request
+from repro_torch.models import layers as L
+import torch_port  # noqa: F401
 
 TINY = dict(reduced=True, n_layers=2, backend="cuda", device="cpu",
             max_batch=3, max_len=48, prompt_buckets=(8, 16), n_requests=6,
@@ -99,6 +106,60 @@ def test_tick_span_is_the_step_record(served):
                                                     for t in ticks]
     assert [(r.n_prefill, r.n_decode) for r in report.per_step] == [
         (t.attrs["n_prefill"], t.attrs["n_decode"]) for t in ticks]
+
+
+def test_moe_tick_counts_the_routers_choice(tracer, monkeypatch):
+    """A tiny MoE engine holding experts E/4 .. 3E/4 - 1, as one chip of an
+    expert-parallel layer: each decoding tick's ``moe_assigned`` is the
+    count, over the tick's active rows and the MoE layers, of the router's
+    own ``top_ids`` that fall on a held expert, and its ``moe_rows`` is
+    MoE layers x held experts x the capacity of ``max_batch`` tokens."""
+    cfg = S.ServeConfig(**dict(TINY, arch="qwen3-moe-30b-a3b"))
+    mc = S.model_config(cfg)
+    base, count = mc.n_experts // 4, mc.n_experts // 2
+    mc = dataclasses.replace(mc, expert_share=(base, count))
+    engine = Engine(mc, device="cpu", max_batch=cfg.max_batch,
+                    max_len=cfg.max_len, prompt_buckets=cfg.prompt_buckets,
+                    seed=cfg.seed)
+    engine.warmup()
+    chosen, active = [], []
+    route, inputs = L._route, engine._decode_inputs
+
+    def routed(xn, p, c):
+        w, ids = route(xn, p, c)
+        chosen.append(ids)
+        return w, ids
+
+    def decode_inputs():
+        active.append([s is not None for s in engine.slots])
+        return inputs()
+
+    monkeypatch.setattr(L, "_route", routed)
+    monkeypatch.setattr(engine, "_decode_inputs", decode_inputs)
+    report = engine.run(S.trace_for(cfg, mc.vocab))
+    assert report.n_completed == cfg.n_requests
+
+    layers = sum(mc.mlp_of(i) == "moe" for i in range(mc.n_layers))
+    b = cfg.max_batch
+    capacity = min(b, max(1, math.ceil(b * mc.top_k * mc.capacity_factor
+                                       / mc.n_experts)))
+    # the prefills route a bucket's tokens, a decode step max_batch rows
+    assert b not in cfg.prompt_buckets
+    decode = [ids for ids in chosen if ids.shape[0] == b]
+    ticks = [s for s in tracer.spans if s.name == "tick"
+             and s.attrs["n_decode"]]
+    assert layers and len(decode) == layers * len(ticks) == \
+        layers * len(active)
+    got, want = [], []
+    for t, (tick, rows) in enumerate(zip(ticks, active)):
+        ids = torch.stack(decode[t * layers:(t + 1) * layers])
+        held = ((ids >= base) & (ids < base + count)).sum((0, 2))
+        assert tick.attrs["moe_rows"] == layers * count * capacity
+        got.append(tick.attrs["moe_assigned"])
+        want.append(int(held[torch.tensor(rows)].sum()))
+    assert got == want
+    # the count sees the held experts: some assignments fall elsewhere
+    assert 0 < sum(got) < layers * mc.top_k * sum(map(sum, active))
 
 
 def test_rejected_request_leaves_no_admit_span(tracer):

@@ -38,6 +38,7 @@ from repro_torch.kernels import ops as K
 from repro_torch.launch import steps as TS
 from repro_torch.models import common as TCM
 from repro_torch.models.lm import build_model as tbuild
+import torch_port  # noqa: F401
 
 N_LAYERS = 2
 ARCHS = ["smollm-135m", "qwen2-7b", "qwen3-32b", "qwen3-moe-30b-a3b",

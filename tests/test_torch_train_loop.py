@@ -36,6 +36,7 @@ from repro_torch.launch import train as TT
 from repro_torch.models.lm import LM as TLM
 from test_torch_train import (_batch, _leaves_with_paths, _models,
                               _reference_value_and_grad, _torch_batch)
+import torch_port  # noqa: F401
 
 
 #: the one-step test's constant rate: an update (about ``LR`` a weight)

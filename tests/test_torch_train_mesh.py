@@ -33,6 +33,7 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.launch import train as TT
 from repro_torch.models.lm import LM as TLM
 from repro_torch.models.lm import build_model as tbuild
+import torch_port  # noqa: F401
 
 ARGV = ["--arch", "smollm-135m", "--reduced", "--batch", "4", "--seq",
         "16", "--lr", "1e-2", "--log-every", "1", "--ckpt-every", "0",

@@ -26,24 +26,18 @@ from repro import configs as JC
 from repro.models.lm import LM as JLM
 from repro_torch import configs as TC
 from repro_torch.models.lm import LM as TLM
+from torch_port import reference_fields
 
 TOL = 1e-4
 ARCH = "internvl2-26b"
 N_LAYERS = 2
-RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend",
-           "expert_share", "router_score", "router_groups",
-           "router_groups_kept", "routed_scale", "rope_factor",
-           "rope_original_max", "rope_beta_fast", "rope_beta_slow",
-           "rope_mscale", "rope_mscale_all_dim", "cuda_graphs")
 
 
 def test_config_matches_reference():
     for get in ("get_config", "get_reduced_config"):
         port, ref = getattr(TC, get)(ARCH), getattr(JC, get)(ARCH)
-        for f in dataclasses.fields(port):
-            if f.name not in RUNTIME:
-                assert getattr(port, f.name) == getattr(ref, f.name), (
-                    get, f.name)
+        for name, value in reference_fields(port).items():
+            assert value == getattr(ref, name), (get, name)
     full = TC.get_config(ARCH)
     assert (full.family, full.n_vision_tokens, full.d_model,
             full.d_head) == ("vlm", 256, 6144, 128)

@@ -32,29 +32,20 @@ from repro.models.lm import LM as JLM
 from repro_torch import configs as TC
 from repro_torch.models import layers as TL
 from repro_torch.models.lm import LM as TLM
+from torch_port import reference_fields
 
 TOL = 1e-4
 N_LAYERS = 2
 ARCHS = ["llama3.2-1b", "qwen2-7b", "qwen3-32b", "qwen3-moe-30b-a3b"]
-RUNTIME = ("dtype", "attn_impl", "mlp_impl", "pipeline_backend",
-           "expert_share", "router_score", "router_groups",
-           "router_groups_kept", "routed_scale", "rope_factor",
-           "rope_original_max", "rope_beta_fast", "rope_beta_slow",
-           "rope_mscale", "rope_mscale_all_dim", "cuda_graphs")
 #: parameters the reference initialises to zeros or ones
 TRIVIAL = ("bq", "bk", "bv", "q_norm", "k_norm", "ln1", "ln2", "ln_f")
-
-
-def _fields(cfg):
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
-            if f.name not in RUNTIME}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_match_reference(arch):
     for get in ("get_config", "get_reduced_config"):
         port, ref = getattr(TC, get)(arch), getattr(JC, get)(arch)
-        for name, value in _fields(port).items():
+        for name, value in reference_fields(port).items():
             assert value == getattr(ref, name), (get, name)
         assert [port.is_moe_layer(i) for i in range(port.n_layers)] == [
             ref.is_moe_layer(i) for i in range(ref.n_layers)]
