@@ -92,6 +92,17 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
    time of the unfused ``F.layer_norm`` then ``torch.matmul`` at each
    LayerNorm+matmul case.  The float32 bound is 3xTF32 on the
    tensor cores (495 / 3 TFLOP/s), the float32 FMA bound beside it;
+5b. the grouped expert kernel of the MoE layer (``grouped_phase``, also
+   alone: ``chip_smoke.py --grouped-experts``) at the MoE layers of
+   deepseek-v3-671b.chat, qwen3-moe-30b-a3b and path E's jamba (``GROUPED``),
+   each at its serving paths' rows and on both sides of the layer's
+   choice, under random routing (dropped assignments included): against
+   its plain version (``2e-4``) and the padded layer, bit for bit on a
+   second call, one launch a call (its kernels counted in the timing's
+   device trace), timed beside its
+   bound, its plain version, the three padded ``torch.bmm``'s it replaces
+   and the padded layer (which must not be faster where the layer takes
+   the kernel);
 6. a plumbing check of each kernel's ``autograd.Function``: its forward
    launches the kernel once, and its backward (autograd of the plain
    oracle, by design) returns finite gradients of the inputs' shapes for
@@ -291,8 +302,10 @@ PATH_D = dict(arch="mamba2-2.7b", batch=4, seq=512, prefill=480,
 #: and capacity are the whole layer's (4 of 16, a 4-way layer's share,
 #: peaked at 79.69 GB of the card's 85.5, past the 78 GB this run keeps
 #: under; PERF.md).  On the emitted kernels
-#: (``with_pipeline(cfg, "cuda")``: attention and SwiGLU); the experts
-#: stay ``torch.bmm`` and Mamba2 plain torch, as the reference has them.
+#: (``with_pipeline(cfg, "cuda")``: attention and SwiGLU); Mamba2 stays
+#: plain torch, as the reference has it, and the held experts run on the
+#: grouped expert kernel where the layer takes it (the decode step's 4
+#: rows) and as ``torch.bmm`` elsewhere (the prefill, the float64 check).
 #: Shape as path D; ``repeats`` timed forward and prefill calls,
 #: ``profile_steps`` profiled decode steps; prefill and decode held
 #: against a float64 forward at ``drop_free_capacity`` (``run_path_e``)
@@ -807,6 +820,186 @@ def tensor_core_report(hand):
         if name in HAND_TC and hmma == 0:
             fail(f"{name}: no HMMA instruction, the kernel does not run on "
                  "the tensor cores")
+
+
+# -- the grouped expert kernel (phase 5b) ------------------------------------
+
+#: the MoE layers phase 5b holds the grouped expert kernel to, at published
+#: widths with uniformly random top-k routing: deepseek-v3-671b.chat's
+#: (experts 0..7 of 256 held, top-8, drop-free at capacity factor 32),
+#: qwen3-moe-30b-a3b's (all 128 held, top-8, capacity factor 1.25: some
+#: assignments dropped) and path E's jamba-1.5-large-398b (2 of 16 held,
+#: top-2, capacity factor 1.25), each at the rows its serving paths run
+#: (deepseek: the cell's decode step and prompt buckets; qwen3-moe: phase
+#: 4's; jamba: path E's decode) and on both sides of the layer's choice
+#: (``layers._takes_grouped``)
+GROUPED = (
+    dict(arch="deepseek-v3-671b", held=8, capacity_factor=32.0,
+         rows=(32, 64, 128, 256, 512)),
+    dict(arch="qwen3-moe-30b-a3b", held=128, capacity_factor=1.25,
+         rows=(4, 32, 64, 128, 256, 512)),
+    dict(arch="jamba-1.5-large-398b", held=2, capacity_factor=1.25,
+         rows=(4, 16, 32, 64, 128, 256)),
+)
+
+#: the padded layer's device time times this is the most the kernel may
+#: take where the layer takes it: where a draw touches every held expert
+#: (jamba's 2 at 4 rows), both read the same bytes once and tie, and the
+#: two timings' noise (under 1 %) splits a tie either way
+GROUPED_TIE = 1.02
+
+
+def grouped_phase():
+    """Phase 5b: the grouped expert kernel (``kernels/grouped_experts.py``)
+    at each layer of ``GROUPED``, each row count under a uniformly random
+    top-k: against its plain version and the padded layer it replaces
+    (``layers._held_experts_out``: the dispatch, the three padded
+    ``torch.bmm``'s and the combine), two calls bit for bit, one launch a
+    call, then timed (CUDA events and one profiler session: its expert
+    products alone and its four kernels, with the kernels the trace shows
+    a call) beside its bound (the touched experts' weights, the
+    rows in and out), its plain version, the three padded ``torch.bmm``'s
+    with their SwiGLU product (the library column) and the padded layer.
+    Fails where the layer takes the kernel (``layers._takes_grouped``) and
+    it gives more device time than the padded layer (past
+    ``GROUPED_TIE``), or where no case drops an assignment (the kernel's
+    capacity branch untested)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.kernels import grouped_experts as GE
+    from repro_torch.kernels import ref as R
+    from repro_torch.models import layers as L
+    GE.KERNEL.build()
+    tensor_core_report({"grouped_experts": GE.KERNEL})
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    out, slow = [], []
+    for spec in GROUPED:
+        cfg = dataclasses.replace(
+            C.get_config(spec["arch"]), expert_share=(0, spec["held"]),
+            capacity_factor=spec["capacity_factor"])
+        d, f, e, k = cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.top_k
+        held = spec["held"]
+        p = {"we_gate": randn(held, d, f, scale=d ** -0.5),
+             "we_up": randn(held, d, f, scale=d ** -0.5),
+             "we_down": randn(held, f, d, scale=f ** -0.5)}
+        wg, wu, wd = p["we_gate"], p["we_up"], p["we_down"]
+        cases = []
+        for t in spec["rows"]:
+            cap = L.moe_capacity(t, cfg)
+            x = randn(t, d)
+            ids = torch.rand(t, e, generator=gen, device="cuda").topk(
+                k, -1)[1]
+            w = torch.rand(t, k, generator=gen, device="cuda")
+            eb = randn(held, cap, d)     # the padded path's buffer
+
+            def kernel(x=x, w=w, ids=ids, cap=cap):
+                return GE.grouped_moe_cuda(x, w, ids, wg, wu, wd, 0, cap)
+
+            def plain(x=x, w=w, ids=ids, cap=cap):
+                return GE.plain(x, w, ids, wg, wu, wd, 0, cap)
+
+            def library(eb=eb):
+                return torch.bmm(R.swish(torch.bmm(eb, wg))
+                                 * torch.bmm(eb, wu), wd)
+
+            def padded(x=x, w=w, ids=ids, cap=cap):
+                return L._held_experts_out(p, x, w, ids, cap, 0, held, e)
+
+            label = f"grouped experts [{spec['arch']} t {t} cap {cap}]"
+            before = GE.KERNEL.launches
+            got = kernel()
+            launches = GE.KERNEL.launches - before
+            want = plain()
+            torch.cuda.synchronize()
+            err = (got[0] - want[0]).abs().max().item()
+            if launches != 1 or not (
+                    torch.equal(got[1], want[1])
+                    and torch.equal(got[2], want[2])
+                    and torch.allclose(got[0], want[0], atol=TOL, rtol=TOL)):
+                fail(f"{label}: {launches} launches; the kernel disagrees "
+                     f"with its plain version (max abs err {err:.3e})")
+            if not all(torch.equal(a, b) for a, b in zip(kernel(), got)):
+                fail(f"{label}: two calls differ")
+            pad_err = (got[0] - padded()).abs().max().item()
+            if pad_err > TOL * max(1.0, got[0].abs().max().item()):
+                fail(f"{label}: the kernel disagrees with the padded layer "
+                     f"(max abs err {pad_err:.3e})")
+            n_host = got[1].cpu()
+            demand = torch.bincount(ids[ids < held].cpu(), minlength=held)
+            rows = int(n_host.sum())
+            if int(got[2][t]) != rows:
+                fail(f"{label}: rows computed {int(got[2][t])} != {rows}")
+            touched = int((n_host > 0).sum())
+            # the touched experts' three matrices, x in, the routed output
+            nbytes_ = (touched * 3 * d * f + 2 * t * d) * 4
+            flops = 2.0 * rows * 3 * d * f
+            bound_ms, bound_by, _ = bound(nbytes_, flops)
+            cases.append(dict(
+                t=t, capacity=cap, takes_kernel=L._takes_grouped(p, x, ids,
+                                                                 e),
+                touched=touched, rows=rows,
+                passes=int(sum(-(-n // GE.RT) for n in n_host.tolist())),
+                dropped=int((demand - n_host.long()).sum()),
+                max_abs_err=err, padded_max_abs_err=pad_err,
+                launches_a_call=launches,
+                ms=time_ms(kernel), plain_ms=time_ms(plain, 5),
+                library_ms=time_ms(library), padded_layer_ms=time_ms(padded),
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes_,
+                flops=flops, grid_gate_up=[-(-f // GE.BN), held],
+                grid_down=[-(-d // GE.BN), held],
+                calls=(kernel, kernel, library, padded)))
+        iters = 20
+        dev = iter(window_device_ms(
+            [(fn, name) for c in cases for fn, name in
+             zip(c["calls"], ("grouped_fwd", None, None, None))], iters))
+        for c in cases:
+            for key in ("products_device_ms", "device_ms",
+                        "library_device_ms", "padded_layer_device_ms"):
+                ms_, seen = next(dev)
+                c[key] = ms_ / iters                   # per call
+                if key in ("products_device_ms", "device_ms"):
+                    # the kernels the trace shows a call: gate/up and
+                    # down; all four
+                    c[key.replace("device_ms", "traced_a_call")] = (
+                        seen / iters)
+            c["device_over_bound"] = c["device_ms"] / c["bound_ms"]
+            c["over_padded"] = c["device_ms"] / c["padded_layer_device_ms"]
+            del c["calls"]
+            print(f"grouped experts [{spec['arch']} t {c['t']} cap "
+                  f"{c['capacity']}] takes kernel {c['takes_kernel']}: "
+                  f"touched {c['touched']} of {held}, rows {c['rows']} in "
+                  f"{c['passes']} passes, dropped {c['dropped']}, "
+                  f"max_abs_err={c['max_abs_err']:.3e} device_ms="
+                  f"{c['device_ms']:.4f} (expert products "
+                  f"{c['products_device_ms']:.4f}; events {c['ms']:.4f}) "
+                  f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}; "
+                  f"x{c['device_over_bound']:.2f}) plain_ms="
+                  f"{c['plain_ms']:.4f} library (3 bmm + SwiGLU) "
+                  f"device_ms={c['library_device_ms']:.4f} (events "
+                  f"{c['library_ms']:.4f}); padded layer "
+                  f"{c['padded_layer_device_ms']:.4f} device ms (kernel "
+                  f"x{c['over_padded']:.2f}); traced a call: "
+                  f"{c['traced_a_call']:g} kernels, "
+                  f"{c['products_traced_a_call']:g} grouped_fwd",
+                  flush=True)
+            if c["takes_kernel"] and c["over_padded"] > GROUPED_TIE:
+                slow.append(f"{spec['arch']} t {c['t']}")
+        out.append(dict(arch=spec["arch"], d=d, f=f, experts=e, held=held,
+                        top_k=k, capacity_factor=spec["capacity_factor"],
+                        cases=cases))
+        del p, wg, wu, wd
+        torch.cuda.empty_cache()
+    if not any(c["dropped"] for o in out for c in o["cases"]):
+        fail("grouped experts: no case dropped an assignment")
+    if slow:
+        fail(f"grouped experts: the kernel is slower than the padded layer "
+             f"where the layer takes it: {slow}")
+    return {"card": card_line(), "layers": out}
 
 
 def check_backward(gen):
@@ -1689,6 +1882,7 @@ def serve_phase(arch, n_layers, warm=False):
     from repro_torch import pipeline as PL
     from repro_torch.core import codegen_cuda as CC
     from repro_torch.core import cuda_build as CB
+    from repro_torch.kernels import grouped_experts as GE
     from repro_torch.launch import profile_decode as PD
     from repro_torch.launch import serve as S
     from repro_torch.models import layers as L
@@ -1718,14 +1912,19 @@ def serve_phase(arch, n_layers, warm=False):
     engine.warmup()
     # the served trace's launches alone: a replayed graph's are the
     # launches of its capture, added a replay (held against a device
-    # trace below)
-    for k in kernels.values():
+    # trace below); with MoE layers, the grouped expert kernel's too
+    moe_layers = sum(mc.mlp_of(i) == "moe" for i in range(mc.n_layers))
+    counted = {**kernels, **({"grouped_experts": GE.KERNEL}
+                             if moe_layers else {})}
+    for k in counted.values():
         k.launches = 0
+    replays0 = engine.graph_replays
     trace = S.trace_for(cfg, engine.cfg.vocab)
     report = engine.run(trace)
     torch.cuda.synchronize()
     serve_s = (t1 - t0) + (time.perf_counter() - t2)
     launches = {name: k.launches for name, k in kernels.items()}
+    grouped = GE.KERNEL.launches if moe_layers else None
     label = f"serve {arch} ({mc.n_layers} layers, cuda)"
     # output tokens (each prefill's first included) over the run, and the
     # median engine step (its ``tick`` span)
@@ -1747,6 +1946,24 @@ def serve_phase(arch, n_layers, warm=False):
             and served_program(n.split("/")[1], used)]
     if idle:
         fail(f"{label}: kernels never launched on the serving path: {idle}")
+    if moe_layers:
+        # every prefill bucket and the decode step run the grouped expert
+        # kernel in each MoE layer, so each replay adds moe_layers
+        captured = {key: dict((id(k), n) for k, n in g[3]).get(
+            id(GE.KERNEL), 0) for key, g in engine._graphs.items()}
+        n_replays = engine.graph_replays - replays0
+        print(f"{label}: grouped expert kernel launches {grouped} over "
+              f"{n_replays} graph replays ({moe_layers} MoE layers; captured "
+              f"a replay by graph {captured}; ServeReport "
+              f"{report.kernel_launches.get('grouped_experts')})",
+              flush=True)
+        if (set(captured.values()) != {moe_layers}
+                or grouped != moe_layers * n_replays
+                or report.kernel_launches.get("grouped_experts") != grouped):
+            fail(f"{label}: grouped expert kernel launches {grouped}, "
+                 f"ServeReport {report.kernel_launches.get('grouped_experts')}"
+                 f", captured a replay {captured}; want {moe_layers} a "
+                 f"replay of {n_replays}")
     for rid, rows_l in report.logits.items():
         if not all(torch.isfinite(r).all() for r in rows_l):
             fail(f"{label}: request {rid}: non-finite logits")
@@ -1769,7 +1986,7 @@ def serve_phase(arch, n_layers, warm=False):
         return dict(rec, serve_s=serve_s, output_tok_s=output_tok_s)
 
     # before the plain run, whose compiles this engine's run would count
-    replays = check_replays_on_trace(label, engine, trace, kernels)
+    replays = check_replays_on_trace(label, engine, trace, counted)
     plain = S.run(dataclasses.replace(cfg, backend="torch"),
                   params=engine.params)
     same = 0
@@ -1817,7 +2034,7 @@ def serve_phase(arch, n_layers, warm=False):
             "recompiles": report.decode_recompiles, "serve_s": serve_s,
             "same_tokens": same, "decode_step": step,
             "max_memory_allocated": peak, "launches": launches,
-            "replays_on_trace": replays}
+            "grouped_launches": grouped, "replays_on_trace": replays}
 
 
 def served_program(prog: str, buckets) -> bool:
@@ -1850,15 +2067,24 @@ def device_kernels(fn) -> dict:
     return seen
 
 
+def trace_names(k):
+    """The names a device trace gives the kernels one counted launch of
+    ``k`` runs: an emitted kernel's ``kname``; the grouped expert kernel's
+    four (``grouped_experts.TRACE_NAMES``)."""
+    from repro_torch.kernels import grouped_experts as GE
+    return GE.TRACE_NAMES if k is GE.KERNEL else (k.kname,)
+
+
 def check_replays_on_trace(label, engine, trace, kernels):
     """Phase 4's replays against the device trace.  A graph's replay
     counts the launches its capture made (``Engine._run``), so: the
     served ``trace`` again, every counter at 0 before, must show each
-    emitted kernel's name (``CudaKernel.kname``, summed over kernels that
-    share one) in the device trace as often as the counters say; and 3
-    replays of the decode graph alone must show each of its kernels 3
-    times as often as its capture launched it (a layer each).  Returns
-    the counts by name."""
+    kernel's names (:func:`trace_names`: an emitted kernel's
+    ``CudaKernel.kname``, summed over kernels that share one, and the
+    grouped expert kernel's four) in the device trace as often as the
+    counters say; and 3 replays of the decode graph alone must show each
+    of its kernels 3 times as often as its capture launched it (a layer
+    each).  Returns the counts by name."""
     if "decode" not in engine._graphs:
         fail(f"{label}: warmup() captured no decode graph")
     for k in kernels.values():
@@ -1868,7 +2094,8 @@ def check_replays_on_trace(label, engine, trace, kernels):
     seen = device_kernels(lambda: report.update(r=engine.run(trace)))
     counted = {}
     for k in kernels.values():
-        counted[k.kname] = counted.get(k.kname, 0) + k.launches
+        for name in trace_names(k):
+            counted[name] = counted.get(name, 0) + k.launches
     off = {n: (c, seen.get(n, 0)) for n, c in counted.items()
            if seen.get(n, 0) != c}
     if off or engine.graph_replays == replays:
@@ -1881,7 +2108,8 @@ def check_replays_on_trace(label, engine, trace, kernels):
     toks, pos = engine._decode_inputs()
     step = {}
     for k, n in engine._graphs["decode"][3]:
-        step[k.kname] = step.get(k.kname, 0) + n
+        for name in trace_names(k):
+            step[name] = step.get(name, 0) + n
     decode = device_kernels(lambda: [
         engine._run("decode", engine._step, toks, pos) for _ in range(3)])
     off = {n: (3 * c, decode.get(n, 0)) for n, c in step.items()
@@ -3699,6 +3927,10 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps(run_path_e()))
         return 0
+    if sys.argv[1:2] == ["--grouped-experts"]:   # phase 5b alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print("grouped experts: " + json.dumps(grouped_phase()))
+        return 0
     if sys.argv[1:2] == ["--mesh"]:         # phase 13's child
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps(mesh_phase()))
@@ -3815,6 +4047,9 @@ def main() -> int:
     t0 = time.perf_counter()
     check_backward(gen)
     phase_s["6 backward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grouped = grouped_phase()
+    phase_s["5b grouped experts"] = time.perf_counter() - t0
     paths = run_paths(hand, phase_s)
     path_d = run_path_d(phase_s)
     t0 = time.perf_counter()
@@ -3903,6 +4138,7 @@ def main() -> int:
         "d": {k: v for k, v in mesh["d"].items()
               if k not in ("launch_shapes",)}}))
     print("analysis: " + json.dumps({"card": card, **analysis}))
+    print("grouped experts: " + json.dumps(grouped))
     print("weights route: " + json.dumps({"card": card, **route}))
     print("phase seconds: " + json.dumps(phase_s))
     print(json.dumps({"kernels": list(rows.values())

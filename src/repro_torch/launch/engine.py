@@ -70,6 +70,7 @@ import torch
 
 from repro_torch import resilience as RZ
 from repro_torch import tracing as T
+from repro_torch.kernels import grouped_experts as GE
 
 
 #: the families continuous batching serves: attention models, whose padded
@@ -173,7 +174,8 @@ class ServeReport:
     probe_failures: int = 0      # probes that failed (breaker re-opened)
     decode_backend: str = ""     # the serving-ladder rung decode ended on
     # launches of every emitted kernel during the run, by
-    # "<program>/<kernel id>"
+    # "<program>/<kernel id>", and on the card with MoE layers of the
+    # grouped expert kernel, by "grouped_experts"
     kernel_launches: Dict[str, int] = field(default_factory=dict)
     # one record per bad shape, queue_full, deadline, poison eviction,
     # watchdog demotion, probe and re-promotion: {"reason", "step", ...};
@@ -335,9 +337,6 @@ class Engine:
             self.cfg = cfg
 
         self.model = build_model(cfg)
-        # the rows the held experts compute in a decode step, which the
-        # ``tick`` span counts (0: no MoE layer)
-        self._moe_rows = self.model.moe_rows(self.max_batch)
         # the captured prefills by bucket and decode step ("decode") of a
         # CUDA engine (:meth:`_capture_graphs`), their one memory pool and
         # stream, and the replays so far
@@ -407,17 +406,19 @@ class Engine:
 
     def _step(self, tokens, pos, model=None, caches=None):
         """One decode step of ``model`` (the serving one) over ``caches``
-        (the engine's), written in place: ``(logits, held)``, ``held``
-        each row's (token, k) assignments that land on held experts,
-        summed over the MoE layers on the device (None without MoE
-        layers), for :meth:`_read_decode`.  A model without MoE layers is
-        called with ``LM.decode_step``'s four arguments alone, the
-        signature a wrapper that stands in for it may take (the
-        benchmark's fault checks, ``bench/test_bench_harness.py``)."""
+        (the engine's), written in place: ``(logits, counts)``, ``counts``
+        a (B + 1,) tensor on the device (None without MoE layers) for
+        :meth:`_read_decode`: each row's (token, k) assignments that land
+        on held experts, then the rows the held experts computed, each
+        summed over the MoE layers (``layers.moe_apply``).  A model
+        without MoE layers is called with ``LM.decode_step``'s four
+        arguments alone, the signature a wrapper that stands in for it
+        may take (the benchmark's fault checks,
+        ``bench/test_bench_harness.py``)."""
         assigned = []
         logits, _ = (model or self.model).decode_step(
             self.params, self.caches if caches is None else caches, tokens,
-            pos, **({"assigned": assigned} if self._moe_rows else {}))
+            pos, **({"assigned": assigned} if self.model.has_moe else {}))
         return logits, torch.stack(assigned).sum(0) if assigned else None
 
     def _decode_once(self):
@@ -435,9 +436,10 @@ class Engine:
         set-up, such as the stream's cuBLAS workspace, happens there and
         not in the graph), then captured on it as a CUDA graph in the
         engine's memory pool.  A replay reads the static inputs and
-        overwrites the outputs in place; ``launches`` pairs each emitted
-        kernel the graph launches with its count a replay.  A step that
-        cannot be captured (``what``) raises, its error chained."""
+        overwrites the outputs in place; ``launches`` pairs each kernel of
+        ``self.kernels`` the graph launches with its count a replay.  A
+        step that cannot be captured (``what``) raises, its error
+        chained."""
         static = tuple(t.clone() for t in inputs)
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._stream):
@@ -490,8 +492,7 @@ class Engine:
     def _run(self, key, fn, *inputs):
         """``fn(*inputs)``, or where graph ``key`` was captured its replay
         on ``inputs`` (its outputs, overwritten by the next replay), the
-        emitted kernels it launched counted as the eager step counts
-        them."""
+        kernels it launched counted as the eager step counts them."""
         if key not in self._graphs:
             return fn(*inputs)
         graph, static, out, launches = self._graphs[key]
@@ -503,15 +504,16 @@ class Engine:
         self.graph_replays += 1
         return out
 
-    def _read_decode(self, logits, held):
+    def _read_decode(self, logits, counts):
         """The one blocking read of a decode step: whether each row's
-        logits are finite and, with MoE layers, :meth:`_step`'s ``held``
-        read with it (None without MoE layers)."""
+        logits are finite and, with MoE layers, :meth:`_step`'s
+        ``counts`` read with it (None without MoE layers)."""
         fin = torch.isfinite(logits[:, -1]).all(-1)
-        if held is None:
+        if counts is None:
             return fin.cpu().numpy(), None
-        both = torch.stack([fin.long(), held]).cpu().numpy()
-        return both[0].astype(bool), both[1]
+        both = torch.cat([fin.long(), counts]).cpu().numpy()
+        b = fin.shape[0]
+        return both[:b].astype(bool), both[b:]
 
     def _compiles(self) -> Tuple:
         """The counters a compile moves: the kernel cache's and nvcc's."""
@@ -555,6 +557,12 @@ class Engine:
                                  if k.lowering_report is not None)
         if self.device.type == "cuda":
             codegen_cuda.build(list(self.kernels.values()))
+            if self.model.has_moe:
+                # the MoE layers' grouped expert kernel (layers.moe_apply),
+                # counted as the emitted ones: a capture records its
+                # launches and each replay adds them
+                self.kernels["grouped_experts"] = GE.KERNEL
+                self._launch_base["grouped_experts"] = GE.KERNEL.launches
         for b in self.prompt_buckets:
             self._prefill(np.zeros((1, b), np.int64), 0)
         self._step(*self._decode_inputs())
@@ -769,7 +777,7 @@ class Engine:
             moe: Dict[str, int] = {}
             if active:
                 try:
-                    logits, held = self._decode_once()
+                    logits, counts = self._decode_once()
                     self._clean_ticks += 1
                 except Exception as err:  # the watchdog: demote, retry
                     mark, t_err = self._compiles(), time.perf_counter()
@@ -780,7 +788,7 @@ class Engine:
                     # attention reads it; earlier positions are
                     # untouched and later ones masked
                     try:
-                        logits, held = self._decode_once()
+                        logits, counts = self._decode_once()
                     except Exception as retry_err:
                         # the demoted rung fails too: serve no further
                         raise err from retry_err
@@ -796,10 +804,10 @@ class Engine:
                     # must contain it to that sequence
                     logits[active[0], -1] = float("nan")
                 with T.TRACER.span("decode.read"):
-                    fin, held = self._read_decode(logits, held)
-                if held is not None:
-                    moe["moe_rows"] = self._moe_rows
-                    moe["moe_assigned"] = int(held[active].sum())
+                    fin, counts = self._read_decode(logits, counts)
+                if counts is not None:
+                    moe["moe_rows"] = int(counts[-1])
+                    moe["moe_assigned"] = int(counts[:-1][active].sum())
                 for i in active:
                     if fin[i]:
                         continue

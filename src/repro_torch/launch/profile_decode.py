@@ -25,7 +25,9 @@ driven by hand; the engine's captured graph replays the same kernels):
   timed steps' wall time, and its idle time by the program span the host
   was in;
 * the CUDA syncs one engine decode step makes
-  (``torch.cuda.set_sync_debug_mode("warn")``);
+  (``torch.cuda.set_sync_debug_mode("warn")``), and the launches one
+  step counts of each of the engine's kernels (``launches_per_step``: the
+  emitted ones and, with MoE layers, the grouped expert kernel);
 * the step's bound (:func:`step_cost`): the larger of its bytes (every
   weight but the embedding's unread rows, the attended rows of every
   cache tensor the model has, the logits) over 3.35 TB/s and its
@@ -342,7 +344,13 @@ def profile_decode(engine, steps: int = 5, prompt_len: int = 20) -> dict:
                                         pos + i)
 
     out = profile_steps(step, steps, {k.kname: k.product_path
-                                      for k in engine.kernels.values()})
+                                      for k in engine.kernels.values()
+                                      if hasattr(k, "kname")})
+    before = {name: k.launches for name, k in engine.kernels.items()}
+    step(0)
+    out["launches_per_step"] = {
+        name: k.launches - before[name]
+        for name, k in engine.kernels.items() if k.launches != before[name]}
     out["decode_syncs"] = {"inputs": syncs(engine._decode_inputs),
                            "decode_step": syncs(lambda: step(0))}
     step_bytes, step_flops = step_cost(engine.cfg, engine.params,

@@ -18,6 +18,9 @@ included.
 The projections, ``wo``, the head and the MoE experts stay
 ``torch.matmul``: none of them is inside a Pallas kernel in the reference
 either (its unsharded ``moe_apply`` runs ``einsum`` outside any kernel).
+On the card, in float32 and at serving shapes, the held experts run on
+the grouped expert kernel (``kernels/grouped_experts.py``), which
+replaces no Pallas kernel: each expert on only the rows routed to it.
 Nor are MLA's attention and Mamba2's SSD: the reference runs both as
 plain XLA whatever the impls say, and the port as plain torch.
 
@@ -48,6 +51,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import grouped_experts as GE
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as R
 from repro_torch.models.common import (ModelConfig, apply_rope,
@@ -652,7 +656,8 @@ def swiglu_weights(p, prefix: str = ""):
 # ---------------------------------------------------------------------------
 # MoE (qwen3-moe, deepseek-v3, jamba): top-k routing with capacity,
 # scatter dispatch into per-expert buffers, the experts' SwiGLU as batched
-# products; on one chip of an expert-parallel layer, its experts' share
+# products (on the card, the grouped expert kernel); on one chip of an
+# expert-parallel layer, its experts' share
 # ---------------------------------------------------------------------------
 
 def _route(xn, p, cfg: ModelConfig):
@@ -711,6 +716,27 @@ def moe_dispatch(top_ids, capacity: int, n_experts: int):
     flat = F.one_hot(top_ids.reshape(-1), n_experts)      # (T k, E)
     pos = ((flat.cumsum(0) - flat) * flat).sum(-1).reshape(t, k)
     return pos < capacity, top_ids * capacity + pos.clamp(max=capacity - 1)
+
+
+def _takes_grouped(p, xn, top_ids, n_experts: int) -> bool:
+    """Whether the held experts run on the grouped expert kernel: on the
+    card, in float32, with no gradient required and no mesh active, where
+    the step's assignments average at most one row tile
+    (``grouped_experts.RT`` rows) an expert of the ``n_experts``.  The
+    kernel reads a touched expert's weights once for each tile of its
+    rows, the padded products every held expert's once for all its
+    capacity, so past that the kernel's extra passes outweigh the experts
+    it leaves unread: on the card deepseek-v3's, qwen3-moe's and jamba's
+    layers ran faster on the kernel at up to 8 assignments an expert, and
+    qwen3-moe's and jamba's slower at 16 (PERF.md, row 6).  Every other
+    caller (CPU tensors, training, the mesh's layers) keeps the padded
+    products of :func:`_held_experts_out`."""
+    ws = [p[n] for n in ("we_gate", "we_up", "we_down")]
+    return (xn.is_cuda and active_mesh() is None
+            and top_ids.numel() <= GE.RT * n_experts
+            and all(a.dtype == torch.float32 and not a.requires_grad
+                    for a in [xn, *ws])
+            and xn.shape[1] % 4 == 0 and ws[0].shape[2] % 4 == 0)
 
 
 def _held_experts_out(p, xn, top_w, top_ids, capacity: int, base: int,
@@ -775,10 +801,16 @@ def moe_apply(p, x, gamma, cfg: ModelConfig,
     ``data`` and ``model`` axes, the expert-parallel layer runs instead
     (:func:`_moe_apply_sharded`), as in the reference (layers.py:472-476).
 
-    ``assigned``, a list, receives each token's count of its (token, k)
-    assignments that land on held experts, a (T,) tensor on the device
-    (the unsharded layer only): the engine's ``moe_assigned``, with no
-    sync."""
+    On the card the held experts run on the grouped expert kernel where
+    :func:`_takes_grouped` says so, each on only the rows routed to it;
+    elsewhere as the padded products of :func:`_held_experts_out`.
+
+    ``assigned``, a list, receives a (T + 1,) tensor on the device (the
+    unsharded layer only): each token's count of its (token, k)
+    assignments that land on held experts, then the rows the held experts
+    computed (on the grouped kernel each one's kept rows, none padded; on
+    the padded products count x capacity).  The engine's ``moe_assigned``
+    and ``moe_rows``, with no sync."""
     mesh = active_mesh()
     if (cfg.moe_impl == "shard_map" and mesh is not None
             and {"data", "model"} <= set(axis_names(mesh))):
@@ -797,11 +829,21 @@ def moe_apply(p, x, gamma, cfg: ModelConfig,
     # every token): the tokens are gathered for it, as GSPMD does
     xg = constrain(xn, None, None)
     top_w, top_ids = _route(xg, p, cfg)
+    capacity = moe_capacity(t, cfg)
+    if _takes_grouped(p, xg, top_ids, e):
+        # the dispatch keeps moe_dispatch's slots and drops; the combine
+        # weights each token's kept slots by top_w
+        out, _, counts = GE.grouped_moe_cuda(
+            xg, top_w, top_ids, p["we_gate"], p["we_up"], p["we_down"],
+            base, capacity)
+    else:
+        out = _held_experts_out(p, xg, top_w, top_ids, capacity, base,
+                                count, e)
+        if assigned is not None:
+            held = ((top_ids >= base) & (top_ids < base + count)).sum(-1)
+            counts = torch.cat([held, held.new_full((1,), count * capacity)])
     if assigned is not None:
-        assigned.append(((top_ids >= base) & (top_ids < base + count)
-                         ).sum(-1))
-    out = _held_experts_out(p, xg, top_w, top_ids, moe_capacity(t, cfg),
-                            base, count, e)
+        assigned.append(counts)
     if cfg.n_shared_experts:
         out = out + _shared_experts(p, xn)
     return constrain(out.reshape(b, s, d).to(x.dtype), "batch", None, None)

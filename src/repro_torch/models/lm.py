@@ -296,8 +296,8 @@ class LM:
         (B,) vector (ragged continuous batching; a Mamba2 step takes no
         position).  Writes the new cache entries into ``caches`` in place
         and returns ``(logits, caches)``.  ``assigned``, a list, receives
-        each MoE layer's count a row of its assignments to held experts
-        (``layers.moe_apply``)."""
+        each MoE layer's count a row of its assignments to held experts,
+        then the rows its held experts computed (``layers.moe_apply``)."""
         x = self._embed(params, tokens)
         for i, p in enumerate(params["layers"]):
             cache = {name: caches[name][self.slots[i]]
@@ -307,15 +307,12 @@ class LM:
             x = self._mlp(p, x + y, i, assigned)
         return self._logits(params, x), caches
 
-    def moe_rows(self, batch: int) -> int:
-        """The rows the held experts compute in a decode step of ``batch``
-        rows, summed over the MoE layers: each held expert computes its
-        ``layers.moe_capacity`` rows.  0 without MoE layers."""
-        cfg = self.cfg
-        layers = sum(cfg.mlp_of(i) == "moe" for i in range(cfg.n_layers))
-        if not layers:
-            return 0
-        return layers * cfg.held_experts[1] * L.moe_capacity(batch, cfg)
+    @property
+    def has_moe(self) -> bool:
+        """Whether a layer's MLP is the MoE, whose decode step counts its
+        held experts' work in ``decode_step``'s ``assigned``."""
+        return any(self.cfg.mlp_of(i) == "moe"
+                   for i in range(self.cfg.n_layers))
 
 
 def build_model(cfg: ModelConfig):

@@ -16,12 +16,12 @@ Two kinds of sites:
 * **Engine spans** (``launch/engine.py``), recorded always, a few clock
   reads a tick: ``tick`` (a whole engine step; attributes ``n_prefill``
   and ``n_decode``, and where the step decoded on a model with MoE layers
-  ``moe_rows``, the rows the held experts computed summed over the MoE
-  layers (``LM.moe_rows``: held x capacity, known on the host), and
-  ``moe_assigned``, the active rows' (token, k) assignments that landed
-  on held experts, counted by each MoE layer (``layers.moe_apply``),
-  summed over the layers inside the decode step and read with the
-  logits' finite check;
+  ``moe_rows``, the rows the held experts computed (on the grouped
+  expert kernel each held expert's kept rows, none padded; on the padded
+  products held x capacity), and ``moe_assigned``, the active rows'
+  (token, k) assignments that landed on held experts, both counted by
+  each MoE layer (``layers.moe_apply``), summed over the layers inside
+  the decode step and read with the logits' finite check;
   ``StepRecord.wall_ms`` is its duration); ``admit``
   (one request's admission: bucket and padding, ``LM.prefill`` into the
   cache slot, the finite check and the first sample; ``rid``, attributes

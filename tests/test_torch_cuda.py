@@ -36,6 +36,7 @@ from repro_torch import pipeline as TP
 from repro_torch.core import array_program as TAP
 from repro_torch.core import codegen_cuda as CC
 from repro_torch.core.fusion import fuse
+from repro_torch.kernels import grouped_experts as GE
 from repro_torch.pipeline import packing as P
 import torch_port  # noqa: F401
 
@@ -458,13 +459,16 @@ def test_deepseek_decode_step_never_syncs_on_card(card):
     (1 dense + 1 MoE layer), as the engine runs it eagerly, enqueues
     everything: no host-device sync under
     ``torch.cuda.set_sync_debug_mode("error")``, each row's count of its
-    assignments to the held experts handed back on the device."""
+    assignments to the held experts and the rows the held experts
+    computed handed back on the device (the grouped expert kernel's
+    rows: every assignment, drop-free at capacity factor 32)."""
     from repro_torch.launch.engine import Engine
     cfg = _deepseek_cell_config(2)
     eng = Engine(cfg, device=card, max_batch=32, max_len=256,
                  prompt_buckets=(32,), repromote_after=None)
     eng.warmup()
-    toks = torch.zeros((32, 1), dtype=torch.long, device=card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (32, 1), generator=gen, device=card)
     pos = torch.arange(32, device=card) + 3
     eng._step(toks, pos)
     torch.cuda.synchronize()
@@ -476,8 +480,10 @@ def test_deepseek_decode_step_never_syncs_on_card(card):
     torch.cuda.synchronize()
     assert logits.shape == (32, 1, cfg.vocab)
     assert bool(torch.isfinite(logits).all())
-    assert held.shape == (32,) and held.device.type == "cuda"
-    assert bool(((held >= 0) & (held <= cfg.top_k)).all())
+    assert held.shape == (33,) and held.device.type == "cuda"
+    assert bool(((held[:32] >= 0) & (held[:32] <= cfg.top_k)).all())
+    assert int(held[:32].sum()) > 0
+    assert int(held[32]) == int(held[:32].sum())
 
 
 def test_deepseek_routing_on_card_matches_cpu(card):
@@ -507,7 +513,8 @@ def test_deepseek_graphs_replay_the_eager_steps_on_card(card):
     """With ``cuda_graphs`` the engine captures each bucket's prefill and
     its decode step as CUDA graphs in ``warmup()``: replays on new tokens
     and ragged positions give the eager steps' logits, caches and each
-    row's count of its assignments to the held experts."""
+    row's count of its assignments to the held experts (and the rows they
+    computed)."""
     import dataclasses
     from repro_torch.launch.engine import Engine
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -532,13 +539,14 @@ def test_deepseek_graphs_replay_the_eager_steps_on_card(card):
     pos = torch.arange(32, device=card) % 12 + 20
     eager = {k: v.clone() for k, v in eng.caches.items()}
     want, want_held = eng._step(toks, pos, caches=eager)
+    launched = GE.KERNEL.launches
     got, got_held = eng._run("decode", eng._step, toks, pos)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     for k in eager:
         torch.testing.assert_close(eng.caches[k], eager[k], rtol=1e-5,
                                    atol=1e-5)
-    assert got_held.shape == (32,) and torch.equal(got_held, want_held)
+    assert got_held.shape == (33,) and torch.equal(got_held, want_held)
 
 
 def _graph_config(kind):
@@ -655,6 +663,7 @@ def test_default_engine_replays_graphs_on_card(kind, card):
     pos = torch.tensor(lens, device=card)
     eager_caches = {k: v.clone() for k, v in eng.caches.items()}
     want, want_held = eng._step(toks, pos, caches=eager_caches)
+    launched = GE.KERNEL.launches
     got, got_held = eng._run("decode", eng._step, toks, pos)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -662,9 +671,15 @@ def test_default_engine_replays_graphs_on_card(kind, card):
         torch.testing.assert_close(eng.caches[k], eager_caches[k], rtol=1e-5,
                                    atol=1e-5)
     if kind == "moe":
-        assert got_held.shape == (8,) and torch.equal(got_held, want_held)
+        assert got_held.shape == (9,) and torch.equal(got_held, want_held)
+        # the decode graph runs the grouped expert kernel in both MoE
+        # layers (8 rows, top-2 of 4), and its replay counts them
+        assert eng.kernels["grouped_experts"] is GE.KERNEL
+        assert GE.KERNEL.launches - launched == cfg.n_layers
     else:
         assert got_held is None and want_held is None
+        assert GE.KERNEL.launches == launched
+        assert "grouped_experts" not in eng.kernels
 
     trace = [Request(rid, tuple(int(t) for t in rng.integers(
         0, cfg.vocab, n)), 6, 0) for rid, n in enumerate([3, 40, 17, 60])]

@@ -1,6 +1,6 @@
-"""The three hand-written CUDA kernels on the card (the ``card`` fixture
-skips them, with its reason, on a machine without one).  Run them on the
-card with
+"""The hand-written CUDA kernels on the card (the ``card`` fixture skips
+them, with its reason, on a machine without one): the paper's three and
+the grouped expert kernel of the MoE layer.  Run them on the card with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
 
@@ -173,3 +173,139 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         SW.rmsnorm_swiglu_cuda(x, w.bfloat16(), w,
                                torch.zeros(8, 4, device=card),
                                torch.ones(4000, device=card))
+
+
+# -- the grouped expert kernel (kernels/grouped_experts.py) ------------------
+# deepseek-v3's held experts: d 7168, expert_ff 2048, 8 held of 256, top-8.
+# Float32 throughout, held to the float32 tolerance above (2e-4: FFMA sums
+# over 7168 or 2048 terms in another order than cuBLAS's).
+
+DS_D, DS_F, DS_E, DS_HELD, DS_K = 7168, 2048, 256, 8, 8
+
+
+def _routing(gen, card, t, e=DS_E, k=DS_K):
+    """Random top-k ids (k distinct experts a token) and weights."""
+    ids = torch.rand(t, e, generator=gen, device=card).topk(k, -1)[1]
+    return torch.rand(t, k, generator=gen, device=card), ids
+
+
+def _held_weights(gen, card, count=DS_HELD, d=DS_D, f=DS_F):
+    return {"we_gate": _randn(gen, card, count, d, f, scale=d ** -0.5),
+            "we_up": _randn(gen, card, count, d, f, scale=d ** -0.5),
+            "we_down": _randn(gen, card, count, f, d, scale=f ** -0.5)}
+
+
+def _grouped(fn, p, x, w, ids, cap):
+    return fn(x, w, ids, p["we_gate"], p["we_up"], p["we_down"], 0, cap)
+
+
+@pytest.mark.parametrize("t,cap", [(32, 32), (256, 256), (32, 2)],
+                         ids=["decode32", "prefill256", "drops"])
+def test_grouped_experts_on_card(card, t, cap):
+    """At deepseek's widths: the kernel against its plain version (row
+    counts, held counts and rows computed equal, the output within the
+    float32 tolerance), two calls bit for bit, an expert with no row
+    unread (NaN weights change nothing), one launch a call; with a
+    capacity under the demand (``drops``), the assignments past it
+    dropped as the plain version drops them."""
+    from repro_torch.kernels import grouped_experts as GE
+    gen = torch.Generator(device=card).manual_seed(31)
+    x = _randn(gen, card, t, DS_D)
+    w, ids = _routing(gen, card, t)
+    ids[ids == 5] = DS_E - 1          # held expert 5 gets no row
+    if cap < t:                       # held expert 2 on every token
+        ids[ids == 2] = DS_E - 2
+        ids[:, 0] = 2
+    p = _held_weights(gen, card)
+    got = _launched(GE.KERNEL, lambda: _grouped(GE.grouped_moe_cuda, p, x,
+                                                w, ids, cap))
+    want = _grouped(GE.plain, p, x, w, ids, cap)
+    demand = torch.bincount(ids[ids < DS_HELD], minlength=DS_HELD)
+    assert got[1][5] == 0 and got[1].sum() > 0
+    assert torch.equal(got[1].long(), demand.clamp(max=cap))
+    assert (demand > cap).any() == (cap < t)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert int(got[2][t]) == int(got[1].sum())
+    torch.testing.assert_close(got[0], want[0], rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+    again = _grouped(GE.grouped_moe_cuda, p, x, w, ids, cap)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    for name in p:
+        p[name][5] = float("nan")
+    assert torch.equal(_grouped(GE.grouped_moe_cuda, p, x, w, ids, cap)[0],
+                       got[0])
+
+
+def test_grouped_experts_replay_under_new_routing_on_card(card):
+    """The kernel captured once as a CUDA graph at the decode step's 32
+    rows: replays under two other routings equal the eager calls on them,
+    bit for bit, and each replay follows its own row counts."""
+    from repro_torch.kernels import grouped_experts as GE
+    gen = torch.Generator(device=card).manual_seed(7)
+    t = 32
+    p = _held_weights(gen, card)
+    static = [_randn(gen, card, t, DS_D), *_routing(gen, card, t)]
+
+    def step(x, w, ids):
+        return _grouped(GE.grouped_moe_cuda, p, x, w, ids, t)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step(*static)                 # builds and loads the kernel
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, n, counts = step(*static)
+    for seed in (1, 2):
+        g = torch.Generator(device=card).manual_seed(seed)
+        inputs = [_randn(g, card, t, DS_D), *_routing(g, card, t)]
+        for dst, src in zip(static, inputs):
+            dst.copy_(src)
+        before = GE.KERNEL.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        assert GE.KERNEL.launches == before   # a replay calls no wrapper
+        want, want_n, want_counts = step(*inputs)
+        assert torch.equal(n, want_n) and torch.equal(counts, want_counts)
+        assert torch.equal(out, want)
+        assert torch.isfinite(out).all() and out.abs().max() > 0
+
+
+def test_moe_layer_takes_the_grouped_kernel_on_card(card):
+    """``moe_apply`` in float32 on the card runs the held experts on the
+    kernel (one launch a call; ``assigned`` gets each token's held
+    assignments, then the rows the kernel computed) and gives the padded
+    products' output; with a gradient required it keeps the padded
+    products."""
+    from repro_torch.kernels import grouped_experts as GE
+    from repro_torch.models import common as CM
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=card).manual_seed(11)
+    d, f, e = 256, 128, 64
+    cfg = CM.ModelConfig(family="moe", d_model=d, n_experts=e, top_k=8,
+                         moe_d_ff=f, router_score="sigmoid", router_groups=8,
+                         router_groups_kept=4, routed_scale=2.5,
+                         capacity_factor=8.0, expert_share=(8, 8),
+                         dtype=torch.float32)
+    p = _held_weights(gen, card, 8, d, f)
+    p["router"] = _randn(gen, card, d, e, scale=0.3)
+    p["router_bias"] = _randn(gen, card, e, scale=0.05)
+    x = _randn(gen, card, 4, 8, d)
+    gamma = torch.ones(d, device=card)
+    assigned = []
+    got = _launched(GE.KERNEL, lambda: L.moe_apply(p, x, gamma, cfg,
+                                                   assigned))
+    xn = CM.rms_norm(x, gamma, cfg.norm_eps).reshape(32, d)
+    w, ids = L._route(xn, p, cfg)
+    want = L._held_experts_out(p, xn, w, ids, L.moe_capacity(32, cfg), 8, 8,
+                               e).reshape(got.shape)
+    torch.testing.assert_close(got, want, rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+    held = (ids >= 8) & (ids < 16)
+    assert torch.equal(assigned[0][:32], held.sum(-1))
+    assert int(assigned[0][32]) == int(held.sum())   # drop-free at cf 8
+    trained = {k: v.requires_grad_(True) for k, v in p.items()}
+    before = GE.KERNEL.launches
+    L.moe_apply(trained, x, gamma, cfg)
+    assert GE.KERNEL.launches == before

@@ -120,13 +120,15 @@ def test_shares_add_up_under_noaux_tc():
     torch.testing.assert_close(parts - 3 * shared, whole, rtol=1e-5,
                                atol=1e-5)
     # each token's count of its assignments to the held experts, handed
-    # back for the engine's count: the router's own choice, counted
+    # back for the engine's count: the router's own choice, counted; then
+    # the rows the padded products computed, held x capacity
     assigned = []
-    TL.moe_apply(share, x, gamma, dataclasses.replace(
-        cfg, expert_share=(12, 4)), assigned)
+    held = dataclasses.replace(cfg, expert_share=(12, 4))
+    TL.moe_apply(share, x, gamma, held, assigned)
     _, ids = TL._route(xn, p, cfg)
-    assert len(assigned) == 1 and assigned[0].shape == (10,)
-    assert torch.equal(assigned[0], ((ids >= 12) & (ids < 16)).sum(-1))
+    assert len(assigned) == 1 and assigned[0].shape == (11,)
+    assert torch.equal(assigned[0][:10], ((ids >= 12) & (ids < 16)).sum(-1))
+    assert int(assigned[0][10]) == 4 * TL.moe_capacity(10, held)
 
 
 YARN = TCM.Yarn(factor=40.0, original_max=4096, beta_fast=32.0,
